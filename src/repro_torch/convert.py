@@ -1,0 +1,69 @@
+"""Carry parameters between the JAX package's numpy form and the port.
+
+``params_from_numpy`` takes either a nested numpy tree (what
+``jax.tree.map(np.asarray, models)`` gives: dicts, with the MLP
+encoder's ``hidden`` as a list) or the flat ``/``-keyed dict of a
+checkpoint's ``arrays.npz`` (``hidden/0/w``, ...), and returns the
+port's nested dict of tensors on ``device``. ``params_to_numpy`` is its
+inverse, giving back the nested numpy tree.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _unflatten(flat: dict):
+    root: dict = {}
+    for key, leaf in flat.items():
+        *path, last = key.split("/")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"checkpoint key {key!r} nests under a leaf")
+        if last in node:
+            raise ValueError(f"duplicate checkpoint key {key!r}")
+        node[last] = leaf
+    return _lists(root)
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 (list indices in flattened paths) back to lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        idx = sorted(node, key=int)
+        if [int(k) for k in idx] == list(range(len(idx))):
+            return [node[k] for k in idx]
+    return node
+
+
+def _is_flat(tree) -> bool:
+    return (isinstance(tree, dict) and any("/" in k for k in tree)
+            and not any(isinstance(v, (dict, list, tuple)) for v in tree.values()))
+
+
+def params_from_numpy(tree_or_flat, device):
+    """Numpy parameters (nested tree or flat ``/``-keyed dict) -> nested
+    dict of tensors on ``device``. Leaves are copied."""
+    tree = _unflatten(tree_or_flat) if _is_flat(tree_or_flat) else tree_or_flat
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.from_numpy(np.array(node, copy=True)).to(device)
+
+    return conv(tree)
+
+
+def params_to_numpy(tree):
+    """Nested dict of tensors -> the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()

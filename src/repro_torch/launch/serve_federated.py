@@ -1,0 +1,306 @@
+"""Serving driver: blended federation models behind the micro-batched
+request engine, on one device (port of
+``src/repro/launch/serve_federated.py``).
+
+    # serve 3 request mixes with models initialised from --seed
+    PYTHONPATH=src python -m repro_torch.launch.serve_federated \
+        --requests 64 --mix all_multimodal --mix mixed_unimodal --mix vfl_heavy
+
+    # serve a JAX train_federated checkpoint's blended global models and
+    # VFL server head
+    PYTHONPATH=src python -m repro_torch.launch.serve_federated \
+        --ckpt-dir /tmp/fedckpt --requests 256 --mix vfl_heavy
+
+    # smoke: 2 mixes through one engine, parity + byte assertions
+    PYTHONPATH=src python -m repro_torch.launch.serve_federated --selftest
+
+Requests route by available modalities to the blended local heads, pad
+into capacity-bucketed micro-batches, and the VFL fallback's
+feature/score messages meter real wire bytes through the codec. The
+reference trains a small federation inline when no checkpoint is given;
+the port serves seeded random models until the training slice lands.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+# Request-mix presets: probability of (multimodal, A-only, B-only, vfl).
+MIXES = {
+    "all_multimodal": (1.0, 0.0, 0.0, 0.0),
+    "mixed_unimodal": (0.0, 0.5, 0.5, 0.0),
+    "vfl_heavy": (0.2, 0.1, 0.1, 0.6),
+}
+
+# Engine scores vs single-request predict. The two run products of
+# different batch sizes, and cuBLAS picks its kernels by shape, so rows
+# agree to f32 rounding, not bit for bit. Under a lossy codec a last-ulp
+# difference can push a rare entry across a top-k or rounding boundary,
+# so the lossy bound holds over all the scores of a run, not per request.
+ATOL_EXACT = 1e-5  # codec none: every score
+ATOL_LOSSY = 2e-2  # lossy codec: every score ...
+FRAC_LOSSY = 0.99  # ... and this share of them within ATOL_EXACT
+
+
+def within_tolerance(errs, lossy: bool) -> tuple:
+    """(ok, max_abs_err, share within ATOL_EXACT) of the absolute score
+    errors of one run under the tolerance stated above."""
+    errs = np.concatenate([np.ravel(e) for e in errs]) if len(errs) else np.zeros(0)
+    if not errs.size:
+        return True, 0.0, 1.0
+    max_err = float(errs.max())
+    within = float((errs <= ATOL_EXACT).mean())
+    if lossy:
+        return (max_err <= ATOL_LOSSY and within >= FRAC_LOSSY), max_err, within
+    return max_err <= ATOL_EXACT, max_err, within
+
+
+def models_from_checkpoint(ckpt_dir: str, spec, ecfg, step: int | None = None,
+                           device=None):
+    """Blended ``global_models`` + VFL ``server_gmv`` out of a JAX
+    ``train_federated`` round-state checkpoint, on ``device``.
+
+    Reads just the two serving blocks (the stacked per-client models,
+    optimizer moments and telemetry stay on disk), after a manifest
+    preflight that checks the requested ``--d-hidden`` against the
+    checkpoint's head shapes so a mismatch fails with dims, then checks
+    every leaf's shape against the models this config builds.
+    """
+    from repro_torch.checkpoint import latest_step, load_arrays, read_manifest
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.encoders import fusion_init, init_client_models
+
+    device = resolve_device(device)
+    resolved = latest_step(ckpt_dir) if step is None else step
+    if resolved is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    manifest = read_manifest(ckpt_dir, resolved)
+    try:
+        d_ck, out_ck = manifest["shapes"]["server_gmv/out/w"]
+    except KeyError:
+        raise KeyError(f"checkpoint {ckpt_dir} step {resolved} has no "
+                       "server_gmv head — not a round-state checkpoint")
+    if (d_ck, out_ck) != (ecfg.d_hidden, spec.out_dim):
+        raise ValueError(
+            f"checkpoint {ckpt_dir} step {resolved} was trained with "
+            f"d_hidden={d_ck}, out_dim={out_ck}; this serving config asks "
+            f"for d_hidden={ecfg.d_hidden}, out_dim={spec.out_dim} — fix "
+            "--d-hidden/--task to match (see tools/ckpt_inspect.py)")
+    flat = load_arrays(ckpt_dir, resolved,
+                       prefixes=("global_models", "server_gmv"))
+    gen = torch.Generator().manual_seed(0)
+    template = {
+        "global_models": init_client_models(gen, spec, ecfg, device="cpu"),
+        "server_gmv": fusion_init(gen, ecfg.d_hidden, spec.out_dim,
+                                  device="cpu"),
+    }
+    want = _flat_shapes(template)
+    got = {k: tuple(v.shape) for k, v in flat.items()}
+    for key, shape in want.items():
+        if key not in got:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        if got[key] != shape:
+            raise ValueError(f"shape mismatch for {key!r}: {got[key]} vs {shape}")
+    state = params_from_numpy({k: flat[k].astype(np.float32) for k in want},
+                              device)
+    print(f"restored blended models from {ckpt_dir} step {resolved}")
+    return state["global_models"], state["server_gmv"]
+
+
+def _flat_shapes(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tuple(tree.shape)}
+    out = {}
+    for k, v in items:
+        out.update(_flat_shapes(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def make_requests(spec, mix: str, n: int, *, rows: int, seed: int) -> list:
+    """A deterministic heterogeneous request stream for one mix preset.
+    Row counts vary per request (1..rows) so the stream exercises
+    multiple capacity buckets and the chunking path. The same numpy
+    stream as the reference; its ``hash(mix)`` is salted per process,
+    so the two agree within one process only."""
+    from repro_torch.core.inference import InferenceRequest
+
+    p_mm, p_a, p_b, p_vfl = MIXES[mix]
+    rng = np.random.default_rng([seed, hash(mix) & 0xFFFF])
+    kinds = rng.choice(4, size=n, p=[p_mm, p_a, p_b, p_vfl])
+    out = []
+    for kind in kinds:
+        m = int(rng.integers(1, rows + 1))
+        xa = rng.standard_normal((m, spec.seq_a, spec.feat_a)).astype(np.float32)
+        xb = rng.standard_normal((m, spec.seq_b, spec.feat_b)).astype(np.float32)
+        if kind == 1:
+            out.append(InferenceRequest(xa, None))
+        elif kind == 2:
+            out.append(InferenceRequest(None, xb))
+        else:
+            out.append(InferenceRequest(xa, xb, vfl=(kind == 3)))
+    return out
+
+
+def serve_mix(engine, spec, mix: str, n: int, *, rows: int, seed: int) -> dict:
+    """Run one mix through the engine; per-mix latency/throughput/bytes."""
+    reqs = make_requests(spec, mix, n, rows=rows, seed=seed)
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    wall = time.perf_counter() - t0
+    lat_ms = np.array([r.latency_s for r in results]) * 1e3
+    total_rows = sum(len(r.scores) for r in results)
+    return {
+        "mix": mix, "requests": n, "rows": total_rows,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "rps": n / wall, "rows_per_s": total_rows / wall,
+        "bytes_per_request": sum(r.bytes for r in results) / n,
+        "wall_s": wall,
+        "results": results,
+    }
+
+
+def build_engine(args, models, server_gmv, ecfg, kind):
+    from repro_torch.core.serving import ServingConfig, ServingEngine
+
+    cfg = ServingConfig(
+        capacities=tuple(int(c) for c in args.capacities.split(",")),
+        codec=args.codec, window=args.window, prefetch=args.prefetch)
+    return ServingEngine(models, ecfg, kind, server_gmv=server_gmv, cfg=cfg,
+                         device=args.device)
+
+
+def load_models(args, spec, ecfg):
+    """The served models: a checkpoint's when ``--ckpt-dir`` is given,
+    else models initialised from ``--seed`` on ``--device``."""
+    from repro_torch.core.encoders import fusion_init, init_client_models
+
+    if args.ckpt_dir:
+        return models_from_checkpoint(args.ckpt_dir, spec, ecfg,
+                                      step=args.step, device=args.device)
+    device = resolve_device(args.device)
+    gen = torch.Generator().manual_seed(args.seed)
+    models = init_client_models(gen, spec, ecfg, device=device)
+    gmv = fusion_init(gen, ecfg.d_hidden, spec.out_dim, device=device)
+    print(f"serving models initialised from seed {args.seed} on {device}")
+    return models, gmv
+
+
+def selftest(args) -> None:
+    """Smoke assertion: two different request mixes through ONE engine
+    must (a) score every request like a single-request ``predict`` call,
+    within the tolerance above, and (b) meter wire bytes that reconcile
+    exactly with the analytic ``communication_cost``."""
+    from repro_torch.core.encoders import EncoderConfig
+    from repro_torch.core.inference import predict
+    from repro_torch.data.synthetic import make_task
+
+    spec = make_task(args.task)
+    ecfg = EncoderConfig(d_hidden=args.d_hidden, n_layers=args.n_layers,
+                         enc_type=args.enc_type)
+    models, gmv = load_models(args, spec, ecfg)
+    engine = build_engine(args, models, gmv, ecfg, spec.kind)
+
+    total_bytes = 0
+    for mix in ("mixed_unimodal", "vfl_heavy"):
+        reqs = make_requests(spec, mix, args.requests, rows=args.rows,
+                             seed=args.seed)
+        results = engine.run(reqs)
+        if [r.index for r in results] != list(range(len(reqs))):
+            raise AssertionError(f"results out of stream order ({mix})")
+        errs = {False: [], True: []}  # lossy -> per-request abs errors
+        for res, req in zip(results, reqs):
+            ref = predict(models, req, ecfg, spec.kind, server_gmv=gmv,
+                          codec=args.codec if req.vfl else None,
+                          device=engine.device)
+            if res.route is not ref.route:
+                raise AssertionError((res.route, ref.route))
+            if res.scores.shape != ref.scores.shape:
+                raise AssertionError((res.scores.shape, ref.scores.shape))
+            lossy = req.vfl and args.codec != "none"
+            errs[lossy].append((res.scores - ref.scores).abs().cpu().numpy())
+        for lossy, e in errs.items():
+            ok, err, within = within_tolerance(e, lossy)
+            if not ok:
+                raise AssertionError(
+                    f"engine scores diverge from predict ({mix}, "
+                    f"{'lossy' if lossy else 'exact'} routes): max abs err "
+                    f"{err:.3g}, {within:.4f} within {ATOL_EXACT}")
+        total_bytes += sum(r.bytes for r in results)
+        worst = max(float(np.max(e)) for es in errs.values() for e in es)
+        print(f"selftest mix {mix}: {len(reqs)} requests match predict "
+              f"(max abs err {worst:.3g})")
+    if total_bytes != engine.stats["wire_bytes"]:
+        raise AssertionError((total_bytes, engine.stats["wire_bytes"]))
+    print(f"selftest ok: measured wire bytes {engine.stats['wire_bytes']} "
+          "reconcile with analytic")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="serve a federation's blended models")
+    ap.add_argument("--task", default="smnist")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="JAX train_federated checkpoint to serve from "
+                         "(default: models initialised from --seed)")
+    ap.add_argument("--step", type=int, default=None)
+    ap.add_argument("--d-hidden", type=int, default=32)
+    ap.add_argument("--n-layers", type=int, default=1)
+    ap.add_argument("--enc-type", default="mlp",
+                    choices=("mlp", "recurrent", "transformer"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=64,
+                    help="requests per mix")
+    ap.add_argument("--rows", type=int, default=8,
+                    help="max rows per request (row counts vary 1..rows)")
+    ap.add_argument("--mix", action="append", default=None,
+                    choices=sorted(MIXES), help="request mix preset "
+                    "(repeatable; default: all three)")
+    ap.add_argument("--capacities", default="2,4,16,64")
+    ap.add_argument("--codec", default="none",
+                    help="wire codec for the VFL fallback route")
+    ap.add_argument("--window", type=int, default=32)
+    ap.add_argument("--prefetch", type=int, default=2)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--selftest", action="store_true",
+                    help="2 mixes + parity/bytes assertions, then exit")
+    args = ap.parse_args(argv)
+
+    if args.selftest:
+        selftest(args)
+        return
+
+    from repro_torch.core.encoders import EncoderConfig
+    from repro_torch.data.synthetic import make_task
+
+    spec = make_task(args.task)
+    ecfg = EncoderConfig(d_hidden=args.d_hidden, n_layers=args.n_layers,
+                         enc_type=args.enc_type)
+    models, gmv = load_models(args, spec, ecfg)
+    engine = build_engine(args, models, gmv, ecfg, spec.kind)
+
+    for mix in (args.mix or sorted(MIXES)):
+        row = serve_mix(engine, spec, mix, args.requests, rows=args.rows,
+                        seed=args.seed)
+        print(f"mix {mix:>15}: {row['requests']} req ({row['rows']} rows) "
+              f"p50 {row['p50_ms']:.2f}ms p99 {row['p99_ms']:.2f}ms "
+              f"{row['rps']:.1f} req/s {row['bytes_per_request']:.0f} B/req")
+    st = engine.stats
+    print(f"engine: {st['batches']} batches over routes "
+          f"{ {k: v for k, v in st['batches_by_route'].items() if v} }; "
+          f"wire {st['wire_messages']} msgs / {st['wire_bytes']} bytes; "
+          f"build {st['build_seconds']:.3f}s stall {st['stall_seconds']:.3f}s "
+          f"execute {st['execute_seconds']:.3f}s")
+
+
+if __name__ == "__main__":
+    main()

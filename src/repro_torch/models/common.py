@@ -1,0 +1,43 @@
+"""Core functional layers: linear and RMS norm.
+
+Params are plain nested dicts of tensors with the reference's keys
+(``src/repro/models/common.py``); every layer is an (init, apply) pair
+of functions. Random init draws from an explicit ``torch.Generator`` on
+the generator's own device and moves the result to ``device``, so one
+seed gives the same weights on every device. The numbers differ from
+the reference's JAX threefry draws; parity tests carry weights across
+with ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+               device, bias: bool = False, scale: float | None = None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    p = {"w": w.to(device=device, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x):
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm_init(d: int, dtype, *, device):
+    return {"g": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["g"].float()).to(x.dtype)
