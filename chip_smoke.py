@@ -8,12 +8,15 @@ one CUDA card; it exits non-zero, printing no result, without one or
 outside a checkout. Phases, each fatal on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: every CUDA source of the port, compiled from the checkout;
-3. kernel against plain: each kernel's wrapper on tensors on the card,
+2. build: every CUDA source of the port, compiled from the checkout, one
+   nvcc per source, all at once;
+3. wire codec against plain: the kernel's wrapper on tensors on the card,
    held against its plain PyTorch version (serving shapes, ragged N, an
-   all-zero row, ties at the threshold, bf16, every codec, and the
-   features the full-width encoders produce), then timed with CUDA
-   events beside the plain version and the HBM bound;
+   all-zero row, ties at the threshold, bf16, every codec, the features
+   the full-width encoders produce, and the training round's message
+   shapes, whose rows span more blocks than the kernel's capped grid),
+   then timed with CUDA events beside the plain version and the HBM
+   bound;
 4. full-width serving: the ``ServingEngine`` (int8_topk codec) over three
    request mixes on the widest BlendFL model the repository supports
    (MLP encoders, d_hidden=1024, 4 layers, 64x128 features per modality,
@@ -21,7 +24,23 @@ outside a checkout. Phases, each fatal on failure:
    agreement with single-request ``predict`` and with the CPU run of the
    same models, and the wire bytes against the analytic cost; kernel
    launch counts read around this run;
-5. the CLI: ``repro_torch.launch.serve_federated --selftest``.
+5. the CLI: ``repro_torch.launch.serve_federated --selftest`` serving a
+   federation it trains inline on the card (2 rounds, 3 clients);
+6. blend kernel against plain: the BlendAvg blend on the card against its
+   plain version at the test shapes and the training round's leaf shapes,
+   a zero omega and bf16, then timed beside the plain version, the
+   library call ``omega @ stacked`` and the HBM bound;
+7. full-width training: BlendFL rounds (Algorithm 1 with BlendAvg, SGD)
+   of 16 clients on the same model width, 8192 training rows: phase
+   seconds, finite losses, omegas, blend launches of exactly one per
+   leaf of each group that blended, one round's blend held against the
+   plain version, ``evaluate_global``, a profiled round, then one round
+   under the ``int8_topk`` wire codec (one codec launch per leaf each
+   way) and the codec's times at the round's message shapes;
+8. card against CPU: the quickstart-shaped federation, 2 rounds from the
+   same weights and shuffles on both, then one ``int8_topk`` codec round,
+   within the CPU parity tests' tolerances (the codec round's params at
+   the lossy run-level tolerance).
 
 It then prints one JSON line of per-kernel numbers, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.
@@ -38,14 +57,35 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# Kernel vs plain version: identical keep-masks and int8 codes, values
-# within 4 * eps_f32 * scale_row, the dense identity exact. Engine vs
-# predict and card vs CPU use the serving tolerance of
-# repro_torch.launch.serve_federated (within_tolerance).
+# Wire codec kernel vs plain version: identical keep-masks and int8
+# codes, values within 4 * eps_f32 * scale_row, the dense identity exact.
+# Blend kernel vs plain version: within
+# repro_torch.kernels.blendavg.ref.blend_error_bound (the two sum their
+# L products in different orders). Engine vs predict and card vs CPU
+# serving use the serving tolerance of repro_torch.launch.serve_federated
+# (within_tolerance).
 EPS32 = float(np.finfo(np.float32).eps)
 
 FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 CODEC_OPS_PER_ELEM = 8  # abs, compare, mul, rint, max, min, mul, select
+BLEND_OPS_PER_ELEM = 2  # multiply, add
+
+# Card vs CPU training: the tolerances of tests/test_torch_federation.py.
+# The VFL gather's backward is an index-add, which CUDA runs with atomics
+# in varying order; the run stays within these. Under the lossy int8_topk
+# codec a last-ulp difference can flip a rare top-k or rounding decision:
+# its params are held to all within LOSSY_MAX_ABS and at least
+# LOSSY_SHARE of them within PARAM_ATOL.
+LOSS_RTOL = 1e-4
+OMEGA_ATOL = 1e-3
+PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
+EVAL_ATOL = 1e-3
+LOSSY_MAX_ABS, LOSSY_SHARE = 2e-2, 0.99
+
+# Timed kernels read inputs rotated over at least this many bytes, so
+# that a launch finds its input in HBM, not in the 50 MB L2, as a
+# round's blend does.
+ROTATE_BYTES = 200e6
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -108,16 +148,20 @@ def device_ms(fn, iters=50):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def device_breakdown(run, wall_s, top=6):
+def device_breakdown(run, wall_s, top=6, match=()):
     """The device's busy time in one call of ``run`` (kernels and copies),
     its idle share of ``wall_s`` (the same work timed without the
-    profiler), and the kernels that take most."""
+    profiler), the kernels that take most, and the time and calls of the
+    kernels whose names hold each string of ``match``."""
     kernels = device_kernels(run)
     busy_s = sum(k[0] for k in kernels) / 1e6
     return {"busy_ms": busy_s * 1e3, "wall_ms": wall_s * 1e3,
             "idle_share": 1.0 - busy_s / wall_s,
             "top": [{"kernel": name[:70], "ms": us / 1e3, "calls": n}
-                    for us, n, name in kernels[:top]]}
+                    for us, n, name in kernels[:top]],
+            "matched": {m: {"ms": sum(us for us, _, name in kernels if m in name) / 1e3,
+                            "calls": sum(n for _, n, name in kernels if m in name)}
+                        for m in match}}
 
 
 # ----------------------------------------------------------------- phases --
@@ -149,6 +193,16 @@ def kernel_cases(torch, feats):
                         ("encoder_h_b", feats[1], 256)]:
         for codec, (kk, q) in codecs.items():
             cases.append((f"{label}/{codec}", x, k if kk else None, q))
+    # the training round's messages: uplink (C=16, leaf) and downlink
+    # (1, leaf) at k = a quarter of the row, in f32 and bf16; a 1M-wide row
+    # needs 4096 blocks of 256 threads, so the kernel's grid (capped at 256
+    # blocks a row) loops over each row 16 times
+    for l, n in TRAIN_CODEC_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rows(l, n).to(dtype)
+            for codec, (kk, q) in codecs.items():
+                cases.append((f"train_{l}x{n}_{str(dtype)[6:]}/{codec}", x,
+                              n // 4 if kk else None, q))
     return cases
 
 
@@ -198,6 +252,334 @@ def time_codec(torch, ops, launcher, ref, x, k, mem_rate):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def rotation(make, nbytes):
+    """Copies of the inputs ``make()`` returns, enough to span
+    ROTATE_BYTES (at most 64), and a function that hands them out in
+    turn."""
+    n = max(1, min(64, int(np.ceil(ROTATE_BYTES / nbytes))))
+    copies = [make() for _ in range(n)]
+    state = {"i": 0}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % n
+        return copies[state["i"]]
+
+    return nxt
+
+
+def blend_inputs(torch, l, n, seed, dtype=None, zero=True):
+    """(L, N) normal rows on the card and an f32 omega summing to one,
+    with a discarded (zero) candidate when ``zero``."""
+    gen = np.random.default_rng(seed)
+    x = torch.from_numpy(gen.standard_normal((l, n), np.float32)).cuda()
+    omega = gen.random(l).astype(np.float32)
+    if zero and l > 1:
+        omega[gen.integers(l)] = 0.0
+    omega = torch.from_numpy(omega / omega.sum()).cuda()
+    return (x if dtype is None else x.to(dtype)), omega
+
+
+# the wire codec's messages in a full-width codec round: the largest
+# uplink leaf, the largest downlink leaf, and f_*/in/w
+TRAIN_CODEC_SHAPES = ((16, 1048576), (1, 2097152), (16, 131072))
+
+# the leaf shapes of one full-width round's blends (C = 16 clients, the
+# server head stacked onto g_M), then the CPU tests' shapes
+BLEND_MAIN_SHAPES = ((16, 1048576), (17, 2097152), (16, 131072), (16, 1024))
+BLEND_TEST_SHAPES = ((3, 1000), (5, 2048), (2, 33), (7, 4097))
+
+
+def check_blend(torch, blaunch, bref, x, omega):
+    got = blaunch.blend_params_cuda(x, omega)
+    want = bref.blend_params_ref(x, omega)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    bound = bref.blend_error_bound(x, omega, want, got)
+    check(got.dtype == x.dtype and tuple(got.shape) == (x.shape[1],),
+          "blend output dtype or shape")
+    check(bool((err <= bound).all()), f"blend beyond its bound: max err "
+          f"{float(err.max())}, bound there {float(bound[err.argmax()])}")
+    return float(err.max())
+
+
+def time_blend(torch, blaunch, bref, l, n, mem_rate):
+    nbytes = l * n * 4
+    nxt = rotation(lambda: blend_inputs(torch, l, n, seed=l + n), nbytes)
+    ms = cuda_time_ms(lambda: blaunch.blend_params_cuda(*nxt()))
+    plain_ms = cuda_time_ms(lambda: bref.blend_params_ref(*nxt()))
+    library_ms = cuda_time_ms(lambda: (lambda x, om: om @ x)(*nxt()))
+    kernel_device_ms = device_ms(lambda: blaunch.blend_params_cuda(*nxt()))
+    plain_device_ms = device_ms(lambda: bref.blend_params_ref(*nxt()))
+    library_device_ms = device_ms(lambda: (lambda x, om: om @ x)(*nxt()))
+    bytes_ms = (nbytes + n * 4 + l * 4) / mem_rate * 1e3
+    ops_ms = BLEND_OPS_PER_ELEM * l * n / FP32_OPS_PER_S * 1e3
+    return {"shape": [l, n], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "device_ms": kernel_device_ms,
+            "plain_device_ms": plain_device_ms,
+            "library_device_ms": library_device_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_train_codec(torch, ops, wlaunch, wref, rows, n, mem_rate):
+    """The wire codec at one training message shape (k = a quarter of
+    the row, the codec's default topk_frac): kernel and plain version
+    given [scale, thresh], and the whole round-trip with its top-k."""
+    from repro_torch.core.codec import topk_k
+
+    k = topk_k(n, 0.25)
+    nbytes = rows * n * 4
+
+    def make():
+        x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+            (rows, n), np.float32)).cuda()
+        return x, ops.scale_thresh(x, k)
+
+    nxt = rotation(make, nbytes)
+    ms = cuda_time_ms(lambda: wlaunch.wire_codec_cuda(*nxt(), quantize=True),
+                      iters=50, warmup=3)
+    plain_ms = cuda_time_ms(lambda: wref.wire_codec_ref(*nxt(), quantize=True),
+                            iters=50, warmup=3)
+    roundtrip_ms = cuda_time_ms(lambda: ops.wire_codec_roundtrip(
+        nxt()[0], k=k, quantize=True), iters=20, warmup=2)
+    kernel_device_ms = device_ms(
+        lambda: wlaunch.wire_codec_cuda(*nxt(), quantize=True), iters=20)
+    bytes_ms = (nbytes * 2 + rows * 8) / mem_rate * 1e3
+    ops_ms = CODEC_OPS_PER_ELEM * rows * n / FP32_OPS_PER_S * 1e3
+    return {"shape": [rows, n], "dtype": "float32", "k": k, "ms": ms,
+            "plain_ms": plain_ms, "roundtrip_ms": roundtrip_ms,
+            "device_ms": kernel_device_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def timed_phases(torch, fed):
+    """Wrap the federation's phase methods so that each round records
+    the host seconds of each phase, each ending in a device sync."""
+    secs = {}
+    for name in ("_unimodal_phase", "_vfl_phase", "_paired_phase", "_aggregate"):
+        def wrapped(*a, _orig=getattr(fed, name), _key=name.strip("_"), **k):
+            t0 = time.perf_counter()
+            out = _orig(*a, **k)
+            torch.cuda.synchronize()
+            secs[_key] = time.perf_counter() - t0
+            return out
+        setattr(fed, name, wrapped)
+    return secs
+
+
+def group_leaves(tree_leaves, models) -> dict:
+    """Leaves each BlendAvg group blends: f_A+g_A, f_B+g_B, g_M."""
+    return {"A": len(tree_leaves(models["f_A"])) + len(tree_leaves(models["g_A"])),
+            "B": len(tree_leaves(models["f_B"])) + len(tree_leaves(models["g_B"])),
+            "M": len(tree_leaves(models["g_M"]))}
+
+
+def blended(logs) -> list:
+    """The groups a round blended (a group whose omegas are all zero
+    keeps the global model and launches nothing)."""
+    return [m for m in "ABM" if float(np.sum(logs[f"omega_{m}"])) > 0]
+
+
+def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
+                        mem_rate) -> dict:
+    """Phase 7: BlendFL rounds at full width on the card (see the module
+    docstring). Returns the numbers the kernels line and PERF.md need."""
+    import dataclasses
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.engine import CLIENT_GROUPS
+    from repro_torch.core.federation import FedConfig, Federation, evaluate_global
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import train_val_test
+
+    t0 = time.perf_counter()
+    tr, va, te = train_val_test(spec, 8192, 1024, 1024, seed=0)
+    clients = partition(tr, 16, seed=1)
+    cfg = FedConfig(n_clients=16, rounds=3, lr=1e-2, batch_size=64)
+    fed = Federation.init(torch.Generator().manual_seed(0), cfg, spec, ecfg,
+                          clients, va, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(fed.global_models))
+    leaves = group_leaves(tree_leaves, fed.global_models)
+    print(f"data + init {time.perf_counter() - t0:.2f} s: 16 clients, "
+          f"{n_params} parameters a client, leaves per group {leaves}, "
+          f"unimodal rows {tuple(fed.data['uni']['ma'].shape)}, paired "
+          f"{tuple(fed.data['paired']['m'].shape)}, VFL aligned rows "
+          f"{len(fed.data['vfl']['gather_a'])}")
+    check(leaves == {"A": 13, "B": 13, "M": 4}, f"leaves per group {leaves}")
+    secs = timed_phases(torch, fed)
+
+    captured = []  # round 0's blends, held against the plain version below
+    blend_stacked = fed.engine.fns.blend_stacked
+
+    def capture(stacked, omega):
+        out = blend_stacked(stacked, omega)
+        captured.append((stacked, omega, out))
+        return out
+
+    launches, walls = 0, []
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(cfg.rounds):
+        if r == 0:
+            fed.engine.fns.blend_stacked = capture
+        blaunch.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = fed.round()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fed.engine.fns.blend_stacked = blend_stacked
+        got = blaunch.launches
+        launches += got
+        groups = blended(logs)
+        if r == 0:
+            groups0 = groups
+        want = sum(leaves[m] for m in groups)
+        losses = {k: logs[k] for k in ("loss_partial", "loss_vfl", "loss_paired")}
+        print(f"round {r}: {walls[-1]:.3f} s wall; phases "
+              f"{ {k: round(v, 4) for k, v in secs.items()} } s; losses "
+              f"{ {k: round(v, 5) for k, v in losses.items()} }")
+        for m in "ABM":
+            print(f"    omega_{m} {np.round(np.asarray(logs[f'omega_{m}']), 4).tolist()}")
+        print(f"    blended groups {groups}: {got} blend launches (want {want})")
+        check(all(np.isfinite(v) for v in losses.values()), f"round {r}: losses {losses}")
+        check(got == want, f"round {r}: {got} blend launches, want {want}")
+
+    check(launches > 0, "the training rounds launched no blend kernel")
+    check(len(captured) == len(groups0), f"captured {len(captured)} blends")
+    err = 0.0
+    for stacked, omega, out in captured:
+        om = torch.as_tensor(np.asarray(omega, np.float32), device="cuda")
+        for x, g in zip(tree_leaves(stacked), tree_leaves(out)):
+            flat = x.reshape(x.shape[0], -1)
+            want = bref.blend_params_ref(flat, om)
+            e = (g.reshape(-1) - want).abs()
+            check(bool((e <= bref.blend_error_bound(flat, om, want,
+                                                    g.reshape(-1))).all()),
+                  "round 0's blend beyond its bound against the plain version")
+            err = max(err, float(e.max()))
+    print(f"round 0's {len(captured)} blended groups match the plain version "
+          f"on the card; max abs err {err:.3g}")
+    del captured
+
+    ev = evaluate_global(fed, te)
+    print(f"evaluate_global after {cfg.rounds} rounds: "
+          f"{ {k: round(v, 4) for k, v in ev.items()} }")
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in ev.values()),
+          f"evaluate_global {ev}")
+
+    bd = device_breakdown(lambda: fed.round(), walls[-1], match=("blend_kernel",))
+    print(f"profiled round: device busy {bd['busy_ms']:.2f} ms of "
+          f"{bd['wall_ms']:.2f} ms wall, idle share {bd['idle_share']:.3f}; "
+          f"blend kernel {bd['matched']['blend_kernel']['ms']:.4f} ms in "
+          f"{bd['matched']['blend_kernel']['calls']} launches; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for k in bd["top"]:
+        print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x {k['kernel']}")
+
+    # one more round under the int8_topk codec, from the trained globals
+    base = fed.global_models
+    n_msg = len(tree_leaves({k: base[k] for k in CLIENT_GROUPS}))
+    del fed
+    torch.cuda.empty_cache()
+    fed_c = Federation.init(torch.Generator().manual_seed(0),
+                            dataclasses.replace(cfg, codec="int8_topk"), spec,
+                            ecfg, clients, va, device="cuda", base=base)
+    wlaunch.launches = blaunch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = fed_c.round()
+    torch.cuda.synchronize()
+    codec_wall = time.perf_counter() - t0
+    codec_launches = wlaunch.launches
+    want = sum(leaves[m] for m in blended(logs))
+    print(f"int8_topk round: {codec_wall:.3f} s wall; losses "
+          f"{[round(logs[k], 5) for k in ('loss_partial', 'loss_vfl', 'loss_paired')]}; "
+          f"{codec_launches} wire_codec launches (want 2 x {n_msg}); "
+          f"{blaunch.launches} blend launches (want {want})")
+    check(codec_launches == 2 * n_msg, f"{codec_launches} wire_codec launches")
+    check(blaunch.launches == want, f"{blaunch.launches} blend launches")
+    check(all(np.isfinite(logs[k]) for k in ("loss_partial", "loss_vfl", "loss_paired")),
+          "int8_topk round: losses")
+    del fed_c
+    torch.cuda.empty_cache()
+
+    codec_times = [time_train_codec(torch, ops, wlaunch, wref, rows, n, mem_rate)
+                   for rows, n in ((16, 1048576), (1, 2097152))]
+    for t in codec_times:
+        print(f"wire_codec {t['shape']} k={t['k']}: kernel {t['ms']:.5f} ms "
+              f"(device {t['device_ms']} ms), plain {t['plain_ms']:.5f} ms, "
+              f"roundtrip with top-k {t['roundtrip_ms']:.5f} ms; bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    return {"launches": launches, "round_wall_s": walls, "breakdown": bd,
+            "codec_launches": codec_launches, "codec_round_s": codec_wall,
+            "codec_times": codec_times, "evaluate_global": ev}
+
+
+def card_vs_cpu(torch, rounds=2, **kw) -> dict:
+    """Phase 8: the quickstart-shaped federation on the card and on the
+    CPU, from the same weights and shuffles (both draw them from
+    CPU generators seeded alike), held to the CPU parity tolerances;
+    ``kw`` goes to ``FedConfig``. Every BlendAvg delta of this
+    configuration lies at least 4e-3 from 0 on the CPU, well clear of
+    what the card's rounding can move, so the omega masks agree."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.encoders import EncoderConfig
+    from repro_torch.core.federation import FedConfig, Federation, evaluate_global
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import make_task, train_val_test
+
+    spec = make_task("smnist")
+    tr, va, te = train_val_test(spec, 500, 300, 300)
+    clients = partition(tr, 3, frac_paired=0.4, frac_fragmented=0.3,
+                        frac_partial=0.3)
+    cfg = FedConfig(n_clients=3, rounds=rounds, lr=1e-2, batch_size=64, **kw)
+    lossy = cfg.codec != "none"
+    ecfg = EncoderConfig(d_hidden=48, n_layers=2)
+    feds = [Federation.init(torch.Generator().manual_seed(0), cfg, spec, ecfg,
+                            clients, va, device=dev) for dev in ("cuda", "cpu")]
+    worst = {"loss": 0.0, "omega": 0.0}
+    for r in range(cfg.rounds):
+        card, cpu = (f.round() for f in feds)
+        for k in ("loss_partial", "loss_vfl", "loss_paired"):
+            rel = abs(card[k] - cpu[k]) / abs(cpu[k])
+            worst["loss"] = max(worst["loss"], rel)
+            check(np.isfinite(card[k]) and rel <= LOSS_RTOL,
+                  f"round {r} {k}: card {card[k]} cpu {cpu[k]}")
+        for m in "ABM":
+            a, b = np.asarray(card[f"omega_{m}"]), np.asarray(cpu[f"omega_{m}"])
+            worst["omega"] = max(worst["omega"], float(np.abs(a - b).max()))
+            check(np.allclose(a, b, rtol=0, atol=OMEGA_ATOL)
+                  and (a.sum() == 0) == (b.sum() == 0),
+                  f"round {r} omega_{m}: card {a} cpu {b}")
+    trees = [("global params", [f.global_models for f in feds])]
+    if lossy:
+        trees.append(("downlink residual", [f.resid_down for f in feds]))
+    for name, (ta, tb) in trees:
+        pairs = list(zip(tree_leaves(params_to_numpy(ta)),
+                         tree_leaves(params_to_numpy(tb))))
+        d = np.concatenate([np.abs(a - b).ravel() for a, b in pairs])
+        worst[name] = float(d.max())
+        if lossy:
+            share = float((d <= PARAM_ATOL).mean())
+            worst[f"{name} share within {PARAM_ATOL}"] = share
+            check(d.max() <= LOSSY_MAX_ABS and share >= LOSSY_SHARE,
+                  f"{name}: card vs CPU max {d.max()}, share {share}")
+        else:
+            check(all(np.allclose(a, b, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                      for a, b in pairs),
+                  f"{name}: card vs CPU beyond tolerance")
+    ea, eb = (evaluate_global(f, te) for f in feds)
+    worst["eval"] = max(abs(ea[k] - eb[k]) for k in ea)
+    if not lossy:
+        check(worst["eval"] <= EVAL_ATOL, f"evaluate_global: card {ea} cpu {eb}")
+    print(f"card vs CPU, {cfg.rounds} round(s), codec {cfg.codec}: "
+          f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} }; "
+          f"multimodal AUROC {ea['multimodal_auroc']:.4f}")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -218,6 +600,8 @@ def main() -> int:
     from repro_torch.core.serving import ServingConfig, ServingEngine
     from repro_torch.data.synthetic import TaskSpec
     from repro_torch.kernels import _build
+    from repro_torch.kernels.blendavg import blendavg as blaunch
+    from repro_torch.kernels.blendavg import ref as bref
     from repro_torch.kernels.wire_codec import ops, ref
     from repro_torch.kernels.wire_codec import wire_codec as launcher
     from repro_torch.launch import serve_federated as sf
@@ -245,7 +629,7 @@ def main() -> int:
     models = enc.init_client_models(gen, spec, ecfg, device="cuda")
     gmv = enc.fusion_init(gen, ecfg.d_hidden, spec.out_dim, device="cuda")
 
-    phase("3 kernel against plain")
+    phase("3 wire codec against plain")
     xg = np.random.default_rng(1)
     with torch.no_grad():
         feats = [enc.encoder_apply(models[f], torch.from_numpy(
@@ -257,6 +641,7 @@ def main() -> int:
         err = check_kernel(torch, ops, launcher, ref, x, k, quantize)
         max_err = max(max_err, err)
     print(f"{len(cases)} cases match the plain version; max abs err {max_err:.3g}")
+    del cases, x  # the training-shape messages: free before phase 7
     timings = [time_codec(torch, ops, launcher, ref, x, k, mem_rate)
                for x, k in ((feats[0][:2].contiguous(), 256),
                             (feats[0][:16].contiguous(), 256),
@@ -356,13 +741,48 @@ def main() -> int:
             print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x {k['kernel']}")
 
     phase("5 CLI selftest")
-    launcher.launches = 0
-    sf.main(["--selftest", "--codec", "int8_topk", "--device", "cuda"])
+    launcher.launches = blaunch.launches = 0
+    sf.main(["--selftest", "--codec", "int8_topk", "--device", "cuda",
+             "--train-rounds", "2", "--clients", "3"])
+    check(blaunch.launches > 0, "CLI selftest trained without the blend kernel")
     check(launcher.launches > 0, "CLI selftest launched no wire_codec kernel")
-    print(f"CLI selftest: {launcher.launches} wire_codec launches")
+    print(f"CLI selftest: trained inline with {blaunch.launches} blend launches; "
+          f"served with {launcher.launches} wire_codec launches")
+
+    phase("6 blend kernel against plain")
+    blend_err, n_cases = 0.0, 0
+    for l, n in BLEND_TEST_SHAPES + BLEND_MAIN_SHAPES:
+        for dtype in (None, torch.bfloat16):
+            x, omega = blend_inputs(torch, l, n, seed=7 * l + n, dtype=dtype)
+            blend_err = max(blend_err, check_blend(torch, blaunch, bref, x, omega))
+            n_cases += 1
+    x, _ = blend_inputs(torch, 16, 131072, seed=3)
+    zero = blaunch.blend_params_cuda(x, torch.zeros(16, device="cuda"))
+    check(bool((zero == 0).all()), "an all-zero omega does not give zeros")
+    del x, zero
+    print(f"{n_cases + 1} cases match the plain version within the bound; "
+          f"max abs err {blend_err:.3g}")
+    blend_times = [time_blend(torch, blaunch, bref, l, n, mem_rate)
+                   for l, n in BLEND_MAIN_SHAPES]
+    for t in blend_times:
+        print(f"blend {t['shape']}: kernel {t['ms']:.5f} ms (device "
+              f"{t['device_ms']} ms), plain {t['plain_ms']:.5f} ms (device "
+              f"{t['plain_device_ms']} ms), omega @ stacked {t['library_ms']:.5f} "
+              f"ms (device {t['library_device_ms']} ms); bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+
+    phase("7 full-width training")
+    del engine, models, gmv, cpu_models, cpu_gmv, feats
+    torch.cuda.empty_cache()
+    train = full_width_training(torch, spec, ecfg, blaunch, bref, launcher,
+                                ops, ref, mem_rate)
+
+    phase("8 card against CPU")
+    card_vs_cpu(torch)
+    card_vs_cpu(torch, rounds=1, codec="int8_topk")
 
     main_t = timings[2]
-    record = {
+    wire_record = {
         "name": "wire_codec", "route": "cuda",
         "source": "src/repro_torch/kernels/wire_codec/wire_codec.cu",
         "replaces": "src/repro/kernels/wire_codec/wire_codec.py:44",
@@ -371,8 +791,21 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the fused pass
         "shape": main_t["shape"], "per_shape": timings,
+        "train_codec_launches": train["codec_launches"],
+        "train_shapes": train["codec_times"],
     }
-    print(json.dumps({"kernels": [record]}))
+    main_b = blend_times[1]  # (17, 2097152): g_M/mix/w with the server head
+    blend_record = {
+        "name": "blend_params", "route": "cuda",
+        "source": "src/repro_torch/kernels/blendavg/blendavg.cu",
+        "replaces": "src/repro/kernels/blendavg/blendavg.py:29",
+        "launches": train["launches"], "max_abs_err": blend_err,
+        "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
+        "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
+        "library_ms": main_b["library_ms"],  # omega @ stacked (cuBLAS)
+        "shape": main_b["shape"], "per_shape": blend_times,
+    }
+    print(json.dumps({"kernels": [wire_record, blend_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

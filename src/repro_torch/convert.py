@@ -1,11 +1,17 @@
-"""Carry parameters between the JAX package's numpy form and the port.
+"""Carry parameters and round state between the JAX package's numpy form
+and the port.
 
 ``params_from_numpy`` takes either a nested numpy tree (what
 ``jax.tree.map(np.asarray, models)`` gives: dicts, with the MLP
 encoder's ``hidden`` as a list) or the flat ``/``-keyed dict of a
 checkpoint's ``arrays.npz`` (``hidden/0/w``, ...), and returns the
 port's nested dict of tensors on ``device``. ``params_to_numpy`` is its
-inverse, giving back the nested numpy tree.
+inverse, giving back the nested numpy tree. Both carry any tree of
+arrays: stacked client models, global models, wire-codec residuals.
+
+``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry an optimizer
+state (``{"step", "mu"/"nu"/"mom": {group: tree}}``) and hold its
+shared ``step`` to an int32 scalar.
 """
 from __future__ import annotations
 
@@ -67,3 +73,22 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
     return tree.detach().cpu().numpy()
+
+
+def _check_step(step) -> None:
+    if tuple(step.shape) != () or str(step.dtype).split(".")[-1] != "int32":
+        raise ValueError(f"optimizer step must be an int32 scalar, got "
+                         f"{step.dtype} of shape {tuple(step.shape)}")
+
+
+def opt_state_from_numpy(state: dict, device) -> dict:
+    """A numpy optimizer state -> the port's, on ``device``."""
+    out = params_from_numpy(state, device)
+    _check_step(out["step"])
+    return out
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The port's optimizer state -> the same tree of numpy arrays."""
+    _check_step(state["step"])
+    return params_to_numpy(state)

@@ -1,7 +1,7 @@
-"""Wire codec, serving part (port of ``src/repro/core/codec.py``).
+"""Wire codec (port of ``src/repro/core/codec.py``).
 
-Lossy compression of the messages the VFL serving route puts on the
-wire:
+Lossy compression of the messages the VFL serving route and the
+training round put on the wire:
 
 - ``none``       4-byte floats, the uncompressed baseline;
 - ``int8``       per-message symmetric int8 (scale = abs-max / 127);
@@ -10,9 +10,12 @@ wire:
 
 The round-trip (sparsify + quantize + dequantize in one pass per
 flattened leaf) is the fused kernel in ``repro_torch.kernels.wire_codec``.
-Byte accounting is analytic wire-format arithmetic on shapes. The
-training side (error-feedback uplink/downlink) comes with the training
-slice.
+Byte accounting is analytic wire-format arithmetic on shapes.
+
+Training rounds compress *deltas* with error feedback: each sender
+compresses ``c_t = delta_t + resid_{t-1}`` and carries the compression
+error ``resid_t = c_t - dec(c_t)`` into the next round. Residuals are
+f32 trees in the federation's state.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import math
 
 import torch
 
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.kernels.wire_codec.ops import wire_codec_roundtrip
 
 CODECS = ("none", "int8", "topk", "int8_topk")
@@ -32,8 +36,7 @@ class CodecConfig:
 
     name: one of CODECS. topk_frac: fraction of entries kept per leaf by
     the sparsifying codecs (k = max(1, ceil(frac * n))). error_feedback:
-    carry the per-sender compression residual into the next round (a
-    training-side field, kept so configs match the reference).
+    carry the per-sender compression residual into the next round.
     """
     name: str = "none"
     topk_frac: float = 0.25
@@ -67,20 +70,20 @@ def topk_k(n: int, frac: float) -> int:
     return max(1, min(n, math.ceil(frac * n)))
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+# ------------------------------------------------------------ tree algebra --
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def zeros_like_tree(tree):
+    """f32 residual buffers matching a model tree's shapes."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                          device=x.device), tree)
 
 
 # ----------------------------------------------------------- wire roundtrip --
@@ -101,14 +104,52 @@ def encode_decode_stacked(tree, cfg: CodecConfig):
     """
     if not cfg.enabled:
         return tree
-    return _tree_map(lambda x: _roundtrip_rows(x, x.shape[0], cfg), tree)
+    return tree_map(lambda x: _roundtrip_rows(x, x.shape[0], cfg), tree)
 
 
 def encode_decode_tree(tree, cfg: CodecConfig):
     """Lossy wire round-trip of a single (unstacked) message tree."""
     if not cfg.enabled:
         return tree
-    return _tree_map(lambda x: _roundtrip_rows(x, 1, cfg), tree)
+    return tree_map(lambda x: _roundtrip_rows(x, 1, cfg), tree)
+
+
+# ---------------------------------------------------------- codec stages ----
+
+def _roundtrip(current, reference, resid, cfg: CodecConfig, enc_dec):
+    """Shared delta + error-feedback wire round-trip.
+
+    The receiver reconstructs ``reference + dec(c)``; we compute the
+    mathematically-equal form ``current + resid - err`` (err = c - dec,
+    the new residual) so that an identity codec reconstructs ``current``
+    bit-exactly.
+    """
+    delta = tree_sub(current, reference)
+    c = tree_add(delta, resid) if cfg.error_feedback else delta
+    err = tree_sub(c, enc_dec(c, cfg))
+    if cfg.error_feedback:
+        return tree_sub(tree_add(current, resid), err), err
+    return tree_sub(current, err), resid
+
+
+def uplink_roundtrip(trained, base, resid, cfg: CodecConfig):
+    """Client -> server wire for stacked candidates (leaves (L, ...)).
+
+    Each row's message is its training delta vs. the base it started the
+    round from, plus its error-feedback residual. Returns the decoded
+    candidates (what the server aggregates/scores) and the new residual.
+    """
+    return _roundtrip(trained, base, resid, cfg, encode_decode_stacked)
+
+
+def downlink_roundtrip(new_global, prev_global, resid, cfg: CodecConfig):
+    """Server -> clients broadcast wire for one (unstacked) global tree.
+
+    The message is the blend delta vs. the global the clients already
+    hold, plus the server-side residual. Returns the clients' decoded
+    view of the new global and the new residual.
+    """
+    return _roundtrip(new_global, prev_global, resid, cfg, encode_decode_tree)
 
 
 # --------------------------------------------------------- byte accounting --
@@ -134,4 +175,20 @@ def leaf_payload_bytes(n: int, cfg: CodecConfig, dtype_bytes: int = 4) -> int:
 def tree_payload_bytes(tree, cfg: CodecConfig, dtype_bytes: int = 4) -> int:
     """Wire bytes for one message carrying every leaf of a model tree."""
     return sum(leaf_payload_bytes(math.prod(x.shape), cfg, dtype_bytes)
-               for x in _leaves(tree))
+               for x in tree_leaves(tree))
+
+
+def round_bytes(template, cfg: CodecConfig, n_up: int, n_down: int) -> dict:
+    """Per-round traffic for a federation whose per-link message is one
+    ``template`` tree (a single client's model groups, unstacked):
+    n_up candidate uploads + n_down broadcast downloads."""
+    per_msg = tree_payload_bytes(template, cfg)
+    dense = tree_payload_bytes(template, CodecConfig())
+    return {
+        "bytes_per_message": per_msg,
+        "bytes_up": n_up * per_msg,
+        "bytes_down": n_down * per_msg,
+        "bytes_per_round": (n_up + n_down) * per_msg,
+        "dense_bytes_per_round": (n_up + n_down) * dense,
+        "compression_ratio": dense / per_msg,
+    }

@@ -19,7 +19,14 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.data.synthetic import TaskSpec
-from repro_torch.models.common import dense, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.common import (
+    dense,
+    dense_init,
+    rmsnorm,
+    rmsnorm_init,
+    sigmoid_bce,
+    softmax_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +112,13 @@ def predict_multimodal(models, x_a, x_b, ecfg: EncoderConfig):
     h_a = encoder_apply(models["f_A"], x_a, ecfg)
     h_b = encoder_apply(models["f_B"], x_b, ecfg)
     return fusion_apply(models["g_M"], h_a, h_b)
+
+
+def task_loss(logits, y, kind: str):
+    if kind == "multiclass":
+        labels = torch.argmax(y, dim=-1)
+        return torch.mean(softmax_cross_entropy(logits, labels))
+    return torch.mean(sigmoid_bce(logits, y))  # binary / multilabel
 
 
 def task_scores(logits, kind: str):

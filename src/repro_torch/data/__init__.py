@@ -1,1 +1,1 @@
-"""Task specs of the synthetic multimodal tasks (port of ``src/repro/data``)."""
+"""Synthetic multimodal tasks and their data (port of ``src/repro/data``)."""

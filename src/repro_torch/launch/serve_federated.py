@@ -2,8 +2,8 @@
 request engine, on one device (port of
 ``src/repro/launch/serve_federated.py``).
 
-    # serve 3 request mixes with models initialised from --seed
-    PYTHONPATH=src python -m repro_torch.launch.serve_federated \
+    # serve 3 request mixes off a small federation trained in-process
+    PYTHONPATH=src python -m repro_torch.launch.serve_federated --train-rounds 6 \
         --requests 64 --mix all_multimodal --mix mixed_unimodal --mix vfl_heavy
 
     # serve a JAX train_federated checkpoint's blended global models and
@@ -16,9 +16,10 @@ request engine, on one device (port of
 
 Requests route by available modalities to the blended local heads, pad
 into capacity-bucketed micro-batches, and the VFL fallback's
-feature/score messages meter real wire bytes through the codec. The
-reference trains a small federation inline when no checkpoint is given;
-the port serves seeded random models until the training slice lands.
+feature/score messages meter real wire bytes through the codec. With no
+checkpoint, a small BlendFL federation is trained inline
+(``--train-rounds``, ``--clients``), as the reference does;
+``--train-rounds 0`` serves models initialised from ``--seed`` instead.
 """
 from __future__ import annotations
 
@@ -125,6 +126,27 @@ def _flat_shapes(tree, prefix: str = "") -> dict:
     return out
 
 
+def train_models(spec, ecfg, *, rounds: int, clients: int, seed: int,
+                 device=None):
+    """Small in-process BlendFL federation on ``device`` — enough
+    training that the served models are blended artifacts, not random
+    init. Returns (global_models, server_gmv)."""
+    from repro_torch.core.federation import FedConfig, Federation
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import train_val_test
+
+    tr, va, _ = train_val_test(spec, 240, 120, 60, seed=seed)
+    parts = partition(tr, clients, seed=seed + 1)
+    fcfg = FedConfig(n_clients=clients, rounds=rounds, batch_size=32,
+                     seed=seed)
+    fed = Federation.init(torch.Generator().manual_seed(seed), fcfg, spec,
+                          ecfg, parts, va, device=device)
+    fed.fit()
+    print(f"trained in-process federation: {clients} clients, "
+          f"{rounds} rounds on {fed.device}")
+    return fed.global_models, fed.server_gmv
+
+
 def make_requests(spec, mix: str, n: int, *, rows: int, seed: int) -> list:
     """A deterministic heterogeneous request stream for one mix preset.
     Row counts vary per request (1..rows) so the stream exercises
@@ -181,12 +203,18 @@ def build_engine(args, models, server_gmv, ecfg, kind):
 
 def load_models(args, spec, ecfg):
     """The served models: a checkpoint's when ``--ckpt-dir`` is given,
-    else models initialised from ``--seed`` on ``--device``."""
+    else a federation trained inline for ``--train-rounds`` rounds, or,
+    with ``--train-rounds 0``, models initialised from ``--seed``; all on
+    ``--device``."""
     from repro_torch.core.encoders import fusion_init, init_client_models
 
     if args.ckpt_dir:
         return models_from_checkpoint(args.ckpt_dir, spec, ecfg,
                                       step=args.step, device=args.device)
+    if args.train_rounds > 0:
+        return train_models(spec, ecfg, rounds=args.train_rounds,
+                            clients=args.clients, seed=args.seed,
+                            device=args.device)
     device = resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
     models = init_client_models(gen, spec, ecfg, device=device)
@@ -251,8 +279,12 @@ def main(argv=None) -> None:
     ap.add_argument("--task", default="smnist")
     ap.add_argument("--ckpt-dir", default=None,
                     help="JAX train_federated checkpoint to serve from "
-                         "(default: models initialised from --seed)")
+                         "(default: train a small federation in-process)")
     ap.add_argument("--step", type=int, default=None)
+    ap.add_argument("--train-rounds", type=int, default=6,
+                    help="rounds of inline training (0: serve models "
+                         "initialised from --seed)")
+    ap.add_argument("--clients", type=int, default=3)
     ap.add_argument("--d-hidden", type=int, default=32)
     ap.add_argument("--n-layers", type=int, default=1)
     ap.add_argument("--enc-type", default="mlp",

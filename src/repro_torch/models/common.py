@@ -1,4 +1,4 @@
-"""Core functional layers: linear and RMS norm.
+"""Core functional layers: linear, RMS norm and the task losses.
 
 Params are plain nested dicts of tensors with the reference's keys
 (``src/repro/models/common.py``); every layer is an (init, apply) pair
@@ -41,3 +41,18 @@ def rmsnorm(p, x, eps: float = 1e-5):
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["g"].float()).to(x.dtype)
+
+
+def softmax_cross_entropy(logits, labels):
+    """logits (..., V), accumulated in f32; labels int (...,). Returns (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - picked
+
+
+def sigmoid_bce(logits, targets):
+    logits = logits.float()
+    targets = targets.float()
+    return (torch.clamp_min(logits, 0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))

@@ -1,0 +1,20 @@
+"""Learning-rate schedules as step -> lr callables (port of
+``src/repro/optim/schedules.py``); ``step`` is an int32 tensor."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def constant(lr: float):
+    return lambda step: torch.tensor(lr, dtype=torch.float32, device=step.device)
+
+
+def cosine_decay(base_lr: float, total_steps: int, final_frac: float = 0.1):
+    def fn(step):
+        t = torch.clamp_max(step.float(), total_steps) / max(total_steps, 1)
+        cos = 0.5 * (1 + torch.cos(math.pi * t))
+        return base_lr * (final_frac + (1 - final_frac) * cos)
+
+    return fn

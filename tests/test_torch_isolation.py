@@ -25,7 +25,9 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    assert "repro_torch.core.serving" in mods
+    for m in ("repro_torch.core.serving", "repro_torch.core.federation",
+              "repro_torch.kernels.blendavg.ops"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,6 +81,16 @@ def test_entry_points_need_cuda_without_device():
         ServingEngine(models, ecfg, spec.kind)
     with pytest.raises(RuntimeError, match="CUDA"):  # the driver's default
         serve_federated.main(["--selftest"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_federated.main(["--selftest", "--train-rounds", "0"])
+    from repro_torch.core.federation import FedConfig, Federation
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import train_val_test
+
+    tr, va, _ = train_val_test(spec, 40, 20, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Federation.init(torch.Generator(), FedConfig(rounds=1), spec, ecfg,
+                        partition(tr, 3), va)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -99,7 +111,7 @@ def test_missing_nvcc_raises(monkeypatch):
     be found, the build raises instead of falling back."""
     from repro_torch.kernels import _build
 
-    assert [p.name for p in _build.sources()] == ["wire_codec.cu"]
+    assert [p.name for p in _build.sources()] == ["blendavg.cu", "wire_codec.cu"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

@@ -218,3 +218,13 @@ def test_serve_driver_selftest_cpu(capsys):
     tsf.main(["--selftest", "--codec", "int8_topk", "--device", "cpu",
               "--requests", "16", "--rows", "12", "--capacities", "2,4,8"])
     assert "selftest ok" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("rounds,line", [
+    ("2", "trained in-process federation: 2 clients, 2 rounds on cpu"),
+    ("0", "serving models initialised from seed 0 on cpu")])
+def test_serve_driver_trains_inline_unless_zero_rounds(capsys, rounds, line):
+    tsf.main(["--selftest", "--device", "cpu", "--train-rounds", rounds,
+              "--clients", "2", "--requests", "8", "--rows", "4"])
+    out = capsys.readouterr().out
+    assert line in out and "selftest ok" in out

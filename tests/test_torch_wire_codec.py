@@ -135,3 +135,66 @@ def test_dense_identity_is_exact():
     x[1, :3] = [-0.0, 0.0, 1e-38]
     got = wire_codec_roundtrip(torch.from_numpy(x), k=None, quantize=False)
     assert np.array_equal(got.numpy().view(np.uint32), x.view(np.uint32))
+
+
+def _codec_trees(seed):
+    """(trained, base, resid) stacked trees of 3 clients, as numpy."""
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (3, 40, 6), "b": (3, 6), "big": (3, 70000)}
+    base = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    trained = {k: (v + 0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+               for k, v in base.items()}
+    resid = {k: (0.01 * rng.standard_normal(v.shape)).astype(np.float32)
+             for k, v in base.items()}
+    return trained, base, resid
+
+
+@pytest.mark.parametrize("name", ["int8", "topk", "int8_topk"])
+def test_training_roundtrips_match_jax(name):
+    """Error-feedback uplink (stacked rows) and downlink (one tree) of the
+    training round against the reference: the same deltas go through
+    the same codec, so decoded trees and residuals agree within the
+    kernel's dequant drift (values here are below 1, so 1e-5 covers
+    4 * eps32 * scale many times over)."""
+    from repro.core import codec as jcodec
+    from repro_torch.core import codec as tcodec
+
+    trained, base, resid = _codec_trees(3)
+    jt = lambda tree: {k: jnp.asarray(v) for k, v in tree.items()}  # noqa: E731
+    tt = lambda tree: {k: torch.from_numpy(v) for k, v in tree.items()}  # noqa: E731
+    jcfg, tcfg = jcodec.make_codec(name, 0.25), tcodec.make_codec(name, 0.25)
+    outs = [(jcodec.uplink_roundtrip(jt(trained), jt(base), jt(resid), jcfg),
+             tcodec.uplink_roundtrip(tt(trained), tt(base), tt(resid), tcfg))]
+    one = {k: v[0] for k, v in trained.items()}
+    prev = {k: v[1] for k, v in base.items()}
+    res1 = {k: v[2] for k, v in resid.items()}
+    outs.append((jcodec.downlink_roundtrip(jt(one), jt(prev), jt(res1), jcfg),
+                 tcodec.downlink_roundtrip(tt(one), tt(prev), tt(res1), tcfg)))
+    for (jdec, jres), (tdec, tres) in outs:
+        for k in jdec:
+            np.testing.assert_allclose(tdec[k].numpy(), np.asarray(jdec[k]),
+                                       rtol=0, atol=1e-5)
+            np.testing.assert_allclose(tres[k].numpy(), np.asarray(jres[k]),
+                                       rtol=0, atol=1e-5)
+
+
+def test_training_identity_codec_is_exact_and_bytes_match_jax():
+    """topk at frac 1.0 is the identity: the uplink hands back the trained
+    tree bit for bit and leaves the residual at zero; and the analytic
+    round bytes equal the reference's for every codec."""
+    from repro.core import codec as jcodec
+    from repro_torch.core import codec as tcodec
+
+    trained, base, _ = _codec_trees(4)
+    tt = lambda tree: {k: torch.from_numpy(v) for k, v in tree.items()}  # noqa: E731
+    zeros = tcodec.zeros_like_tree(tt(trained))
+    dec, res = tcodec.uplink_roundtrip(tt(trained), tt(base), zeros,
+                                       tcodec.make_codec("topk", 1.0))
+    for k in trained:
+        assert torch.equal(dec[k], torch.from_numpy(trained[k]))
+        assert not bool(res[k].any())
+    template = {k: v[0] for k, v in trained.items()}
+    for name in ("none", "int8", "topk", "int8_topk"):
+        want = jcodec.round_bytes(template, jcodec.make_codec(name, 0.25), 3, 3)
+        got = tcodec.round_bytes(tt(template), tcodec.make_codec(name, 0.25), 3, 3)
+        assert got == want
