@@ -23,7 +23,8 @@ outside a checkout. Phases, each fatal on failure:
    25 labels), with weights from a seed; scores checked for range, route,
    agreement with single-request ``predict`` and with the CPU run of the
    same models, and the wire bytes against the analytic cost; kernel
-   launch counts read around this run;
+   launch counts read around this run (3 wire-codec launches a VFL
+   micro-batch, none of any other kernel);
 5. the CLI: ``repro_torch.launch.serve_federated --selftest`` serving a
    federation it trains inline on the card (2 rounds, 3 clients);
 6. blend kernel against plain: the BlendAvg blend on the card against its
@@ -40,10 +41,28 @@ outside a checkout. Phases, each fatal on failure:
 8. card against CPU: the quickstart-shaped federation, 2 rounds from the
    same weights and shuffles on both, then one ``int8_topk`` codec round,
    within the CPU parity tests' tolerances (the codec round's params at
-   the lossy run-level tolerance).
+   the lossy run-level tolerance);
+9. sLSTM cell against plain: the kernel on the card against its plain
+   version at the CPU tests' shapes and the recurrent encoder's full
+   width (B = 2 and 64 rows, 4 heads, S = 64, hd = 256), f32 and bf16,
+   then timed at the serving capacities beside the plain version and
+   the bound;
+10. flash attention against plain: every mask and shape of the CPU tests
+   (causal, GQA, MQA with Sq < Sk, ragged, windows 8/32/127,
+   non-causal), the transformer encoder's full width (64, 4, 64, 256),
+   f32 and bf16, and causal Sq > Sk, whose rows without a visible key
+   must be exactly 0; then timed beside the plain version,
+   ``scaled_dot_product_attention`` (timed only) and the bound;
+11. full-width serving with the recurrent, then the transformer encoders
+   (d_hidden=1024, 4 heads of 256; phase 4's set-up and checks, the
+   CPU comparison on the first requests of each mix): each encoder
+   kernel launches exactly once per encoder application (2 per
+   multimodal or VFL micro-batch, 1 per unimodal one), a profiled mix;
+12. the CLI: ``serve_federated --selftest --train-rounds 0`` with each of
+   the two encoders, on the card.
 
-It then prints one JSON line of per-kernel numbers, the nvidia-smi line,
-and last ``{"ok": true, "device": {...}}``.
+Every phase prints its time. It then prints one JSON line of per-kernel
+numbers, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -82,6 +101,11 @@ PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 EVAL_ATOL = 1e-3
 LOSSY_MAX_ABS, LOSSY_SHARE = 2e-2, 0.99
 
+# Card vs CPU serving of the recurrent and transformer encoders: the
+# first this many requests of each mix (the full-width sLSTM's plain
+# step loop is slow on the CPU; the engine vs predict check covers all).
+VARIANT_CPU_REQUESTS = 16
+
 # Timed kernels read inputs rotated over at least this many bytes, so
 # that a launch finds its input in HBM, not in the 50 MB L2, as a
 # round's blend does.
@@ -99,8 +123,18 @@ def hbm_bytes_per_s(name: str) -> float:
     return 3.35e12  # H100 SXM
 
 
+_phase = {"name": None, "t0": 0.0}
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    """Start phase ``name`` (None: end the last one), printing how long
+    the previous phase took."""
+    if _phase["name"] is not None:
+        print(f"-- phase {_phase['name']!r} took "
+              f"{time.perf_counter() - _phase['t0']:.1f} s", flush=True)
+    _phase.update(name=name, t0=time.perf_counter())
+    if name is not None:
+        print(f"\n== {name}", flush=True)
 
 
 def check(cond, msg):
@@ -580,6 +614,352 @@ def card_vs_cpu(torch, rounds=2, **kw) -> dict:
     return worst
 
 
+MIXES = ("all_multimodal", "mixed_unimodal", "vfl_heavy")
+
+
+def print_breakdown(label, bd):
+    print(f"{label}: device busy {bd['busy_ms']:.2f} ms of "
+          f"{bd['wall_ms']:.2f} ms wall, idle share {bd['idle_share']:.3f}")
+    for k in bd["top"]:
+        print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x {k['kernel']}")
+
+
+def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
+                       cpu_requests=None) -> dict:
+    """Serve the three mixes (64 requests of 1..64 rows each) through one
+    ``ServingEngine`` (int8_topk codec, capacities 2/4/16/64) on the card,
+    counting the launches of each module in ``launchers`` over the run.
+    Then check every result: route, shape, finite scores in [0, 1],
+    agreement with single-request ``predict`` on the card and, for the
+    first ``cpu_requests`` requests of each mix (all when None), with the
+    same models on the CPU, within ``serve_federated.within_tolerance``;
+    and the measured wire bytes against the analytic cost."""
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.inference import (InferenceRequest, Route,
+                                            communication_cost, predict,
+                                            route_for)
+    from repro_torch.core.serving import ServingConfig, ServingEngine
+    from repro_torch.launch import serve_federated as sf
+
+    with torch.no_grad():  # warm cuBLAS and the allocator on every route
+        for vfl, a, b in ((False, 1, 1), (False, 1, 0), (False, 0, 1), (True, 1, 1)):
+            x = np.zeros((2, 64, 128), np.float32)
+            predict(models, InferenceRequest(x if a else None, x if b else None,
+                                             vfl=vfl),
+                    ecfg, spec.kind, server_gmv=gmv, codec="int8_topk",
+                    device="cuda")
+    torch.cuda.synchronize()
+    engine = ServingEngine(models, ecfg, spec.kind, server_gmv=gmv,
+                           cfg=ServingConfig(codec="int8_topk",
+                                             capacities=(2, 4, 16, 64)),
+                           device="cuda")
+    for mod in launchers.values():
+        mod.launches = 0
+    rows_by_mix = {mix: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=0)
+                   for mix in MIXES}
+    launches = {name: mod.launches for name, mod in launchers.items()}
+    st = engine.stats
+    for mix, row in rows_by_mix.items():
+        print(f"mix {mix:>15}: {row['requests']} req ({row['rows']} rows) "
+              f"p50 {row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} ms "
+              f"{row['rps']:.1f} req/s {row['rows_per_s']:.1f} rows/s")
+    print(f"engine: {st['batches']} batches {st['batches_by_route']}; "
+          f"execute {st['execute_seconds']:.3f} s build {st['build_seconds']:.3f} s "
+          f"stall {st['stall_seconds']:.3f} s; launches {launches}")
+
+    analytic = 0
+    errs = {"predict": {False: [], True: []}, "cpu": {False: [], True: []}}
+    cpu_models = params_from_numpy(params_to_numpy(models), "cpu")
+    cpu_gmv = params_from_numpy(params_to_numpy(gmv), "cpu")
+    for mix in MIXES:
+        reqs = sf.make_requests(spec, mix, 64, rows=64, seed=0)
+        results = rows_by_mix[mix]["results"]
+        check([r.index for r in results] == list(range(len(reqs))),
+              f"{mix}: results out of stream order")
+        for i, (res, req) in enumerate(zip(results, reqs)):
+            s = res.scores
+            check(res.route is route_for(req), f"{mix} {res.index}: route")
+            check(tuple(s.shape) == (len(req.x_a if req.x_a is not None
+                                         else req.x_b), spec.out_dim),
+                  f"{mix} {res.index}: shape {tuple(s.shape)}")
+            # dequantised 1.0 may land one ulp above it: q * (s/127)
+            check(bool(torch.isfinite(s).all()) and float(s.min()) >= 0.0
+                  and float(s.max()) <= 1.0 + EPS32,
+                  f"{mix} {res.index}: scores not finite in [0, 1]")
+            lossy = res.route is Route.VFL_FALLBACK
+            codec = "int8_topk" if lossy else None
+            want = predict(models, req, ecfg, spec.kind, server_gmv=gmv,
+                           codec=codec, device="cuda")
+            errs["predict"][lossy].append((s - want.scores).abs().cpu().numpy())
+            if cpu_requests is None or i < cpu_requests:
+                # the same models on the CPU, where every kernel is its
+                # plain version
+                on_cpu = predict(cpu_models, req, ecfg, spec.kind,
+                                 server_gmv=cpu_gmv, codec=codec, device="cpu")
+                errs["cpu"][lossy].append((s.cpu() - on_cpu.scores).abs().numpy())
+            if lossy:
+                analytic += communication_cost(
+                    len(req.x_a), ecfg.d_hidden, "vfl", spec.out_dim,
+                    codec="int8_topk")["bytes"]
+    for against, by_lossy in errs.items():
+        for lossy, e in by_lossy.items():
+            ok, err, within = sf.within_tolerance(e, lossy)
+            label = f"engine vs {against} ({'int8_topk' if lossy else 'local'} routes)"
+            print(f"{label}: max abs err {err:.3g}, {within:.5f} of "
+                  f"{sum(x.size for x in e)} scores within {sf.ATOL_EXACT}")
+            check(ok, f"{label} beyond tolerance")
+    check(analytic == st["wire_bytes"],
+          f"measured wire bytes {st['wire_bytes']} != analytic {analytic}")
+    print(f"scores finite in [0, 1], routes right; wire bytes {analytic} "
+          "== analytic")
+    return {"engine": engine, "rows_by_mix": rows_by_mix, "launches": launches,
+            "batches": dict(st["batches_by_route"])}
+
+
+# ---------------------------------------------- sLSTM and flash attention --
+
+# the CPU tests' shapes (tests/test_kernels.py), then the recurrent
+# encoder's at full width: (B, H, S, hd) with B = 2 and 64 capacity rows
+SLSTM_TEST_SHAPES = ((1, 2, 32, 16), (2, 4, 50, 8), (1, 1, 64, 32))
+SLSTM_MAIN_SHAPES = ((2, 4, 64, 256), (64, 4, 64, 256))
+
+# (b, hq, hkv, sq, sk, d, causal, window): the CPU tests' cases
+# (tests/test_kernels.py), then the transformer encoder's at full width
+FLASH_TEST_CASES = (
+    (1, 4, 4, 64, 64, 32, True, 0), (2, 8, 2, 128, 128, 64, True, 0),
+    (1, 6, 2, 96, 96, 32, True, 0), (2, 4, 1, 64, 192, 32, True, 0),
+    (1, 4, 4, 40, 72, 16, True, 0), (1, 4, 2, 128, 128, 32, True, 8),
+    (1, 4, 2, 128, 128, 32, True, 32), (1, 4, 2, 128, 128, 32, True, 127),
+    (2, 4, 4, 64, 64, 32, False, 0))
+FLASH_MAIN = (64, 4, 4, 64, 64, 256, False, 0)
+
+
+def slstm_inputs(torch, b, h, s, hd, seed, dtype=None):
+    gen = np.random.default_rng(seed)
+    pre = torch.from_numpy((gen.standard_normal((b, h, s, 4, hd), np.float32)
+                            * 0.5)).cuda()
+    r = torch.from_numpy(gen.standard_normal((h, hd, 4 * hd), np.float32)
+                         / np.float32(np.sqrt(hd))).cuda()
+    return (pre, r) if dtype is None else (pre.to(dtype), r.to(dtype))
+
+
+def check_slstm(torch, slaunch, sref, pre, r):
+    got = slaunch.slstm_cell_cuda(pre, r)
+    want = sref.slstm_cell_ref(pre, r)
+    torch.cuda.synchronize()
+    check(got.dtype == pre.dtype and got.shape == want.shape,
+          "slstm output dtype or shape")
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= sref.slstm_error_bound(want, got)).all()),
+          f"slstm beyond its bound: max err {float(err.max())}")
+    return float(err.max())
+
+
+def slstm_bound_ms(b, h, s, hd, itemsize, mem_rate):
+    """The larger of: pre_x read once, r read once (f32), h written once,
+    over the memory rate; and the recurrent products' 2*hd*4hd f32
+    operations a step and (b, h) pair over the f32 peak (the gate math,
+    under 1% more, is left out, so the bound stays a lower bound)."""
+    nbytes = b * h * s * 5 * hd * itemsize + h * hd * 4 * hd * 4
+    ops = b * h * s * 2 * hd * 4 * hd
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_slstm(torch, slaunch, sref, shape, mem_rate, plain=True):
+    b, h, s, hd = shape
+    nxt = rotation(lambda: slstm_inputs(torch, b, h, s, hd, seed=b),
+                   b * h * s * 4 * hd * 4)
+    ms = cuda_time_ms(lambda: slaunch.slstm_cell_cuda(*nxt()), iters=50, warmup=3)
+    out = {"shape": list(shape), "ms": ms,
+           "device_ms": device_ms(lambda: slaunch.slstm_cell_cuda(*nxt()), iters=20)}
+    if plain:
+        out["plain_ms"] = cuda_time_ms(lambda: sref.slstm_cell_ref(*nxt()),
+                                       iters=5, warmup=1)
+        out["plain_device_ms"] = device_ms(lambda: sref.slstm_cell_ref(*nxt()),
+                                           iters=3)
+    out["bound_ms"], out["bound_by"] = slstm_bound_ms(b, h, s, hd, 4, mem_rate)
+    return out
+
+
+def flash_inputs(torch, b, hq, hkv, sq, sk, d, seed, dtype=None):
+    gen = np.random.default_rng(seed)
+    out = [torch.from_numpy(gen.standard_normal(shape, np.float32)).cuda()
+           for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+    return out if dtype is None else [x.to(dtype) for x in out]
+
+
+def check_flash(torch, flaunch, fref, q, k, v, causal, window):
+    got = flaunch.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          "flash output dtype or shape")
+    tol = fref.TOL[q.dtype]
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"flash beyond {tol}: max err {float(err.max())}")
+    return float(err.max()), got
+
+
+def visible_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs of one head that the masks let through."""
+    qi = np.arange(sq)[:, None] + (sk - sq)
+    ki = np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask = ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    return int(mask.sum())
+
+
+def time_flash(torch, flaunch, fref, case, mem_rate):
+    b, hq, hkv, sq, sk, d, causal, window = case
+    F = torch.nn.functional
+    nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * 4
+    nxt = rotation(lambda: flash_inputs(torch, b, hq, hkv, sq, sk, d, seed=d),
+                   nbytes)
+
+    def kern():
+        return flaunch.flash_attention_cuda(*nxt(), causal=causal, window=window)
+
+    def plain():
+        return fref.flash_attention_ref(*nxt(), causal=causal, window=window)
+
+    def sdpa():  # the library yardstick: timed here, never on the path
+        return F.scaled_dot_product_attention(*nxt(), is_causal=False)
+
+    out = {"shape": [b, hq, sq, d], "ms": cuda_time_ms(kern),
+           "plain_ms": cuda_time_ms(plain, iters=50),
+           "library_ms": cuda_time_ms(sdpa),
+           "device_ms": device_ms(kern), "plain_device_ms": device_ms(plain),
+           "library_device_ms": device_ms(sdpa)}
+    # bound: q, k, v read once and the output written once, over the
+    # memory rate; 4*d f32 operations (q.k and p*v) for each visible
+    # (query, key) pair, over the f32 peak
+    bytes_ms = nbytes / mem_rate * 1e3
+    ops = 4 * d * visible_pairs(sq, sk, causal, window) * b * hq
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    out["bound_ms"] = max(bytes_ms, ops_ms)
+    out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return out
+
+
+def slstm_phase(torch, slaunch, sref, mem_rate):
+    """Phase 9: the sLSTM kernel against its plain version (the CPU
+    tests' shapes and full width, f32 and bf16), then timed at the
+    serving capacities. Returns (max abs err by dtype, timings)."""
+    slstm_err, n_cases = {}, 0
+    for shape in SLSTM_TEST_SHAPES + SLSTM_MAIN_SHAPES:
+        pre, r = slstm_inputs(torch, *shape, seed=sum(shape))
+        slstm_err["float32"] = max(slstm_err.get("float32", 0.0),
+                                   check_slstm(torch, slaunch, sref, pre, r))
+        n_cases += 1
+    for shape in SLSTM_MAIN_SHAPES:
+        pre, r = slstm_inputs(torch, *shape, seed=1, dtype=torch.bfloat16)
+        slstm_err["bfloat16"] = max(slstm_err.get("bfloat16", 0.0),
+                                    check_slstm(torch, slaunch, sref, pre, r))
+        n_cases += 1
+    del pre, r
+    print(f"{n_cases} cases within slstm_error_bound of the plain version; "
+          f"max abs err {slstm_err}")
+    slstm_times = [time_slstm(torch, slaunch, sref, (b, 4, 64, 256), mem_rate,
+                              plain=b == 64) for b in (2, 4, 16, 64)]
+    for t in slstm_times:
+        print(f"slstm_cell {t['shape']}: kernel {t['ms']:.5f} ms (device "
+              f"{t['device_ms']} ms), plain {t.get('plain_ms', float('nan')):.5f} "
+              f"ms (device {t.get('plain_device_ms')} ms); bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    return slstm_err, slstm_times
+
+
+def flash_phase(torch, flaunch, fref, mem_rate):
+    """Phase 10: the flash kernel against its plain version (every mask
+    and shape of the CPU tests, full width, f32 and bf16, rows without a
+    visible key), then timed at full width beside the plain version and
+    scaled_dot_product_attention. Returns (max abs err by dtype, timing)."""
+    flash_err, n_cases = {}, 0
+    for case in FLASH_TEST_CASES + (FLASH_MAIN,):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, *case[:6], seed=sum(case[:6]), dtype=dtype)
+            err, _ = check_flash(torch, flaunch, fref, q, k, v, *case[6:])
+            key = str(dtype).replace("torch.", "")
+            flash_err[key] = max(flash_err.get(key, 0.0), err)
+            n_cases += 1
+    # causal with Sq > Sk: the first 32 query rows see no key and are 0
+    q, k, v = flash_inputs(torch, 2, 4, 2, 80, 48, 32, seed=5)
+    err, got = check_flash(torch, flaunch, fref, q, k, v, True, 0)
+    check(bool((got[:, :, :32] == 0).all()) and bool(torch.isfinite(got).all()),
+          "flash: rows without a visible key are not exactly 0")
+    flash_err["float32"] = max(flash_err["float32"], err)
+    del q, k, v, got
+    print(f"{n_cases + 1} cases within tolerance of the plain version "
+          f"(f32 2e-5, bf16 2e-2), rows without keys exactly 0; max abs err "
+          f"{flash_err}")
+    flash_time = time_flash(torch, flaunch, fref, FLASH_MAIN, mem_rate)
+    print(f"flash_attention {flash_time['shape']}: kernel {flash_time['ms']:.5f} "
+          f"ms (device {flash_time['device_ms']} ms), plain "
+          f"{flash_time['plain_ms']:.5f} ms (device "
+          f"{flash_time['plain_device_ms']} ms), SDPA "
+          f"{flash_time['library_ms']:.5f} ms (device "
+          f"{flash_time['library_device_ms']} ms); bound "
+          f"{flash_time['bound_ms']:.6f} ms ({flash_time['bound_by']})")
+    return flash_err, flash_time
+
+
+def variant_serving(torch, spec, enc, sf, counted) -> dict:
+    """Phase 11: full-width serving (phase 4's set-up and checks) with
+    the recurrent, then the transformer encoders; each encoder kernel
+    launches once per encoder application and the other not at all."""
+    variants = {}
+    for enc_type, own, symbol in (("recurrent", "slstm_cell", "slstm_kernel"),
+                                  ("transformer", "flash_attention", "flash_kernel")):
+        vcfg = enc.EncoderConfig(d_hidden=1024, n_layers=4, enc_type=enc_type,
+                                 n_heads=4)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        vmodels = enc.init_client_models(gen, spec, vcfg, device="cuda")
+        vgmv = enc.fusion_init(gen, vcfg.d_hidden, spec.out_dim, device="cuda")
+        print(f"-- {enc_type}: d_hidden 1024, 4 heads of 256")
+        res = full_width_serving(torch, spec, vcfg, vmodels, vgmv, counted,
+                                 cpu_requests=VARIANT_CPU_REQUESTS)
+        bt, got = res["batches"], res["launches"]
+        applies = (2 * (bt["multimodal"] + bt["vfl_fallback"])
+                   + bt["unimodal_A"] + bt["unimodal_B"])
+        print(f"{own} launches {got[own]} == {applies} encoder applications "
+              f"({bt})")
+        check(got[own] == applies, f"{own} launches {got[own]} != {applies} "
+              "encoder applications")
+        check(all(n == 0 for name, n in got.items()
+                  if name not in (own, "wire_codec")),
+              f"{enc_type} serving launched another kernel: {got}")
+        check(got["wire_codec"] == 3 * bt["vfl_fallback"],
+              f"wire_codec launches {got['wire_codec']}")
+        engine = res.pop("engine")
+        bd = device_breakdown(
+            lambda: sf.serve_mix(engine, spec, "all_multimodal", 64, rows=64,
+                                 seed=0),
+            res["rows_by_mix"]["all_multimodal"]["wall_s"], match=(symbol,))
+        print_breakdown(f"{enc_type} all_multimodal", bd)
+        print(f"    {own}: {bd['matched'][symbol]['ms']:.3f} ms in "
+              f"{bd['matched'][symbol]['calls']} launches")
+        variants[enc_type] = {"launches": got[own], "breakdown": bd}
+        del engine, vmodels, vgmv, res
+        torch.cuda.empty_cache()
+    return variants
+
+
+def variant_cli(sf, slaunch, flaunch):
+    """Phase 12: the CLI selftest on seeded recurrent and transformer
+    models, on the card."""
+    for enc_type, mod in (("recurrent", slaunch), ("transformer", flaunch)):
+        mod.launches = 0
+        sf.main(["--selftest", "--enc-type", enc_type, "--train-rounds", "0",
+                 "--codec", "int8_topk", "--device", "cuda"])
+        check(mod.launches > 0, f"CLI selftest ({enc_type}) launched no kernel")
+        print(f"CLI selftest ({enc_type}): {mod.launches} launches")
+
+
 def main() -> int:
     import torch
 
@@ -592,16 +972,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.core import encoders as enc
-    from repro_torch.core.inference import (InferenceRequest, Route,
-                                            communication_cost, predict,
-                                            route_for)
-    from repro_torch.core.serving import ServingConfig, ServingEngine
     from repro_torch.data.synthetic import TaskSpec
     from repro_torch.kernels import _build
     from repro_torch.kernels.blendavg import blendavg as blaunch
     from repro_torch.kernels.blendavg import ref as bref
+    from repro_torch.kernels.flash_attention import flash_attention as flaunch
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.slstm_cell import ref as sref
+    from repro_torch.kernels.slstm_cell import slstm_cell as slaunch
     from repro_torch.kernels.wire_codec import ops, ref
     from repro_torch.kernels.wire_codec import wire_codec as launcher
     from repro_torch.launch import serve_federated as sf
@@ -655,90 +1034,22 @@ def main() -> int:
               f"({t['bound_by']})")
 
     phase("4 full-width serving")
-    with torch.no_grad():  # warm cuBLAS and the allocator on every route
-        for vfl, a, b in ((False, 1, 1), (False, 1, 0), (False, 0, 1), (True, 1, 1)):
-            x = np.zeros((2, 64, 128), np.float32)
-            predict(models, InferenceRequest(x if a else None, x if b else None,
-                                             vfl=vfl),
-                    ecfg, spec.kind, server_gmv=gmv, codec="int8_topk",
-                    device="cuda")
-    torch.cuda.synchronize()
-    mixes = ("all_multimodal", "mixed_unimodal", "vfl_heavy")
-    engine = ServingEngine(models, ecfg, spec.kind, server_gmv=gmv,
-                           cfg=ServingConfig(codec="int8_topk",
-                                             capacities=(2, 4, 16, 64)),
-                           device="cuda")
-    launcher.launches = 0
-    rows_by_mix = {}
-    for mix in mixes:
-        rows_by_mix[mix] = sf.serve_mix(engine, spec, mix, 64, rows=64, seed=0)
-    launches = launcher.launches
-    vfl_batches = engine.stats["batches_by_route"]["vfl_fallback"]
-    for mix, row in rows_by_mix.items():
-        print(f"mix {mix:>15}: {row['requests']} req ({row['rows']} rows) "
-              f"p50 {row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} ms "
-              f"{row['rps']:.1f} req/s {row['rows_per_s']:.1f} rows/s")
-    st = engine.stats
-    print(f"engine: {st['batches']} batches {st['batches_by_route']}; "
-          f"execute {st['execute_seconds']:.3f} s build {st['build_seconds']:.3f} s "
-          f"stall {st['stall_seconds']:.3f} s; wire_codec launches {launches} "
-          f"over {vfl_batches} VFL micro-batches")
+    counted = {"wire_codec": launcher, "blend_params": blaunch,
+               "slstm_cell": slaunch, "flash_attention": flaunch}
+    serve4 = full_width_serving(torch, spec, ecfg, models, gmv, counted)
+    launches = serve4["launches"]["wire_codec"]
+    vfl_batches = serve4["batches"]["vfl_fallback"]
+    print(f"wire_codec launches {launches} over {vfl_batches} VFL micro-batches")
     check(vfl_batches > 0 and launches == 3 * vfl_batches,
           f"wire_codec launches {launches} != 3 x {vfl_batches} VFL batches")
-
-    analytic = 0
-    errs = {"predict": {False: [], True: []}, "cpu": {False: [], True: []}}
-    cpu_models = params_from_numpy(params_to_numpy(models), "cpu")
-    cpu_gmv = params_from_numpy(params_to_numpy(gmv), "cpu")
-    for mix in mixes:
-        reqs = sf.make_requests(spec, mix, 64, rows=64, seed=0)
-        results = rows_by_mix[mix]["results"]
-        check([r.index for r in results] == list(range(len(reqs))),
-              f"{mix}: results out of stream order")
-        for res, req in zip(results, reqs):
-            s = res.scores
-            check(res.route is route_for(req), f"{mix} {res.index}: route")
-            check(tuple(s.shape) == (len(req.x_a if req.x_a is not None
-                                         else req.x_b), spec.out_dim),
-                  f"{mix} {res.index}: shape {tuple(s.shape)}")
-            # dequantised 1.0 may land one ulp above it: q * (s/127)
-            check(bool(torch.isfinite(s).all()) and float(s.min()) >= 0.0
-                  and float(s.max()) <= 1.0 + EPS32,
-                  f"{mix} {res.index}: scores not finite in [0, 1]")
-            lossy = res.route is Route.VFL_FALLBACK
-            codec = "int8_topk" if lossy else None
-            want = predict(models, req, ecfg, spec.kind, server_gmv=gmv,
-                           codec=codec, device="cuda")
-            errs["predict"][lossy].append((s - want.scores).abs().cpu().numpy())
-            # the same models on the CPU, where the codec is the plain version
-            on_cpu = predict(cpu_models, req, ecfg, spec.kind,
-                             server_gmv=cpu_gmv, codec=codec, device="cpu")
-            errs["cpu"][lossy].append((s.cpu() - on_cpu.scores).abs().numpy())
-            if lossy:
-                analytic += communication_cost(
-                    len(req.x_a), ecfg.d_hidden, "vfl", spec.out_dim,
-                    codec="int8_topk")["bytes"]
-    for against, by_lossy in errs.items():
-        for lossy, e in by_lossy.items():
-            ok, err, within = sf.within_tolerance(e, lossy)
-            label = f"engine vs {against} ({'int8_topk' if lossy else 'local'} routes)"
-            print(f"{label}: max abs err {err:.3g}, {within:.5f} of "
-                  f"{sum(x.size for x in e)} scores within {sf.ATOL_EXACT}")
-            check(ok, f"{label} beyond tolerance")
-    check(analytic == st["wire_bytes"],
-          f"measured wire bytes {st['wire_bytes']} != analytic {analytic}")
-    print(f"scores finite in [0, 1], routes right; wire bytes {analytic} "
-          "== analytic")
-
-    # where the time goes: each mix served again under the profiler
-    for mix in mixes:
-        bd = device_breakdown(
+    check(all(n == 0 for name, n in serve4["launches"].items()
+              if name != "wire_codec"),
+          f"mlp serving launched another kernel: {serve4['launches']}")
+    engine = serve4.pop("engine")
+    for mix in MIXES:  # where the time goes: each mix again under the profiler
+        print_breakdown(mix, device_breakdown(
             lambda: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=0),
-            rows_by_mix[mix]["wall_s"])
-        print(f"{mix}: device busy {bd['busy_ms']:.2f} ms of "
-              f"{bd['wall_ms']:.2f} ms wall, idle share {bd['idle_share']:.3f}")
-        for k in bd["top"]:
-            print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x {k['kernel']}")
+            serve4["rows_by_mix"][mix]["wall_s"]))
 
     phase("5 CLI selftest")
     launcher.launches = blaunch.launches = 0
@@ -772,7 +1083,7 @@ def main() -> int:
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
     phase("7 full-width training")
-    del engine, models, gmv, cpu_models, cpu_gmv, feats
+    del engine, models, gmv, feats, serve4
     torch.cuda.empty_cache()
     train = full_width_training(torch, spec, ecfg, blaunch, bref, launcher,
                                 ops, ref, mem_rate)
@@ -780,6 +1091,19 @@ def main() -> int:
     phase("8 card against CPU")
     card_vs_cpu(torch)
     card_vs_cpu(torch, rounds=1, codec="int8_topk")
+
+    phase("9 sLSTM cell against plain")
+    slstm_err, slstm_times = slstm_phase(torch, slaunch, sref, mem_rate)
+
+    phase("10 flash attention against plain")
+    flash_err, flash_time = flash_phase(torch, flaunch, fref, mem_rate)
+
+    phase("11 full-width serving, recurrent and transformer encoders")
+    variants = variant_serving(torch, spec, enc, sf, counted)
+
+    phase("12 CLI selftest, recurrent and transformer encoders")
+    variant_cli(sf, slaunch, flaunch)
+    phase(None)
 
     main_t = timings[2]
     wire_record = {
@@ -805,7 +1129,33 @@ def main() -> int:
         "library_ms": main_b["library_ms"],  # omega @ stacked (cuBLAS)
         "shape": main_b["shape"], "per_shape": blend_times,
     }
-    print(json.dumps({"kernels": [wire_record, blend_record]}))
+    main_s = slstm_times[-1]  # (64, 4, 64, 256): a full capacity batch
+    slstm_record = {
+        "name": "slstm_cell", "route": "cuda",
+        "source": "src/repro_torch/kernels/slstm_cell/slstm_cell.cu",
+        "replaces": "src/repro/kernels/slstm_cell/slstm_cell.py:73",
+        "launches": variants["recurrent"]["launches"],
+        "max_abs_err": max(slstm_err.values()),
+        "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
+        "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],
+        "library_ms": None,  # no single PyTorch call runs the recurrence
+        "shape": main_s["shape"], "per_shape": slstm_times,
+        "max_abs_err_by_dtype": slstm_err,
+    }
+    flash_record = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",
+        "launches": variants["transformer"]["launches"],
+        "max_abs_err": max(flash_err.values()),
+        "ms": flash_time["ms"], "plain_ms": flash_time["plain_ms"],
+        "bound_ms": flash_time["bound_ms"], "bound_by": flash_time["bound_by"],
+        "library_ms": flash_time["library_ms"],  # scaled_dot_product_attention
+        "shape": flash_time["shape"], "timing": flash_time,
+        "max_abs_err_by_dtype": flash_err,
+    }
+    print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
+                                  flash_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

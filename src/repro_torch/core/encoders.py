@@ -1,14 +1,22 @@
-"""Per-modality encoders and classifiers (port of the ``mlp`` path of
+"""Per-modality encoders and classifiers (port of
 ``src/repro/core/encoders.py``).
 
     f_m : (B, S_m, F_m) -> h (B, d)        modality encoder
     g_m : h -> logits                       unimodal classifier
     g_M : (h_A, h_B) -> logits              multimodal (fusion) classifier
 
-Parameters are plain dicts keyed like the reference's pytrees (the
-``mlp`` encoder's ``hidden`` is a list), so JAX weights and checkpoints
-carry over through ``repro_torch.convert``. ``jax.nn.gelu`` is the tanh
-form, hence ``approximate="tanh"`` throughout.
+``enc_type``: ``mlp``; ``recurrent``, one sLSTM layer over the sequence
+through the sLSTM cell kernel; ``transformer``, one non-causal attention
+block through the flash attention kernel. Parameters are plain dicts
+keyed like the reference's pytrees (the ``mlp`` encoder's ``hidden`` is
+a list), so JAX weights and checkpoints carry over through
+``repro_torch.convert``. ``jax.nn.gelu`` is the tanh form, hence
+``approximate="tanh"`` throughout.
+
+The reference's transformer scores divide by ``sqrt(hd)``; the kernel
+multiplies by ``1 / sqrt(hd)`` in f32. The two are equal when ``hd`` is
+a power of 4 (64 and 256 among the configurations) and differ by an ulp
+of the score otherwise.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.data.synthetic import TaskSpec
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import (
     dense,
     dense_init,
@@ -27,6 +36,9 @@ from repro_torch.models.common import (
     sigmoid_bce,
     softmax_cross_entropy,
 )
+from repro_torch.models.recurrent import slstm_init, slstm_scan
+
+ENC_TYPES = ("mlp", "recurrent", "transformer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,11 +50,7 @@ class EncoderConfig:
 
 
 def _check_enc_type(ecfg: EncoderConfig) -> None:
-    if ecfg.enc_type in ("recurrent", "transformer"):
-        raise NotImplementedError(
-            f"enc_type={ecfg.enc_type!r} is not ported yet (ROADMAP.md, "
-            "modules to port: 'Encoder variants'); the port runs 'mlp'")
-    if ecfg.enc_type != "mlp":
+    if ecfg.enc_type not in ENC_TYPES:
         raise ValueError(ecfg.enc_type)
 
 
@@ -50,21 +58,45 @@ def encoder_init(gen: torch.Generator, feat_dim: int, ecfg: EncoderConfig,
                  dtype=torch.float32, *, device):
     _check_enc_type(ecfg)
     d = ecfg.d_hidden
-    return {
-        "in": dense_init(gen, feat_dim, d, dtype, device=device, bias=True),
-        "hidden": [dense_init(gen, d, d, dtype, device=device, bias=True)
-                   for _ in range(ecfg.n_layers)],
-        "norm": rmsnorm_init(d, dtype, device=device),
-    }
+    p = {"in": dense_init(gen, feat_dim, d, dtype, device=device, bias=True)}
+    if ecfg.enc_type == "mlp":
+        p["hidden"] = [dense_init(gen, d, d, dtype, device=device, bias=True)
+                       for _ in range(ecfg.n_layers)]
+    elif ecfg.enc_type == "recurrent":
+        p["cell"] = slstm_init(gen, d, ecfg.n_heads, dtype, device=device)
+    else:  # transformer; independent draws (see ROADMAP.md §3 on the
+        # reference's key reuse)
+        p["ln"] = rmsnorm_init(d, dtype, device=device)
+        for name in ("wq", "wk", "wv"):
+            p[name] = dense_init(gen, d, d, dtype, device=device)
+        p["ff"] = dense_init(gen, d, d, dtype, device=device, bias=True)
+    p["norm"] = rmsnorm_init(d, dtype, device=device)
+    return p
 
 
 def encoder_apply(p, x, ecfg: EncoderConfig):
     """x (B, S, F) -> h (B, d)."""
     _check_enc_type(ecfg)
     h = torch.tanh(dense(p["in"], x))
-    h = torch.mean(h, dim=1)
-    for layer in p["hidden"]:
-        h = h + F.gelu(dense(layer, h), approximate="tanh")
+    if ecfg.enc_type == "mlp":
+        h = torch.mean(h, dim=1)
+        for layer in p["hidden"]:
+            h = h + F.gelu(dense(layer, h), approximate="tanh")
+    elif ecfg.enc_type == "recurrent":
+        h = slstm_scan(p["cell"], h, ecfg.n_heads)[:, -1]
+    else:  # transformer
+        hn = rmsnorm(p["ln"], h)
+        b, s, d = hn.shape
+        nh = ecfg.n_heads
+
+        def heads(w):  # (b, s, d) -> (b, nh, s, hd)
+            return dense(w, hn).reshape(b, s, nh, d // nh).permute(0, 2, 1, 3)
+
+        att = flash_attention(heads(p["wq"]), heads(p["wk"]), heads(p["wv"]),
+                              causal=False)
+        h = h + att.permute(0, 2, 1, 3).reshape(b, s, d)
+        h = h + F.gelu(dense(p["ff"], h), approximate="tanh")
+        h = torch.mean(h, dim=1)
     return rmsnorm(p["norm"], h)
 
 

@@ -144,9 +144,23 @@ def _sdense(p, x):
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
+def check_trainable(ecfg: EncoderConfig) -> None:
+    """Training runs the ``mlp`` encoders only. The ``recurrent`` and
+    ``transformer`` encoders are served, but their gradients need
+    backward kernels for the sLSTM cell and flash attention that the
+    port does not have yet, and the plain versions may not stand in for
+    them on the card."""
+    _check_enc_type(ecfg)
+    if ecfg.enc_type != "mlp":
+        raise NotImplementedError(
+            f"training enc_type={ecfg.enc_type!r} is not ported yet "
+            "(ROADMAP.md, modules to port, item 17: training the encoder "
+            "variants); the port serves it and trains 'mlp'")
+
+
 def encoder_apply_stacked(p, x, ecfg: EncoderConfig):
     """C stacked encoders on their own inputs: x (C, B, S, F) -> (C, B, d)."""
-    _check_enc_type(ecfg)
+    check_trainable(ecfg)
     h = torch.tanh(_sdense(p["in"], x))
     h = torch.mean(h, dim=2)
     for layer in p["hidden"]:
@@ -235,7 +249,9 @@ def _f32(x, device=None) -> torch.Tensor:
 # ------------------------------------------------------------- phase math --
 
 def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
-    """Build the phase functions closed over ``cfg``."""
+    """Build the phase functions closed over ``cfg``; raises
+    ``NotImplementedError`` for an encoder type training does not run."""
+    check_trainable(cfg.ecfg)
     ecfg, kind = cfg.ecfg, cfg.kind
     opt = make_optimizer(cfg)
     srv_opt = (make_optimizer(dataclasses.replace(

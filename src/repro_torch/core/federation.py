@@ -25,7 +25,9 @@ then B) and, for ``phase="paired"``, one. The default draws them with
 
 Not ported yet (ROADMAP.md, modules to port, item 9): K-of-C sampled
 and async rounds, participation policies, and every strategy but
-blendavg and fedavg. Asking for one raises ``NotImplementedError``.
+blendavg and fedavg; nor (item 17) training the ``recurrent`` and
+``transformer`` encoders, which the port only serves. Asking for one
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from repro_torch.core.engine import (
     CLIENT_GROUPS,
     EngineConfig,
     RoundEngine,
+    check_trainable,
     stack_with,
 )
 from repro_torch.core.partitioner import ClientData, ModalView, fragmented_overlap
@@ -285,7 +288,10 @@ class Federation:
         """``gen`` draws the initial models unless ``base`` (a tree of
         numpy arrays or tensors keyed like the models) gives them.
         ``device``: CUDA when None (raises without it). ``perms``: the
-        permutation source (default ``generator_perms(cfg.seed)``)."""
+        permutation source (default ``generator_perms(cfg.seed)``).
+        Raises ``NotImplementedError`` for an encoder type training does
+        not run (``recurrent``, ``transformer``)."""
+        check_trainable(ecfg)
         if cfg.n_sampled < 0 or cfg.n_sampled > cfg.n_clients:
             raise ValueError(
                 f"n_sampled={cfg.n_sampled} must be in [0, n_clients]")

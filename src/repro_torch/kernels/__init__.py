@@ -11,3 +11,15 @@ A wrapper launches its kernel for a CUDA tensor and uses ``ref.py`` only
 for a tensor that lies on the CPU; nothing is built or imported from
 the CUDA toolchain when a module is imported.
 """
+from __future__ import annotations
+
+import torch
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of |x| (0 where x is 0): the slack a bf16 result may
+    need when two f32 computations of it round to neighbouring values."""
+    big = x.float().abs()
+    _, e = torch.frexp(big)  # big = m * 2^e, 0.5 <= m < 1
+    ulp = torch.ldexp(torch.ones_like(big), e - 8)  # 8 significand bits
+    return torch.where(big > 0, ulp, torch.zeros_like(ulp))

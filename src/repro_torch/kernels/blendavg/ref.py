@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bf16_ulp
+
 EPS32 = float(torch.finfo(torch.float32).eps)
 
 
@@ -29,8 +31,6 @@ def blend_error_bound(stacked, omega, want, got):
     mag = (stacked.float().abs() * omega.float().abs()[:, None]).sum(0)
     bound = 2 * rows * EPS32 * mag
     if want.dtype == torch.bfloat16:
-        big = torch.maximum(want.float().abs(), got.float().abs())
-        _, e = torch.frexp(big)  # big = m * 2^e, 0.5 <= m < 1
-        ulp = torch.ldexp(torch.ones_like(big), e - 8)  # 8 significand bits
-        bound = bound + torch.where(big > 0, ulp, torch.zeros_like(ulp))
+        bound = bound + bf16_ulp(torch.maximum(want.float().abs(),
+                                               got.float().abs()))
     return bound

@@ -1,0 +1,85 @@
+"""Launcher of the CUDA flash attention kernel (``flash_attention.cu``).
+
+``flash_attention_cuda(q, k, v, causal=, window=)`` checks its tensors,
+allocates the output, launches the kernel on the current stream and
+adds one to ``launches``. It takes CUDA tensors only: there is no CPU
+path here (``ops.flash_attention`` routes CPU tensors to ``ref.py``).
+The library is built on first call, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).with_name("flash_attention.cu")
+
+# Kernel launches made by this process; callers reset it to 0 to count
+# the launches of one run.
+launches = 0
+
+MAX_HEAD_DIM = 256  # kMaxD in flash_attention.cu: 8 output columns a lane
+MAX_QUERIES = 65535 * 8  # the grid's y limit times kRows query rows a block
+
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+_fns: dict = {}
+
+
+def _fn(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load(SOURCE), _ENTRY[dtype])
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[dtype] = fn
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool, window: int) -> torch.Tensor:
+    """q (B, Hq, Sq, d), k and v (B, Hkv, Sk, d), one dtype (f32 or bf16),
+    contiguous on one CUDA device; Hq % Hkv == 0, d <= 256. ``window`` of
+    0 or less means no window, as in the reference. Returns (B, Hq, Sq, d)
+    in q's dtype."""
+    global launches
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 of "
+                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B, Hq, Sq, d) and k, v (B, Hkv, Sk, d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)} "
+                         "(same batch and d, Hq a multiple of Hkv)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_cuda takes contiguous tensors")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_cuda takes a head dim of at most "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if sq > MAX_QUERIES or b * hq > 2**31 - 1:
+        raise ValueError(f"{sq} queries or {b * hq} (batch, head) pairs "
+                         "exceed the grid")
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(f"flash_attention_cuda takes CUDA tensors on one "
+                         f"device, got q on {q.device}, k on {k.device}, "
+                         f"v on {v.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _fn(q.dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, hq, hkv, sq, sk, d, int(bool(causal)),
+                 max(int(window), 0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

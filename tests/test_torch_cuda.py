@@ -11,7 +11,11 @@ f32 operations in the same order (``rintf`` and ``torch.round`` both
 round half to even), so outputs agree bit for bit. The blend kernel sums
 its L products in l order and the plain version in PyTorch's order, so
 they agree within ``blend_error_bound``: 2 * L * eps32 * sum |omega x|,
-plus one bf16 ulp for bf16.
+plus one bf16 ulp for bf16. The sLSTM kernel's recurrent products sum in
+another order than the plain version's: within ``slstm_error_bound``
+(atol 1e-5, rtol 1e-4, plus one bf16 ulp for bf16). Flash attention
+against its plain version: 2e-5 in f32 and 2e-2 in bf16, the reference's
+kernel-test tolerances.
 """
 import numpy as np
 import pytest
@@ -21,6 +25,11 @@ from repro_torch.common.tree import tree_leaves, tree_stack
 from repro_torch.kernels.blendavg import blendavg as blend_launcher
 from repro_torch.kernels.blendavg.ops import blend_params
 from repro_torch.kernels.blendavg.ref import blend_error_bound, blend_params_ref
+from repro_torch.kernels.flash_attention import flash_attention as flash_launcher
+from repro_torch.kernels.flash_attention.ref import TOL as FLASH_TOL
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.slstm_cell import slstm_cell as slstm_launcher
+from repro_torch.kernels.slstm_cell.ref import slstm_cell_ref, slstm_error_bound
 from repro_torch.kernels.wire_codec import wire_codec as launcher
 from repro_torch.kernels.wire_codec.ops import scale_thresh, wire_codec_roundtrip
 from repro_torch.kernels.wire_codec.ref import wire_codec_ref
@@ -133,3 +142,119 @@ def test_blend_params_launches_once_per_leaf_on_card():
         err = (g.reshape(-1) - want).abs()
         assert g.shape == x.shape[1:]
         assert bool((err <= blend_error_bound(flat, omega, want, g.reshape(-1))).all())
+
+
+# ---------------------------------------------------------- sLSTM cell --
+
+def _slstm_inputs(b, h, s, hd, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    pre = (rng.standard_normal((b, h, s, 4, hd)) * 0.5).astype(np.float32)
+    r = (rng.standard_normal((h, hd, 4 * hd)) / np.sqrt(hd)).astype(np.float32)
+    return (torch.from_numpy(pre).cuda().to(dtype),
+            torch.from_numpy(r).cuda().to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,hd,dtype", [
+    (1, 2, 32, 16, "float32"), (2, 4, 50, 8, "float32"),
+    (1, 1, 64, 32, "float32"), (2, 4, 64, 256, "float32"),
+    (3, 2, 17, 100, "float32"), (2, 4, 50, 8, "bfloat16"),
+    (2, 4, 64, 256, "bfloat16"),
+])
+def test_slstm_kernel_matches_plain_on_card(b, h, s, hd, dtype):
+    _skip_without_card()
+    pre, r = _slstm_inputs(b, h, s, hd, seed=hd, dtype=getattr(torch, dtype))
+    before = slstm_launcher.launches
+    got = slstm_launcher.slstm_cell_cuda(pre, r)
+    want = slstm_cell_ref(pre, r)
+    torch.cuda.synchronize()
+    assert slstm_launcher.launches == before + 1
+    assert got.dtype == pre.dtype and got.shape == (b, h, s, hd)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= slstm_error_bound(want, got)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_slstm_launcher_refuses_wide_heads_on_card():
+    _skip_without_card()
+    pre, r = _slstm_inputs(1, 1, 2, 264, seed=0)
+    before = slstm_launcher.launches
+    with pytest.raises(ValueError, match="at most 256"):
+        slstm_launcher.slstm_cell_cuda(pre, r)
+    assert slstm_launcher.launches == before
+
+
+# ----------------------------------------------------- flash attention --
+
+FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window
+    (1, 4, 4, 64, 64, 32, True, 0), (2, 8, 2, 128, 128, 64, True, 0),
+    (1, 6, 2, 96, 96, 32, True, 0), (2, 4, 1, 64, 192, 32, True, 0),
+    (1, 4, 4, 40, 72, 16, True, 0), (1, 4, 2, 128, 128, 32, True, 8),
+    (1, 4, 2, 128, 128, 32, True, 32), (1, 4, 2, 128, 128, 32, True, 127),
+    (2, 4, 4, 64, 64, 32, False, 0), (2, 4, 4, 64, 64, 256, False, 0),
+    (1, 2, 2, 12, 12, 8, False, 0), (1, 2, 1, 37, 50, 10, False, 5),
+]
+
+
+def _qkv(b, hq, hkv, sq, sk, d, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        out.append(x.cuda().to(dtype))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(b, hq, hkv, sq, sk, d, causal,
+                                            window, dtype):
+    _skip_without_card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=sq + d, dtype=dt)
+    before = flash_launcher.launches
+    got = flash_launcher.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_launcher.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = FLASH_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rows_without_keys_are_zero_on_card():
+    """Causal with Sq > Sk: the first Sq - Sk query rows see no key and
+    are exactly 0, as in the TPU kernel."""
+    _skip_without_card()
+    q, k, v = _qkv(2, 4, 2, 80, 48, 32, seed=5)
+    got = flash_launcher.flash_attention_cuda(q, k, v, causal=True, window=0)
+    want = flash_attention_ref(q, k, v, causal=True, window=0)
+    assert bool((got[:, :, :32] == 0).all())
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enc_type", ["recurrent", "transformer"])
+def test_encoder_launches_its_kernel_once_on_card(enc_type):
+    """One encoder application is one launch of its kernel and none of
+    the other's, and the card agrees with the CPU on the same weights."""
+    _skip_without_card()
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.encoders import EncoderConfig, encoder_apply, encoder_init
+
+    ecfg = EncoderConfig(d_hidden=64, n_layers=1, enc_type=enc_type)
+    p = encoder_init(torch.Generator().manual_seed(0), 12, ecfg, device="cuda")
+    x = torch.randn(5, 16, 12, generator=torch.Generator().manual_seed(1))
+    before = (slstm_launcher.launches, flash_launcher.launches)
+    with torch.no_grad():
+        got = encoder_apply(p, x.cuda(), ecfg)
+    torch.cuda.synchronize()
+    after = (slstm_launcher.launches, flash_launcher.launches)
+    want_delta = (1, 0) if enc_type == "recurrent" else (0, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == want_delta
+    want = encoder_apply(params_from_numpy(params_to_numpy(p), "cpu"), x, ecfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

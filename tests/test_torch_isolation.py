@@ -26,7 +26,10 @@ def _port_modules():
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     for m in ("repro_torch.core.serving", "repro_torch.core.federation",
-              "repro_torch.kernels.blendavg.ops"):
+              "repro_torch.kernels.blendavg.ops",
+              "repro_torch.kernels.slstm_cell.ops",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.models.recurrent"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -111,7 +114,8 @@ def test_missing_nvcc_raises(monkeypatch):
     be found, the build raises instead of falling back."""
     from repro_torch.kernels import _build
 
-    assert [p.name for p in _build.sources()] == ["blendavg.cu", "wire_codec.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "blendavg.cu", "flash_attention.cu", "slstm_cell.cu", "wire_codec.cu"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

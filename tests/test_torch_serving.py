@@ -1,6 +1,7 @@
 """Decentralized serving of the PyTorch port against the JAX reference,
 on the CPU: ``predict`` on all four routes, the ``ServingEngine`` over
-request streams, and a JAX checkpoint served by the port.
+request streams, and a JAX checkpoint served by the port (the recurrent
+and transformer encoders: ``tests/test_torch_serving_variants.py``).
 
 Weights are the reference's init plus numpy noise on every leaf, carried
 across with ``params_from_numpy``. Tolerance (scores):
@@ -10,125 +11,45 @@ across with ``params_from_numpy``. Tolerance (scores):
   rare entry across a top-k or rounding boundary.
 Messages and bytes match exactly.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.checkpoint import save_checkpoint
-from repro.core import encoders as jenc
 from repro.core import inference as jinf
-from repro.core import serving as jserv
-from repro.launch import serve_federated as jsf
-from repro_torch.convert import params_from_numpy
 from repro_torch.core import encoders as tenc
 from repro_torch.core import inference as tinf
 from repro_torch.core import serving as tserv
 from repro_torch.checkpoint import latest_step, load_arrays, read_manifest
-from repro_torch.data.synthetic import make_task
 from repro_torch.launch import serve_federated as tsf
 
-CAPS = (2, 4, 8)
-
-
-def assert_scores_close(got, want, codec):
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    assert got.shape == want.shape
-    err = np.abs(got - want)
-    if codec == "none":
-        assert err.max() <= 1e-5, err.max()
-    else:
-        assert err.max() <= 2e-2, err.max()
-        assert (err <= 1e-5).mean() >= 0.99, (err <= 1e-5).mean()
+from _torch_parity import (CAPS, assert_scores_close, engine_matches_jax_engine,
+                           predict_matches_jax, serving_models, serving_requests)
 
 
 @pytest.fixture(scope="module", params=[("smnist", 32, 1), ("conditions", 40, 2)],
                 ids=["smnist", "conditions"])
 def setup(request):
     task, d, layers = request.param
-    spec = make_task(task)
-    jcfg = jenc.EncoderConfig(d_hidden=d, n_layers=layers)
-    tcfg = tenc.EncoderConfig(d_hidden=d, n_layers=layers)
-    rng = np.random.default_rng(d)
-    jm = jenc.init_client_models(jax.random.PRNGKey(0), spec, jcfg)
-    tree = {"models": jm, "gmv": jenc.fusion_init(jax.random.PRNGKey(1), d,
-                                                  spec.out_dim)}
-    np_tree = jax.tree.map(lambda x: (np.asarray(x) + 0.1 * rng.standard_normal(
-        x.shape)).astype(np.float32), tree)
-    jax_side = jax.tree.map(jnp.asarray, np_tree)
-    torch_side = params_from_numpy(np_tree, "cpu")
-    return dict(spec=spec, jcfg=jcfg, tcfg=tcfg, np_tree=np_tree,
-                jm=jax_side["models"], jgmv=jax_side["gmv"],
-                tm=torch_side["models"], tgmv=torch_side["gmv"])
-
-
-def _reqs(spec, seed, jax_side: bool):
-    """The same request list for both packages (each its own type)."""
-    rng = np.random.default_rng(seed)
-    cls = jinf.InferenceRequest if jax_side else tinf.InferenceRequest
-    out = []
-    for n, a, b, vfl in ((3, 1, 1, 0), (1, 1, 0, 0), (2, 0, 1, 0),
-                         (5, 1, 1, 1), (19, 1, 1, 0), (1, 1, 1, 1),
-                         (12, 1, 1, 1), (4, 1, 0, 0)):
-        xa = rng.standard_normal((n, spec.seq_a, spec.feat_a)).astype(np.float32)
-        xb = rng.standard_normal((n, spec.seq_b, spec.feat_b)).astype(np.float32)
-        out.append(cls(xa if a else None, xb if b else None, vfl=bool(vfl)))
-    return out
+    return serving_models(task, d, layers, "mlp", seed=d)
 
 
 @pytest.mark.parametrize("codec", ["none", "int8_topk"])
 def test_predict_all_routes_match_jax(setup, codec):
-    s = setup
-    for jreq, treq in zip(_reqs(s["spec"], 1, True), _reqs(s["spec"], 1, False)):
-        c = codec if treq.vfl else None
-        want = jinf.predict(s["jm"], jreq, s["jcfg"], s["spec"].kind,
-                            server_gmv=s["jgmv"], codec=c)
-        got = tinf.predict(s["tm"], treq, s["tcfg"], s["spec"].kind,
-                           server_gmv=s["tgmv"], codec=c, device="cpu")
-        assert got.route.value == want.route.value
-        assert (got.messages, got.bytes) == (want.messages, want.bytes)
-        assert_scores_close(got.scores.numpy(), want.scores,
-                            codec if treq.vfl else "none")
+    predict_matches_jax(setup, codec)
 
 
 @pytest.mark.parametrize("mix,codec", [
     ("mixed_unimodal", "none"),  # local routes only: the codec is idle
     ("vfl_heavy", "none"), ("vfl_heavy", "int8_topk")])
-def test_engine_matches_jax_engine(setup, mix, codec):
-    """Same stream through both engines (rows up to 12 > top capacity 8,
-    so requests chunk): scores, routes, per-request and measured bytes."""
-    s = setup
-    spec = s["spec"]
-    jeng = jserv.ServingEngine(s["jm"], s["jcfg"], spec.kind,
-                               server_gmv=s["jgmv"],
-                               cfg=jserv.ServingConfig(capacities=CAPS,
-                                                       codec=codec, window=6))
-    teng = tserv.ServingEngine(s["tm"], s["tcfg"], spec.kind,
-                               server_gmv=s["tgmv"],
-                               cfg=tserv.ServingConfig(capacities=CAPS,
-                                                       codec=codec, window=6),
-                               device="cpu")
-    jres = jeng.run(jsf.make_requests(spec, mix, 12, rows=12, seed=3))
-    tres = teng.run(tsf.make_requests(spec, mix, 12, rows=12, seed=3))
-    assert [r.index for r in tres] == list(range(12))
-    assert max(len(r.scores) for r in tres) > CAPS[-1]  # chunking exercised
-    for j, t in zip(jres, tres):
-        assert t.route.value == j.route.value
-        assert (t.messages, t.bytes) == (j.messages, j.bytes)
-        assert_scores_close(t.scores.numpy(), j.scores,
-                            codec if t.route is tinf.Route.VFL_FALLBACK else "none")
-    for key in ("requests", "rows", "batches", "batches_by_route",
-                "wire_messages", "wire_bytes"):
-        assert teng.stats[key] == jeng.stats[key], key
-    assert teng.stats["wire_bytes"] == sum(r.bytes for r in tres)
+def testengine_matches_jax_engine(setup, mix, codec):
+    engine_matches_jax_engine(setup, mix, codec)
 
 
 def test_engine_matches_predict_and_sync_prefetch_agree(setup):
     s = setup
     spec = s["spec"]
-    reqs = _reqs(spec, 4, False)
+    reqs = serving_requests(spec, 4, False)
     runs = []
     for prefetch in (0, 2):
         eng = tserv.ServingEngine(
@@ -196,7 +117,7 @@ def test_jax_checkpoint_serves_through_port(setup, tmp_path):
         s["tcfg"].d_hidden, spec.out_dim]
     assert set(load_arrays(ckpt, 3, prefixes=("round",))) == {"round"}
     tm, tgmv = tsf.models_from_checkpoint(ckpt, spec, s["tcfg"], device="cpu")
-    for jreq, treq in zip(_reqs(spec, 5, True), _reqs(spec, 5, False)):
+    for jreq, treq in zip(serving_requests(spec, 5, True), serving_requests(spec, 5, False)):
         c = "int8_topk" if treq.vfl else None
         want = jinf.predict(s["jm"], jreq, s["jcfg"], spec.kind,
                             server_gmv=s["jgmv"], codec=c)
