@@ -59,7 +59,27 @@ outside a checkout. Phases, each fatal on failure:
    kernel launches exactly once per encoder application (2 per
    multimodal or VFL micro-batch, 1 per unimodal one), a profiled mix;
 12. the CLI: ``serve_federated --selftest --train-rounds 0`` with each of
-   the two encoders, on the card.
+   the two encoders, on the card;
+13. mLSTM scan against plain: the kernel's h and final (C, n) against its
+   plain version (the step recurrence) at the CPU tests' shapes, a
+   ragged S, and xlstm-350m's (8, 4, 512, 512, 512) at chunk 64,
+   normalize on and off, then timed beside the plain version and the
+   bound;
+14. the sLSTM cell from a running state against plain: prefill length
+   (8, 4, 512, 256) and a decode step (S = 1), output and final state,
+   then timed;
+15. full-width xlstm-350m serving through ``repro_torch.launch.serve_lm``
+   (24 layers, d_model 1024, random weights from seed 0): prefill of
+   8 x 512 tokens and 32 greedy decode steps, exactly 12 mLSTM + 12 sLSTM
+   launches in prefill and 0 + 12 in each decode step and no other
+   kernel, prefill against ``forward``, a profiled prefill and step;
+16. xlstm-350m card against CPU: prefill of 2 x 128 tokens and 4 decode
+   steps, logits and caches within a stated tolerance.
+
+Phase 4's streams are fixed (``MIX_SALT`` stands in for the per-process
+``hash(mix)``), so every run serves the same requests; its check accepts
+a large error on the lossy VFL route only in a row whose recorded wire
+messages differ between the two runs compared.
 
 Every phase prints its time. It then prints one JSON line of per-kernel
 numbers, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -175,11 +195,14 @@ def device_kernels(run) -> list:
 
 def device_ms(fn, iters=50):
     """Device time per call of ``fn`` (every kernel it launches), or None
-    when the profiler records no device time."""
+    when the profiler records no device time. The profiler may drop
+    events of a long run: for a function that launches one kernel the
+    time is divided by the launches it recorded, not by ``iters``."""
     fn()
-    total_us = sum(k[0] for k in device_kernels(
-        lambda: [fn() for _ in range(iters)]))
-    return total_us / iters / 1e3 if total_us > 0 else None
+    kernels = device_kernels(lambda: [fn() for _ in range(iters)])
+    total_us = sum(k[0] for k in kernels)
+    calls = kernels[0][1] if len(kernels) == 1 else iters
+    return total_us / calls / 1e3 if total_us > 0 else None
 
 
 def device_breakdown(run, wall_s, top=6, match=()):
@@ -615,6 +638,9 @@ def card_vs_cpu(torch, rounds=2, **kw) -> dict:
 
 
 MIXES = ("all_multimodal", "mixed_unimodal", "vfl_heavy")
+# Stand-ins for the reference's hash(mix), which Python salts per
+# process: with them every run serves the same streams.
+MIX_SALT = {"all_multimodal": 101, "mixed_unimodal": 202, "vfl_heavy": 303}
 
 
 def print_breakdown(label, bd):
@@ -625,15 +651,19 @@ def print_breakdown(label, bd):
 
 
 def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
-                       cpu_requests=None) -> dict:
-    """Serve the three mixes (64 requests of 1..64 rows each) through one
-    ``ServingEngine`` (int8_topk codec, capacities 2/4/16/64) on the card,
-    counting the launches of each module in ``launchers`` over the run.
-    Then check every result: route, shape, finite scores in [0, 1],
-    agreement with single-request ``predict`` on the card and, for the
-    first ``cpu_requests`` requests of each mix (all when None), with the
-    same models on the CPU, within ``serve_federated.within_tolerance``;
-    and the measured wire bytes against the analytic cost."""
+                       cpu_requests=None, seed=0) -> dict:
+    """Serve the three mixes (64 requests of 1..64 rows each, streams
+    fixed by ``seed`` and MIX_SALT) through one ``ServingEngine``
+    (int8_topk codec, capacities 2/4/16/64) on the card, counting the
+    launches of each module in ``launchers`` over the run. Then serve the
+    same streams again recording each VFL row's wire messages, which must
+    give the same scores, and check every result: route, shape, finite
+    scores in [0, 1], agreement with single-request ``predict`` on the
+    card and, for the first ``cpu_requests`` requests of each mix (all
+    when None), with the same models on the CPU, within
+    ``serve_federated.within_tolerance`` (a large error on the lossy
+    route only in a row whose wire messages differ); and the measured
+    wire bytes against the analytic cost."""
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.core.inference import (InferenceRequest, Route,
                                             communication_cost, predict,
@@ -649,13 +679,16 @@ def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
                     ecfg, spec.kind, server_gmv=gmv, codec="int8_topk",
                     device="cuda")
     torch.cuda.synchronize()
-    engine = ServingEngine(models, ecfg, spec.kind, server_gmv=gmv,
-                           cfg=ServingConfig(codec="int8_topk",
-                                             capacities=(2, 4, 16, 64)),
-                           device="cuda")
+    engines = [ServingEngine(models, ecfg, spec.kind, server_gmv=gmv,
+                             cfg=ServingConfig(codec="int8_topk",
+                                               capacities=(2, 4, 16, 64),
+                                               record_wire=record),
+                             device="cuda") for record in (False, True)]
+    engine = engines[0]
     for mod in launchers.values():
         mod.launches = 0
-    rows_by_mix = {mix: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=0)
+    rows_by_mix = {mix: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=seed,
+                                     salt=MIX_SALT[mix])
                    for mix in MIXES}
     launches = {name: mod.launches for name, mod in launchers.items()}
     st = engine.stats
@@ -669,14 +702,21 @@ def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
 
     analytic = 0
     errs = {"predict": {False: [], True: []}, "cpu": {False: [], True: []}}
+    flips = {"predict": [], "cpu": []}  # lossy rows whose messages differ
+    worst = {"predict": None, "cpu": None}  # (err, mix, request, row, diff)
     cpu_models = params_from_numpy(params_to_numpy(models), "cpu")
     cpu_gmv = params_from_numpy(params_to_numpy(gmv), "cpu")
     for mix in MIXES:
-        reqs = sf.make_requests(spec, mix, 64, rows=64, seed=0)
+        reqs = sf.make_requests(spec, mix, 64, rows=64, seed=seed,
+                                salt=MIX_SALT[mix])
         results = rows_by_mix[mix]["results"]
+        recorded = engines[1].run(reqs)
         check([r.index for r in results] == list(range(len(reqs))),
               f"{mix}: results out of stream order")
-        for i, (res, req) in enumerate(zip(results, reqs)):
+        check(all(torch.equal(a.scores, b.scores)
+                  for a, b in zip(results, recorded)),
+              f"{mix}: a second run of the same stream gave other scores")
+        for i, (res, rec, req) in enumerate(zip(results, recorded, reqs)):
             s = res.scores
             check(res.route is route_for(req), f"{mix} {res.index}: route")
             check(tuple(s.shape) == (len(req.x_a if req.x_a is not None
@@ -688,32 +728,52 @@ def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
                   f"{mix} {res.index}: scores not finite in [0, 1]")
             lossy = res.route is Route.VFL_FALLBACK
             codec = "int8_topk" if lossy else None
-            want = predict(models, req, ecfg, spec.kind, server_gmv=gmv,
-                           codec=codec, device="cuda")
-            errs["predict"][lossy].append((s - want.scores).abs().cpu().numpy())
+            against = {"predict": predict(models, req, ecfg, spec.kind,
+                                          server_gmv=gmv, codec=codec,
+                                          device="cuda", record_wire=lossy)}
             if cpu_requests is None or i < cpu_requests:
                 # the same models on the CPU, where every kernel is its
                 # plain version
-                on_cpu = predict(cpu_models, req, ecfg, spec.kind,
-                                 server_gmv=cpu_gmv, codec=codec, device="cpu")
-                errs["cpu"][lossy].append((s.cpu() - on_cpu.scores).abs().numpy())
+                against["cpu"] = predict(cpu_models, req, ecfg, spec.kind,
+                                         server_gmv=cpu_gmv, codec=codec,
+                                         device="cpu", record_wire=lossy)
+            for name, want in against.items():
+                err = (s.cpu() - want.scores.cpu()).abs().numpy()
+                errs[name][lossy].append(err)
+                if not lossy:
+                    continue
+                flips[name].append(sf.message_flips(rec.wire, want.wire))
+                row = int(err.max(axis=1).argmax())
+                if worst[name] is None or err.max() > worst[name][0]:
+                    worst[name] = (float(err.max()), mix, i, row, sf.wire_diff(
+                        rec.wire[row], want.wire[row], ecfg.d_hidden))
             if lossy:
                 analytic += communication_cost(
                     len(req.x_a), ecfg.d_hidden, "vfl", spec.out_dim,
                     codec="int8_topk")["bytes"]
+    tolerance = {}
     for against, by_lossy in errs.items():
         for lossy, e in by_lossy.items():
-            ok, err, within = sf.within_tolerance(e, lossy)
+            tol = sf.within_tolerance(e, lossy, flips[against] if lossy else None)
             label = f"engine vs {against} ({'int8_topk' if lossy else 'local'} routes)"
-            print(f"{label}: max abs err {err:.3g}, {within:.5f} of "
-                  f"{sum(x.size for x in e)} scores within {sf.ATOL_EXACT}")
-            check(ok, f"{label} beyond tolerance")
+            print(f"{label}: max abs err {tol.max_err:.3g}, {tol.within:.5f} of "
+                  f"{sum(x.size for x in e)} scores within {sf.ATOL_EXACT}"
+                  + (f", {tol.flipped:.5f} of {sum(len(x) for x in e)} rows "
+                     f"with differing wire messages" if lossy else ""))
+            if lossy and worst[against] is not None:
+                err, mix, i, row, diff = worst[against]
+                print(f"    worst row: mix {mix} request {i} row {row}: max abs "
+                      f"err {err:.3g}; wire messages "
+                      + (f"differ {diff}" if diff else "identical"))
+            check(tol.ok, f"{label} beyond tolerance: {tol.why}")
+            tolerance[label] = tol._asdict()
     check(analytic == st["wire_bytes"],
           f"measured wire bytes {st['wire_bytes']} != analytic {analytic}")
     print(f"scores finite in [0, 1], routes right; wire bytes {analytic} "
           "== analytic")
+    del engines
     return {"engine": engine, "rows_by_mix": rows_by_mix, "launches": launches,
-            "batches": dict(st["batches_by_route"])}
+            "batches": dict(st["batches_by_route"]), "tolerance": tolerance}
 
 
 # ---------------------------------------------- sLSTM and flash attention --
@@ -938,7 +998,7 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
         engine = res.pop("engine")
         bd = device_breakdown(
             lambda: sf.serve_mix(engine, spec, "all_multimodal", 64, rows=64,
-                                 seed=0),
+                                 seed=0, salt=MIX_SALT["all_multimodal"]),
             res["rows_by_mix"]["all_multimodal"]["wall_s"], match=(symbol,))
         print_breakdown(f"{enc_type} all_multimodal", bd)
         print(f"    {own}: {bd['matched'][symbol]['ms']:.3f} ms in "
@@ -960,6 +1020,323 @@ def variant_cli(sf, slaunch, flaunch):
         print(f"CLI selftest ({enc_type}): {mod.launches} launches")
 
 
+# ------------------------------------------------- mLSTM and xlstm-350m --
+
+# (b, h, s, dk, dv, chunk): the CPU tests' shapes (tests/test_kernels.py),
+# a ragged S at the model's chunk, then xlstm-350m's mLSTM at full width
+# (8 sequences of 512 tokens, 4 heads of dk = dv = 512, chunk 64)
+MLSTM_TEST_CASES = ((1, 2, 64, 16, 16, 16), (2, 3, 100, 32, 16, 32),
+                    (1, 1, 128, 64, 64, 128), (2, 4, 77, 512, 512, 64))
+MLSTM_MAIN = (8, 4, 512, 512, 512, 64)
+# the stateful sLSTM at xlstm-350m's width: prefill of 512 tokens, and a
+# decode step (S = 1), each from a running (non-zero) state
+SLSTM_STATE_SHAPES = ((8, 4, 512, 256), (8, 4, 1, 256))
+# xlstm-350m serving: 8 prompts of 512 tokens, 32 greedy decode steps
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 512, 32
+# card against CPU at full width: 2 prompts of 128 tokens, then 4
+# decode steps fed the card's greedy tokens. Logits and caches within
+# atol = rtol = LM_CPU_TOL: f32 sums in other orders (cuBLAS against the
+# CPU's GEMMs at K = 1024-2048, the kernels' chunkwise and in-block sums
+# against the plain step recurrences), carried through 24 layers.
+LM_CPU_TOL = 2e-3
+# prefill against forward on the card, and a decode step after prefill
+# against forward on the extended sequence: the reference test's
+# tolerances (tests/test_arch_smoke.py)
+LM_PREFILL_TOL, LM_DECODE_TOL = 2e-4, 5e-4
+
+
+def mlstm_inputs(torch, b, h, s, dk, dv, seed):
+    """The reference kernel test's distributions, on the card."""
+    gen = np.random.default_rng(seed)
+    q = gen.standard_normal((b, h, s, dk), np.float32)
+    k = gen.standard_normal((b, h, s, dk), np.float32) * np.float32(0.5)
+    v = gen.standard_normal((b, h, s, dv), np.float32)
+    lf = -np.abs(gen.standard_normal((b, h, s), np.float32)) * np.float32(0.2)
+    return [torch.from_numpy(x).cuda() for x in (q, k, v, lf)]
+
+
+def check_mlstm(torch, mlaunch, mref, q, k, v, lf, chunk, normalize):
+    """h, final C and n of the kernel against the plain version, each
+    within mlstm_error_bound; returns their max abs errors."""
+    got, (c, n) = mlaunch.mlstm_scan_cuda(q, k, v, lf, chunk=chunk,
+                                          normalize=normalize, return_state=True)
+    want, (wc, wn) = mref.mlstm_scan_ref(q, k, v, lf, normalize=normalize,
+                                         return_state=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in (("h", got, want), ("C", c, wc), ("n", n, wn)):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"mlstm {name}: shape or non-finite values")
+        e = (g - w).abs()
+        check(bool((e <= mref.mlstm_error_bound(w)).all()),
+              f"mlstm {name} beyond its bound: max err {float(e.max())}")
+        errs[name] = float(e.max())
+    return errs
+
+
+def mlstm_flops(b, h, s, dk, dv, chunk):
+    """FLOPs of the chunkwise form on these shapes: per (b, h) and chunk
+    of L steps, the causal scores (dk L(L+1)) and in-chunk sums
+    (dv L(L+1)), q.C (2 L dk dv) and the state update (2 L dk dv)."""
+    nc = -(-s // chunk)
+    per = chunk * (chunk + 1) * (dk + dv) + 4 * chunk * dk * dv
+    return b * h * nc * per
+
+
+def mlstm_phase(torch, mlaunch, mref, mem_rate):
+    """Phase 13: the mLSTM kernel against its plain version (the CPU
+    tests' shapes, a ragged S, full width; normalize on and off; h, C and
+    n), then timed at full width beside the plain version and the bound.
+    Returns (max abs err, errors at full width, timing)."""
+    worst, n_cases = 0.0, 0
+    for case in MLSTM_TEST_CASES + (MLSTM_MAIN,):
+        for normalize in (True, False):
+            q, k, v, lf = mlstm_inputs(torch, *case[:5], seed=sum(case))
+            errs = check_mlstm(torch, mlaunch, mref, q, k, v, lf, case[5], normalize)
+            worst = max(worst, *errs.values())
+            n_cases += 1
+            if case == MLSTM_MAIN and normalize:
+                main_errs = errs
+    del q, k, v, lf
+    print(f"{n_cases} cases (h, final C and n) within mlstm_error_bound of the "
+          f"plain version; max abs err {worst:.3g}; at {MLSTM_MAIN[:5]}: "
+          f"{main_errs}")
+    b, h, s, dk, dv, chunk = MLSTM_MAIN
+    nbytes = 4 * b * h * (s * (2 * dk + 2 * dv + 1) + dk * dv + dk)
+    nxt = rotation(lambda: mlstm_inputs(torch, b, h, s, dk, dv, seed=1), nbytes)
+
+    def kern():
+        return mlaunch.mlstm_scan_cuda(*nxt(), chunk=chunk, return_state=True)
+
+    def plain():
+        return mref.mlstm_scan_ref(*nxt(), return_state=True)
+
+    flops = mlstm_flops(b, h, s, dk, dv, chunk)
+    bytes_ms = nbytes / mem_rate * 1e3
+    ops_ms = flops / FP32_OPS_PER_S * 1e3
+    t = {"shape": list(MLSTM_MAIN[:5]), "chunk": chunk,
+         "ms": cuda_time_ms(kern, iters=20, warmup=3),
+         "device_ms": device_ms(kern, iters=10),
+         "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
+         "plain_device_ms": device_ms(plain, iters=2),
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+         "gflop": flops / 1e9}
+    print(f"mlstm_scan {t['shape']} chunk {chunk}: kernel {t['ms']:.5f} ms "
+          f"(device {t['device_ms']} ms), plain {t['plain_ms']:.5f} ms (device "
+          f"{t['plain_device_ms']} ms); bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']}, {t['gflop']:.2f} GFLOP)")
+    return worst, main_errs, t
+
+
+def running_state(torch, b, h, hd, seed):
+    """A non-zero sLSTM (c, n, m, h), as a running sequence leaves it."""
+    gen = np.random.default_rng(seed)
+    c, n, m, hp = (gen.standard_normal((b, h, hd), np.float32) for _ in range(4))
+    return tuple(torch.from_numpy(x).cuda() for x in
+                 (c, np.abs(n) + 1, m * np.float32(0.5), np.tanh(hp)))
+
+
+def slstm_state_phase(torch, slaunch, sref, mem_rate):
+    """Phase 14: the sLSTM kernel from a running state (prefill length
+    and a decode step) against its plain version, output and final state
+    within slstm_error_bound; then timed. Returns (max abs err, timings)."""
+    worst, times = 0.0, []
+    for b, h, s, hd in SLSTM_STATE_SHAPES:
+        pre, r = slstm_inputs(torch, b, h, s, hd, seed=s)
+        st = running_state(torch, b, h, hd, seed=hd + s)
+        got, fin = slaunch.slstm_cell_cuda(pre, r, initial_state=st,
+                                           return_state=True)
+        want, wfin = sref.slstm_cell_ref(pre, r, st, return_state=True)
+        torch.cuda.synchronize()
+        for g, w in ((got, want), *zip(fin, wfin)):
+            e = (g - w).abs()
+            check(bool((e <= sref.slstm_error_bound(w, g)).all()),
+                  f"stateful slstm {(b, h, s, hd)} beyond its bound: {float(e.max())}")
+            worst = max(worst, float(e.max()))
+        nxt = rotation(lambda: (*slstm_inputs(torch, b, h, s, hd, seed=b),
+                                running_state(torch, b, h, hd, seed=1)),
+                       b * h * s * 4 * hd * 4 + 4 * b * h * hd * 4)
+
+        def kern():
+            pre_, r_, st_ = nxt()
+            return slaunch.slstm_cell_cuda(pre_, r_, initial_state=st_,
+                                           return_state=True)
+
+        def plain():
+            pre_, r_, st_ = nxt()
+            return sref.slstm_cell_ref(pre_, r_, st_, return_state=True)
+
+        t = {"shape": [b, h, s, hd], "state": True,
+             "ms": cuda_time_ms(kern, iters=20, warmup=3),
+             "device_ms": device_ms(kern, iters=10),
+             "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
+             "plain_device_ms": device_ms(plain, iters=2)}
+        t["bound_ms"], t["bound_by"] = slstm_bound_ms(b, h, s, hd, 4, mem_rate)
+        times.append(t)
+        print(f"slstm_cell with a state {t['shape']}: kernel {t['ms']:.5f} ms "
+              f"(device {t['device_ms']} ms), plain {t['plain_ms']:.5f} ms "
+              f"(device {t['plain_device_ms']} ms); bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']})")
+    print(f"{len(SLSTM_STATE_SHAPES)} cases from a running state: output and "
+          f"final (c, n, m, h) within slstm_error_bound; max abs err {worst:.3g}")
+    return worst, times
+
+
+def lm_serving(torch, counted) -> dict:
+    """Phase 15: xlstm-350m at full width through serve_lm on the card:
+    prefill of LM_BATCH x LM_PROMPT tokens and LM_GEN greedy decode
+    steps, launches counted per stage (12 mLSTM + 12 sLSTM in prefill,
+    0 + 12 in each decode step, nothing else), prefill against forward,
+    a decode step against forward on the extended sequence, and a
+    profiled prefill and decode step."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import backbone as bb
+
+    cfg = get_config("xlstm_350m")
+    n_pairs = bb.n_scan_layers(cfg)
+    params = bb.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                            device="cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"xlstm-350m: {cfg.n_layers} layers ({n_pairs} pairs), d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters "
+          f"({n_params * 4 / 1e9:.3f} GB f32)")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+                              .astype(np.int32)).cuda()
+    max_len = LM_PROMPT + LM_GEN
+    serve_lm.generate(params, cfg, tokens[:, :64], gen=2, max_len=max_len)  # warm-up
+
+    stages = []
+
+    def hook(stage, i):
+        stages.append((stage, {k: m.launches for k, m in counted.items()}))
+        for m in counted.values():
+            m.launches = 0
+
+    for m in counted.values():
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.generate(params, cfg, tokens, gen=LM_GEN, max_len=max_len,
+                            hook=hook)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_prefill = {k: 0 for k in counted}
+    want_prefill.update(mlstm_scan=n_pairs, slstm_cell=n_pairs)
+    want_decode = dict(want_prefill, mlstm_scan=0)
+    check(stages[0] == ("prefill", want_prefill),
+          f"prefill launches {stages[0]}, want {want_prefill}")
+    check(len(stages) == 1 + LM_GEN and all(
+        got == ("decode", want_decode) for got in stages[1:]),
+        f"decode launches {stages[1:3]}..., want {want_decode} each step")
+    total = {k: sum(c[k] for _, c in stages) for k in counted}
+    steps = np.asarray(res["decode_s"])
+    out = {"n_params": n_params, "launches": total,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms_per_step": float(steps.mean() * 1e3),
+           "decode_ms_median": float(np.median(steps) * 1e3),
+           "tokens_per_s": LM_BATCH * LM_GEN / float(steps.sum()),
+           "peak_gb": peak_gb}
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (LM_BATCH, 1 + LM_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generated tokens out of range")
+    print(f"serve_lm: prefill {LM_PROMPT} tokens x{LM_BATCH} "
+          f"{out['prefill_ms']:.3f} ms; {LM_GEN} decode steps "
+          f"{steps.sum() * 1e3:.3f} ms ({out['tokens_per_s']:.1f} tokens/s, "
+          f"{out['decode_ms_per_step']:.3f} ms a step, median "
+          f"{out['decode_ms_median']:.3f}); peak memory {peak_gb:.3f} GB")
+    print(f"prefill: {stages[0][1]['mlstm_scan']} mlstm_scan + "
+          f"{stages[0][1]['slstm_cell']} slstm_cell launches, nothing else; each "
+          f"decode step: 0 + {n_pairs}")
+
+    with torch.no_grad():
+        logits, cache, idx = bb.prefill(params, cfg, {"tokens": tokens}, max_len)
+        for m in counted.values():
+            m.launches = 0
+        full, _ = bb.forward(params, cfg, {"tokens": tokens})
+        fwd_launches = {k: m.launches for k, m in counted.items()}
+        a, b = logits[:, 0], full[:, -1]
+        out["prefill_vs_forward"] = float((a - b).abs().max())
+        check(bool(torch.isfinite(full).all()) and torch.allclose(
+            a, b, atol=LM_PREFILL_TOL, rtol=LM_PREFILL_TOL),
+            f"prefill vs forward: {out['prefill_vs_forward']}")
+        del full
+        nt = toks[:, 1:2]
+        lg2, _ = bb.decode_step(params, cfg, nt, cache, idx)
+        full2, _ = bb.forward(params, cfg, {"tokens": torch.cat([tokens, nt], 1)})
+        out["decode_vs_forward"] = float((lg2[:, 0] - full2[:, -1]).abs().max())
+        check(torch.allclose(lg2[:, 0], full2[:, -1], atol=LM_DECODE_TOL,
+                             rtol=LM_DECODE_TOL),
+              f"decode step vs forward: {out['decode_vs_forward']}")
+        del full2
+    print(f"forward: {fwd_launches['mlstm_scan']} mlstm_scan + "
+          f"{fwd_launches['slstm_cell']} slstm_cell launches")
+    print(f"prefill vs forward last logits: max abs err "
+          f"{out['prefill_vs_forward']:.3g} (tol {LM_PREFILL_TOL}); decode step "
+          f"vs forward on the extended sequence: {out['decode_vs_forward']:.3g} "
+          f"(tol {LM_DECODE_TOL})")
+
+    with torch.no_grad():
+        bd_p = device_breakdown(
+            lambda: bb.prefill(params, cfg, {"tokens": tokens}, max_len),
+            res["prefill_s"], match=("mlstm_kernel", "slstm_kernel"))
+        bd_d = device_breakdown(
+            lambda: bb.decode_step(params, cfg, nt, cache, idx),
+            float(np.median(steps)), match=("mlstm_kernel", "slstm_kernel"))
+    print_breakdown("prefill", bd_p)
+    print_breakdown("decode step", bd_d)
+    for label, bd in (("prefill", bd_p), ("decode step", bd_d)):
+        print(f"    {label}: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms in {v['calls']}" for k, v in bd["matched"].items()))
+    out["breakdown"] = {"prefill": bd_p, "decode": bd_d}
+    return out, params
+
+
+def lm_card_vs_cpu(torch, params) -> dict:
+    """Phase 16: xlstm-350m at full width on the card and on the CPU from
+    the same weights: prefill of 2 x 128 tokens, then 4 decode steps fed
+    the card's greedy tokens; logits and caches within LM_CPU_TOL."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import backbone as bb
+
+    cfg = get_config("xlstm_350m")
+    cpu_params = params_from_numpy(params_to_numpy(params), "cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    worst = {}
+
+    def compare(name, a, b):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            x, y = x.cpu(), y.cpu()
+            err = float((x - y).abs().max())
+            worst[name] = max(worst.get(name, 0.0), err)
+            check(torch.allclose(x, y, atol=LM_CPU_TOL, rtol=LM_CPU_TOL),
+                  f"card vs CPU {name}: max abs err {err}")
+
+    with torch.no_grad():
+        runs = []
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            toks = torch.from_numpy(tokens).to(dev)
+            runs.append(bb.prefill(p, cfg, {"tokens": toks}, 128 + 4))
+        (lc, cc, idx), (lg, cg, _) = runs
+        compare("logits", lc, lg)
+        compare("cache/m", cc["m"], cg["m"])
+        compare("cache/s", cc["s"], cg["s"])
+        for i in range(4):
+            nt = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+            lc, cc = bb.decode_step(params, cfg, nt, cc, idx + i)
+            lg, cg = bb.decode_step(cpu_params, cfg, nt.cpu(), cg, idx + i)
+            compare("logits", lc, lg)
+        compare("cache/m", cc["m"], cg["m"])
+        compare("cache/s", cc["s"], cg["s"])
+    print(f"card vs CPU, xlstm-350m, prefill 2 x 128 + 4 decode steps: max abs "
+          f"err {worst} (tol atol = rtol = {LM_CPU_TOL})")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -979,6 +1356,8 @@ def main() -> int:
     from repro_torch.kernels.blendavg import ref as bref
     from repro_torch.kernels.flash_attention import flash_attention as flaunch
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.mlstm_scan import mlstm_scan as mlaunch
+    from repro_torch.kernels.mlstm_scan import ref as mref
     from repro_torch.kernels.slstm_cell import ref as sref
     from repro_torch.kernels.slstm_cell import slstm_cell as slaunch
     from repro_torch.kernels.wire_codec import ops, ref
@@ -1035,7 +1414,8 @@ def main() -> int:
 
     phase("4 full-width serving")
     counted = {"wire_codec": launcher, "blend_params": blaunch,
-               "slstm_cell": slaunch, "flash_attention": flaunch}
+               "slstm_cell": slaunch, "flash_attention": flaunch,
+               "mlstm_scan": mlaunch}
     serve4 = full_width_serving(torch, spec, ecfg, models, gmv, counted)
     launches = serve4["launches"]["wire_codec"]
     vfl_batches = serve4["batches"]["vfl_fallback"]
@@ -1048,7 +1428,8 @@ def main() -> int:
     engine = serve4.pop("engine")
     for mix in MIXES:  # where the time goes: each mix again under the profiler
         print_breakdown(mix, device_breakdown(
-            lambda: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=0),
+            lambda: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=0,
+                                 salt=MIX_SALT[mix]),
             serve4["rows_by_mix"][mix]["wall_s"]))
 
     phase("5 CLI selftest")
@@ -1103,7 +1484,24 @@ def main() -> int:
 
     phase("12 CLI selftest, recurrent and transformer encoders")
     variant_cli(sf, slaunch, flaunch)
+
+    phase("13 mLSTM scan against plain")
+    mlstm_err, mlstm_main_errs, mlstm_time = mlstm_phase(torch, mlaunch, mref,
+                                                         mem_rate)
+
+    phase("14 sLSTM cell with a state against plain")
+    slstm_state_err, slstm_state_times = slstm_state_phase(torch, slaunch, sref,
+                                                           mem_rate)
+
+    phase("15 full-width xlstm-350m serving")
+    lm, lm_params = lm_serving(torch, counted)
+
+    phase("16 xlstm-350m card against CPU")
+    lm["card_vs_cpu"] = lm_card_vs_cpu(torch, lm_params)
+    del lm_params
     phase(None)
+    print("xlstm-350m serving: " + json.dumps(
+        {k: v for k, v in lm.items() if k != "breakdown"}))
 
     main_t = timings[2]
     wire_record = {
@@ -1135,11 +1533,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/slstm_cell/slstm_cell.cu",
         "replaces": "src/repro/kernels/slstm_cell/slstm_cell.py:73",
         "launches": variants["recurrent"]["launches"],
-        "max_abs_err": max(slstm_err.values()),
+        "launches_xlstm_serving": lm["launches"]["slstm_cell"],
+        "max_abs_err": max(*slstm_err.values(), slstm_state_err),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],
         "library_ms": None,  # no single PyTorch call runs the recurrence
-        "shape": main_s["shape"], "per_shape": slstm_times,
+        "shape": main_s["shape"], "per_shape": slstm_times + slstm_state_times,
         "max_abs_err_by_dtype": slstm_err,
     }
     flash_record = {
@@ -1154,8 +1553,19 @@ def main() -> int:
         "shape": flash_time["shape"], "timing": flash_time,
         "max_abs_err_by_dtype": flash_err,
     }
+    mlstm_record = {
+        "name": "mlstm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_scan/mlstm_scan.cu",
+        "replaces": "src/repro/kernels/mlstm_scan/mlstm_scan.py:71",
+        "launches": lm["launches"]["mlstm_scan"], "max_abs_err": mlstm_err,
+        "ms": mlstm_time["ms"], "plain_ms": mlstm_time["plain_ms"],
+        "bound_ms": mlstm_time["bound_ms"], "bound_by": mlstm_time["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the scan
+        "shape": mlstm_time["shape"], "timing": mlstm_time,
+        "max_abs_err_full_width": mlstm_main_errs,
+    }
     print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
-                                  flash_record]}))
+                                  flash_record, mlstm_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,17 @@
+"""StableLM-3B [hf:stabilityai/stablelm-2-1_6b family]: 32L, d=2560,
+32H MHA (kv=32), ff=6912, vocab=50304, RoPE + SwiGLU."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-3b",
+    family="dense",
+    n_layers=32,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=6912,
+    vocab_size=50304,
+    act="swiglu",
+    pos="rope",
+    citation="hf:stabilityai/stablelm-2-1_6b",
+)

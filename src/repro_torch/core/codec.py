@@ -25,7 +25,8 @@ import math
 import torch
 
 from repro_torch.common.tree import tree_leaves, tree_map
-from repro_torch.kernels.wire_codec.ops import wire_codec_roundtrip
+from repro_torch.kernels.wire_codec.ops import scale_thresh, wire_codec_roundtrip
+from repro_torch.kernels.wire_codec.ref import wire_codes
 
 CODECS = ("none", "int8", "topk", "int8_topk")
 
@@ -105,6 +106,21 @@ def encode_decode_stacked(tree, cfg: CodecConfig):
     if not cfg.enabled:
         return tree
     return tree_map(lambda x: _roundtrip_rows(x, x.shape[0], cfg), tree)
+
+
+def message_codes(x: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """The decisions each row of x (L, ...) makes on the wire under
+    ``cfg``, as an (L, N) int16 tensor: the int8 code of every entry (0
+    where top-k drops it) for a quantizing codec, else the keep mask.
+    Two sends of a row whose codes are equal differ only in the f32
+    scale each carries, so their decoded values agree to its rounding;
+    where they differ, a top-k or rounding decision flipped."""
+    flat = x.reshape(x.shape[0], -1)
+    k = topk_k(flat.shape[1], cfg.topk_frac) if cfg.sparsify else None
+    keep, q = wire_codes(flat, scale_thresh(flat, k), quantize=cfg.quantize)
+    if q is None:
+        return keep.to(torch.int16)
+    return torch.where(keep, q, torch.zeros_like(q)).to(torch.int16)
 
 
 def encode_decode_tree(tree, cfg: CodecConfig):

@@ -83,7 +83,7 @@ def encoder_apply(p, x, ecfg: EncoderConfig):
         for layer in p["hidden"]:
             h = h + F.gelu(dense(layer, h), approximate="tanh")
     elif ecfg.enc_type == "recurrent":
-        h = slstm_scan(p["cell"], h, ecfg.n_heads)[:, -1]
+        h = slstm_scan(p["cell"], h, ecfg.n_heads)[0][:, -1]
     else:  # transformer
         hn = rmsnorm(p["ln"], h)
         b, s, d = hn.shape

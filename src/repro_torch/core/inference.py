@@ -71,6 +71,10 @@ class PredictResult:
     route: Route
     messages: int
     bytes: int
+    # with record_wire on a lossy VFL request: (B, 2 * d_hidden + out_dim)
+    # int16, each row's message codes (codec.message_codes) of its h_A
+    # and h_B uploads and its score download; else None
+    wire: torch.Tensor | None = None
 
 
 def request_rows(req: InferenceRequest) -> int:
@@ -104,12 +108,14 @@ def route_for(req: InferenceRequest) -> Route:
 
 def route_scores(models: dict, route: Route, x_a, x_b, ecfg: EncoderConfig,
                  kind: str, *, server_gmv=None,
-                 codec: wire.CodecConfig | None = None):
+                 codec: wire.CodecConfig | None = None, wire_log=None):
     """Forward for one route — the one both ``predict`` and the serving
     engine run. The VFL route round-trips its feature uploads and score
     download through the wire codec (per-row messages:
     ``encode_decode_stacked`` gives every sample row its own scale and
-    top-k threshold, so zero-padded rows never perturb live ones)."""
+    top-k threshold, so zero-padded rows never perturb live ones). A
+    ``wire_log`` list gets the rows' message codes of the three messages
+    appended, side by side, when the codec is on."""
     if route is Route.MULTIMODAL:
         h_a = encoder_apply(models["f_A"], x_a, ecfg)
         h_b = encoder_apply(models["f_B"], x_b, ecfg)
@@ -121,11 +127,18 @@ def route_scores(models: dict, route: Route, x_a, x_b, ecfg: EncoderConfig,
     if route is Route.VFL_FALLBACK:
         h_a = encoder_apply(models["f_A"], x_a, ecfg)  # feature msg up
         h_b = encoder_apply(models["f_B"], x_b, ecfg)  # feature msg up
-        if codec is not None and codec.enabled:
+        lossy = codec is not None and codec.enabled
+        codes = []
+        if lossy:
+            if wire_log is not None:
+                codes += [wire.message_codes(h, codec) for h in (h_a, h_b)]
             h_a = wire.encode_decode_stacked(h_a, codec)
             h_b = wire.encode_decode_stacked(h_b, codec)
         scores = task_scores(fusion_apply(server_gmv, h_a, h_b), kind)
-        if codec is not None and codec.enabled:  # score msg down
+        if lossy:  # score msg down
+            if wire_log is not None:
+                codes.append(wire.message_codes(scores, codec))
+                wire_log.append(torch.cat(codes, dim=1))
             scores = wire.encode_decode_stacked(scores, codec)
         return scores
     raise ValueError(f"unknown route {route!r}")
@@ -142,7 +155,7 @@ MIN_COMPILED_ROWS = 2
 def predict(models: dict, req: InferenceRequest, ecfg: EncoderConfig,
             kind: str, *, server_gmv: dict | None = None,
             codec: wire.CodecConfig | str | None = None,
-            device=None) -> PredictResult:
+            device=None, record_wire: bool = False) -> PredictResult:
     """Serve one request on ``device`` (CUDA when None; the models must
     live there): route by available modalities, run the forward, report
     the network cost.
@@ -151,7 +164,8 @@ def predict(models: dict, req: InferenceRequest, ecfg: EncoderConfig,
     when the request asks for ``vfl=True``. ``codec`` (a name or
     ``CodecConfig``) applies the wire codec to the VFL route's messages —
     both the lossy payload round-trip and the byte pricing; local routes
-    never touch the network.
+    never touch the network. ``record_wire`` keeps each row's message
+    codes in ``PredictResult.wire`` (a lossy VFL request only).
     """
     device = resolve_device(device)
     if device.type == "cuda":
@@ -175,14 +189,16 @@ def predict(models: dict, req: InferenceRequest, ecfg: EncoderConfig,
                          "server_gmv= (see Federation.server_gmv)")
     # PyTorch runs eagerly: where the reference caches one jitted program
     # per (route, config, codec), this calls the forward directly
+    log = [] if record_wire else None
     with torch.no_grad():
         scores = route_scores(models, route, prep(req.x_a), prep(req.x_b),
                               ecfg, kind, server_gmv=server_gmv,
-                              codec=codec)[:n]
+                              codec=codec, wire_log=log)[:n]
     if route is Route.VFL_FALLBACK:
         cost = communication_cost(n, ecfg.d_hidden, "vfl",
                                   int(scores.shape[-1]), codec=codec)
-        return PredictResult(scores, route, cost["messages"], cost["bytes"])
+        return PredictResult(scores, route, cost["messages"], cost["bytes"],
+                             log[0][:n] if log else None)
     return PredictResult(scores, route, 0, 0)
 
 

@@ -62,7 +62,9 @@ class ServingConfig:
     ``codec`` applies the wire codec to the VFL route's messages.
     ``window`` is how many requests one assembly pass may coalesce;
     ``prefetch`` is how many assembled windows the worker may stage
-    ahead (0 = synchronous assembly).
+    ahead (0 = synchronous assembly). ``record_wire`` keeps each lossy
+    VFL row's message codes in ``ServedResult.wire`` (a check that
+    attributes score differences to codec decisions reads them).
     """
 
     capacities: tuple = (2, 4, 16, 64)
@@ -70,6 +72,7 @@ class ServingConfig:
     topk_frac: float = 0.25
     window: int = 32
     prefetch: int = 2
+    record_wire: bool = False
 
     def __post_init__(self):
         caps = tuple(int(c) for c in self.capacities)
@@ -117,6 +120,7 @@ class ServedResult:
     messages: int
     bytes: int
     latency_s: float
+    wire: torch.Tensor | None = None  # as PredictResult.wire
 
 
 # One part of one request inside an assembly window: requests larger
@@ -244,9 +248,10 @@ class ServingEngine:
 
     # -------------------------------------------------------- execution ---
 
-    def _execute(self, batch: _Batch) -> torch.Tensor:
+    def _execute(self, batch: _Batch) -> tuple:
         """Run one padded micro-batch on the device and meter the wire
-        traffic it actually generated."""
+        traffic it actually generated. Returns (scores, wire codes or
+        None)."""
         def to_dev(x):
             return None if x is None else torch.from_numpy(x).to(self.device)
 
@@ -254,11 +259,13 @@ class ServingEngine:
         x_a, x_b = to_dev(batch.x_a), to_dev(batch.x_b)
         mask = to_dev(batch.mask)
         vfl = batch.route is Route.VFL_FALLBACK
+        log = [] if self.cfg.record_wire else None
         with torch.no_grad():
             s = route_scores(
                 self.models, batch.route, x_a, x_b, self.ecfg, self.kind,
                 server_gmv=self.server_gmv if vfl else None,
-                codec=self._codec if vfl and self._codec.enabled else None)
+                codec=self._codec if vfl and self._codec.enabled else None,
+                wire_log=log)
             scores = s * mask[:, None]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -276,7 +283,7 @@ class ServingEngine:
                                       codec=self._codec)
             self.stats["wire_messages"] += cost["messages"]
             self.stats["wire_bytes"] += cost["bytes"]
-        return scores
+        return scores, (log[0] if log else None)
 
     def _request_cost(self, route: Route, rows: int, out_dim: int) -> tuple:
         if route is not Route.VFL_FALLBACK:
@@ -289,21 +296,27 @@ class ServingEngine:
         """Execute one assembled window; yield each request's
         ServedResult as its last part completes."""
         t_w0 = time.perf_counter()
-        pending = {index: {} for index in meta}  # index -> offset -> scores
+        # index -> offset -> (scores, wire codes or None)
+        pending = {index: {} for index in meta}
         for batch in batches:
-            scores = self._execute(batch)
+            scores, codes = self._execute(batch)
             for index, offset, start, n in batch.spans:
-                pending[index][offset] = scores[start:start + n]
+                pending[index][offset] = (
+                    scores[start:start + n],
+                    None if codes is None else codes[start:start + n])
                 route, n_parts, rows = meta[index]
                 if len(pending[index]) == n_parts:
-                    got = pending.pop(index)
-                    full = (got[0] if n_parts == 1 else
-                            torch.cat([got[k] for k in sorted(got)]))
+                    parts = pending.pop(index)
+                    got = [parts[k] for k in sorted(parts)]
+                    full = (got[0][0] if n_parts == 1 else
+                            torch.cat([g[0] for g in got]))
+                    codes_full = (None if got[0][1] is None
+                                  else torch.cat([g[1] for g in got]))
                     msgs, nbytes = self._request_cost(
                         route, rows, int(full.shape[-1]))
                     self.stats["requests"] += 1
                     yield ServedResult(index, full, route, msgs, nbytes,
-                                       time.perf_counter() - t_w0)
+                                       time.perf_counter() - t_w0, codes_full)
 
     # -------------------------------------------------------- public API --
 

@@ -16,14 +16,24 @@ from repro_torch.kernels import bf16_ulp
 ATOL, RTOL = 1e-5, 1e-4
 
 
-def slstm_cell_ref(pre_x, r):
-    """pre_x (B, H, S, 4, hd) pre-activations [z, i, f, o]; r (H, hd, 4hd).
-    Returns h (B, H, S, hd) in pre_x's dtype, computed in f32 from a zero
-    state with m = -1e30."""
+def zero_state(b: int, h: int, hd: int, device) -> tuple:
+    """(c, n, m, h) at the start of a sequence, each (B, H, hd) f32:
+    zeros, with m = -1e30 so that the forget gate is exactly 0 at the
+    first step."""
+    zero = torch.zeros((b, h, hd), dtype=torch.float32, device=device)
+    return zero, zero, zero - 1e30, zero
+
+
+def slstm_cell_ref(pre_x, r, initial_state=None, return_state: bool = False):
+    """pre_x (B, H, S, 4, hd) pre-activations [z, i, f, o]; r (H, hd, 4hd);
+    initial_state (c, n, m, h), each (B, H, hd) f32, or None for the zero
+    state. Returns h (B, H, S, hd) in pre_x's dtype, computed in f32, and
+    the final (c, n, m, h) with ``return_state``."""
     b, h, s, _, hd = pre_x.shape
     rf = r.float()
-    zero = torch.zeros((b, h, hd), dtype=torch.float32, device=pre_x.device)
-    c, n, m, h_prev = zero, zero, zero - 1e30, zero
+    if initial_state is None:
+        initial_state = zero_state(b, h, hd, pre_x.device)
+    c, n, m, h_prev = (x.float() for x in initial_state)
     hs = []
     for t in range(s):
         rec = torch.einsum("bhi,hij->bhj", h_prev, rf).reshape(b, h, 4, hd)
@@ -40,7 +50,9 @@ def slstm_cell_ref(pre_x, r):
         m = m_new
         h_prev = o * c / torch.clamp_min(torch.abs(n), 1.0)
         hs.append(h_prev)
-    return torch.stack(hs, dim=2).to(pre_x.dtype)
+    out = (torch.stack(hs, dim=2) if hs else
+           pre_x.new_zeros((b, h, 0, hd), dtype=torch.float32)).to(pre_x.dtype)
+    return (out, (c, n, m, h_prev)) if return_state else out
 
 
 def slstm_error_bound(want: torch.Tensor, got: torch.Tensor) -> torch.Tensor:

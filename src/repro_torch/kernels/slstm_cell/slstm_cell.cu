@@ -16,8 +16,11 @@
 //   m_t   = max(log_f + m, log_i);  i = exp(log_i - m_t);  f = exp(log_f + m - m_t)
 //   c_t   = f*c + i*z;  n_t = f*n + i;  h_t = o * c_t / max(|n_t|, 1)
 // The state starts at c = n = h = 0 and m = -1e30, so that f is exactly
-// 0 at step 0. Everything is computed in f32; pre_x, r and the output
-// are f32, or all bf16.
+// 0 at step 0, or at a given (c, n, m, h) (the language model's prefill
+// and decode continue from the state a previous call left, and a decode
+// step is a launch at S = 1); the final state is written when asked for.
+// Everything is computed in f32; pre_x, r and the output are f32, or all
+// bf16; the state is f32.
 //
 // Design: one block per (b, h) with 4*hd threads (hd <= 256, so at most
 // 1024). h_prev lives in shared memory. Thread j computes column j of
@@ -25,7 +28,11 @@
 // gate pre-activation in shared memory; after a barrier, threads j < hd
 // do the gate math for column j with the state in registers and write
 // h_t. No fast math: tanhf, expf, log1pf are the accurate library
-// functions.
+// functions. The step loop is one noinline function that the zero-state
+// and the stateful kernels both call: inlined into the stateful kernel,
+// the same loop compiled to slower steps (chip_smoke.py phase 14 at
+// (8, 4, 512, 256) on an "NVIDIA H100 80GB HBM3" at 700.00 W: 9.26 ms
+// a launch inlined, 6.37-6.52 ms with the shared call).
 //
 // Bound: operations. A call does B*H*S*2*hd*4hd f32 FLOPs in the
 // recurrent products (at B=64, H=4, S=64, hd=256: 8.6 GFLOP, 128 us at
@@ -56,26 +63,31 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
 
-// __launch_bounds__ holds the kernel to 64 registers a thread, so that
-// a block of 1024 threads (hd = 256) fits an SM's register file.
-template <typename T>
-__global__ void __launch_bounds__(4 * kMaxHd)
-    slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
-                 T* __restrict__ out, int n_heads, int seq, int hd) {
-  extern __shared__ float smem[];
-  float* h_prev = smem;       // (hd,)
-  float* gates = smem + hd;   // (4hd,) pre + rec, gate-major
-  const int bh = blockIdx.x;  // b * n_heads + h
-  const int head = bh % n_heads;
-  const int j = threadIdx.x;  // column of rec, 0 .. 4hd-1
-  const int four_hd = 4 * hd;
-  const T* r_h = r + (int64_t)head * hd * four_hd;
-  const T* pre = pre_x + (int64_t)bh * seq * four_hd;
-  T* o_bh = out + (int64_t)bh * seq * hd;
+// State (c, n, m, h), each (batch * n_heads, hd) f32: s0 is read when
+// not null, else the zero state; s1 is written when not null.
+struct State {
+  const float* c0;
+  const float* n0;
+  const float* m0;
+  const float* h0;
+  float* c1;
+  float* n1;
+  float* m1;
+  float* h1;
+};
 
-  float c = 0.0f, n = 0.0f, m = -1e30f;
-  if (j < hd) h_prev[j] = 0.0f;
-  __syncthreads();
+// The step loop, one compiled function for every instance (noinline), so
+// that the stateful and zero-state kernels run the same loop code; c, n,
+// m come in and go out through cnm.
+template <typename T>
+__device__ __noinline__ void run_steps(const T* __restrict__ pre,
+                                       const T* __restrict__ r_h,
+                                       T* __restrict__ o_bh, float* h_prev,
+                                       float* gates, int seq, int hd,
+                                       float* cnm) {
+  const int j = threadIdx.x;
+  const int four_hd = 4 * hd;
+  float c = cnm[0], n = cnm[1], m = cnm[2];
   for (int t = 0; t < seq; ++t) {
     const float p = to_f32(pre[(int64_t)t * four_hd + j]);
     float acc = 0.0f;
@@ -102,18 +114,61 @@ __global__ void __launch_bounds__(4 * kMaxHd)
     }
     __syncthreads();  // h_t visible before the next step's products
   }
+  cnm[0] = c;
+  cnm[1] = n;
+  cnm[2] = m;
 }
 
-template <typename T>
+// kState: the launch carries a state (s0 and/or s1 set); the zero-state
+// instances compile without any state code. __launch_bounds__ holds the
+// kernel to 64 registers a thread, so that a block of 1024 threads
+// (hd = 256) fits an SM's register file.
+template <typename T, bool kState>
+__global__ void __launch_bounds__(4 * kMaxHd)
+    slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
+                 T* __restrict__ out, int n_heads, int seq, int hd,
+                 State st) {
+  extern __shared__ float smem[];
+  float* h_prev = smem;       // (hd,)
+  float* gates = smem + hd;   // (4hd,) pre + rec, gate-major
+  const int bh = blockIdx.x;  // b * n_heads + h
+  const int head = bh % n_heads;
+  const int j = threadIdx.x;  // column of rec, 0 .. 4hd-1
+  const int four_hd = 4 * hd;
+  float cnm[3] = {0.0f, 0.0f, -1e30f};
+  if (j < hd) {
+    h_prev[j] = 0.0f;
+    if (kState && st.c0 != nullptr) {
+      const int64_t sj = (int64_t)bh * hd + j;
+      cnm[0] = st.c0[sj];
+      cnm[1] = st.n0[sj];
+      cnm[2] = st.m0[sj];
+      h_prev[j] = st.h0[sj];
+    }
+  }
+  __syncthreads();
+  run_steps<T>(pre_x + (int64_t)bh * seq * four_hd,
+               r + (int64_t)head * hd * four_hd, out + (int64_t)bh * seq * hd,
+               h_prev, gates, seq, hd, cnm);
+  if (kState && st.c1 != nullptr && j < hd) {
+    const int64_t sj = (int64_t)bh * hd + j;
+    st.c1[sj] = cnm[0];
+    st.n1[sj] = cnm[1];
+    st.m1[sj] = cnm[2];
+    st.h1[sj] = h_prev[j];
+  }
+}
+
+template <typename T, bool kState>
 int launch(const void* pre_x, const void* r, void* out, int batch,
-           int n_heads, int seq, int hd, void* stream) {
+           int n_heads, int seq, int hd, State st, void* stream) {
   if (hd < 1 || hd > kMaxHd || batch < 1 || n_heads < 1 || seq < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)5 * hd * sizeof(float);
-  slstm_kernel<T><<<(unsigned)(batch * n_heads), 4 * hd, smem,
+  slstm_kernel<T, kState><<<(unsigned)(batch * n_heads), 4 * hd, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(pre_x), static_cast<const T*>(r),
-      static_cast<T*>(out), n_heads, seq, hd);
+      static_cast<T*>(out), n_heads, seq, hd, st);
   return (int)cudaGetLastError();
 }
 
@@ -122,17 +177,42 @@ int launch(const void* pre_x, const void* r, void* out, int batch,
 // Plain C entry points for ctypes. pre_x is a contiguous
 // (batch, n_heads, seq, 4, hd) array, r a contiguous (n_heads, hd, 4*hd)
 // array and out a contiguous (batch, n_heads, seq, hd) array, all of the
-// named dtype and on the device of `stream`; 1 <= hd <= 256. Returns
-// cudaGetLastError() after the launch.
+// named dtype and on the device of `stream`; 1 <= hd <= 256. The
+// *_state entry points also take the initial state c0, n0, m0, h0 and
+// the final state c1, n1, m1, h1, each a contiguous (batch, n_heads, hd)
+// f32 array: c0 .. h0 all null (the zero state) or none, and likewise
+// c1 .. h1 (not written). Returns cudaGetLastError() after the launch.
 extern "C" int slstm_cell_f32(const void* pre_x, const void* r, void* out,
                               int batch, int n_heads, int seq, int hd,
                               void* stream) {
-  return launch<float>(pre_x, r, out, batch, n_heads, seq, hd, stream);
+  return launch<float, false>(pre_x, r, out, batch, n_heads, seq, hd,
+                              State{}, stream);
 }
 
 extern "C" int slstm_cell_bf16(const void* pre_x, const void* r, void* out,
                                int batch, int n_heads, int seq, int hd,
                                void* stream) {
-  return launch<__nv_bfloat16>(pre_x, r, out, batch, n_heads, seq, hd,
-                               stream);
+  return launch<__nv_bfloat16, false>(pre_x, r, out, batch, n_heads, seq,
+                                      hd, State{}, stream);
+}
+
+#define STATE_ARGS                                                        \
+  const float *c0, const float *n0, const float *m0, const float *h0,    \
+      float *c1, float *n1, float *m1, float *h1
+
+extern "C" int slstm_cell_state_f32(const void* pre_x, const void* r,
+                                    void* out, STATE_ARGS, int batch,
+                                    int n_heads, int seq, int hd,
+                                    void* stream) {
+  return launch<float, true>(pre_x, r, out, batch, n_heads, seq, hd,
+                             State{c0, n0, m0, h0, c1, n1, m1, h1}, stream);
+}
+
+extern "C" int slstm_cell_state_bf16(const void* pre_x, const void* r,
+                                     void* out, STATE_ARGS, int batch,
+                                     int n_heads, int seq, int hd,
+                                     void* stream) {
+  return launch<__nv_bfloat16, true>(pre_x, r, out, batch, n_heads, seq, hd,
+                                     State{c0, n0, m0, h0, c1, n1, m1, h1},
+                                     stream);
 }

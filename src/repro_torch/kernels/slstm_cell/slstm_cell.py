@@ -1,8 +1,10 @@
 """Launcher of the CUDA sLSTM cell kernel (``slstm_cell.cu``).
 
-``slstm_cell_cuda(pre_x, r)`` checks its tensors, allocates the output,
-launches the kernel on the current stream and adds one to
-``launches``. It takes CUDA tensors only: there is no CPU path here
+``slstm_cell_cuda(pre_x, r)`` checks its tensors, allocates the output
+(and, with ``return_state``, the final state), launches the kernel on
+the current stream and adds one to ``launches``; ``initial_state``
+starts the recurrence from a given (c, n, m, h) instead of the zero
+state. It takes CUDA tensors only: there is no CPU path here
 (``ops.slstm_cell`` routes CPU tensors to ``ref.py``). The library is
 built on first call, never at import.
 """
@@ -14,6 +16,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.slstm_cell.ref import zero_state as _zero_state
 
 SOURCE = Path(__file__).with_name("slstm_cell.cu")
 
@@ -23,26 +26,43 @@ launches = 0
 
 MAX_HEAD_DIM = 256  # kMaxHd in slstm_cell.cu: 4*hd threads a block
 
-_ENTRY = {torch.float32: "slstm_cell_f32", torch.bfloat16: "slstm_cell_bf16"}
+_ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict = {}
 
 
-def _fn(dtype):
-    fn = _fns.get(dtype)
+def _fn(dtype, state: bool):
+    """The C entry point: slstm_cell_<dtype>, or with eight more state
+    pointers slstm_cell_state_<dtype>."""
+    key = (dtype, state)
+    fn = _fns.get(key)
     if fn is None:
-        fn = getattr(_build.load(SOURCE), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        name = f"slstm_cell{'_state' if state else ''}_{_ENTRY[dtype]}"
+        fn = getattr(_build.load(SOURCE), name)
+        fn.argtypes = ([ctypes.c_void_p] * (11 if state else 3)
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
+        _fns[key] = fn
     return fn
 
 
-def slstm_cell_cuda(pre_x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+def _check_state(state, b: int, h: int, hd: int, device) -> None:
+    if len(state) != 4:
+        raise ValueError(f"want the state (c, n, m, h), got {len(state)} tensors")
+    for x in state:
+        if (x.dtype != torch.float32 or tuple(x.shape) != (b, h, hd)
+                or not x.is_contiguous() or x.device != device):
+            raise ValueError(f"want each state tensor float32, contiguous, "
+                             f"{(b, h, hd)} on {device}; got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def slstm_cell_cuda(pre_x: torch.Tensor, r: torch.Tensor, initial_state=None,
+                    return_state: bool = False):
     """pre_x (B, H, S, 4, hd) and r (H, hd, 4hd), both f32 or both bf16,
-    contiguous on one CUDA device, hd <= 256. Returns h (B, H, S, hd) in
-    their dtype."""
+    contiguous on one CUDA device, hd <= 256; initial_state None or
+    (c, n, m, h), each a contiguous (B, H, hd) f32 tensor there. Returns
+    h (B, H, S, hd) in their dtype, and the final (c, n, m, h) with
+    ``return_state``."""
     global launches
     if pre_x.dtype not in _ENTRY or r.dtype != pre_x.dtype:
         raise ValueError(f"slstm_cell_cuda takes float32 or bfloat16 of one "
@@ -60,18 +80,33 @@ def slstm_cell_cuda(pre_x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                          f"{MAX_HEAD_DIM} (4*hd threads a block), got {hd}")
     if b * h > 2**31 - 1:
         raise ValueError(f"{b * h} (batch, head) pairs exceed the grid")
+    if initial_state is not None:
+        _check_state(initial_state, b, h, hd, pre_x.device)
     if pre_x.device.type != "cuda" or r.device != pre_x.device:
         raise ValueError(f"slstm_cell_cuda takes CUDA tensors on one device, "
                          f"got pre_x on {pre_x.device}, r on {r.device}")
     out = torch.empty((b, h, s, hd), dtype=pre_x.dtype, device=pre_x.device)
+    final = None
+    if return_state and s == 0:  # nothing to run: the state passes through
+        final = tuple(x.clone() for x in (
+            initial_state if initial_state is not None
+            else _zero_state(b, h, hd, pre_x.device)))
+    elif return_state:
+        final = tuple(torch.empty((b, h, hd), dtype=torch.float32,
+                                  device=pre_x.device) for _ in range(4))
     if out.numel() == 0:
-        return out
-    fn = _fn(pre_x.dtype)
+        return (out, final) if return_state else out
+    stateful = initial_state is not None or return_state
+    fn = _fn(pre_x.dtype, stateful)
+    ptrs = ()
+    if stateful:
+        ptrs = tuple(None if x is None else x.data_ptr() for x in (
+            *(initial_state or (None,) * 4), *(final or (None,) * 4)))
     with torch.cuda.device(pre_x.device):
         stream = torch.cuda.current_stream(pre_x.device).cuda_stream
-        err = fn(pre_x.data_ptr(), r.data_ptr(), out.data_ptr(), b, h, s, hd,
-                 stream)
+        err = fn(pre_x.data_ptr(), r.data_ptr(), out.data_ptr(), *ptrs, b, h,
+                 s, hd, stream)
     if err != 0:
         raise RuntimeError(f"slstm_cell kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, final) if return_state else out

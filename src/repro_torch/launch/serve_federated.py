@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import time
+import typing
 
 import numpy as np
 import torch
@@ -45,27 +46,101 @@ MIXES = {
     "vfl_heavy": (0.2, 0.1, 0.1, 0.6),
 }
 
-# Engine scores vs single-request predict. The two run products of
-# different batch sizes, and cuBLAS picks its kernels by shape, so rows
-# agree to f32 rounding, not bit for bit. Under a lossy codec a last-ulp
-# difference can push a rare entry across a top-k or rounding boundary,
-# so the lossy bound holds over all the scores of a run, not per request.
-ATOL_EXACT = 1e-5  # codec none: every score
-ATOL_LOSSY = 2e-2  # lossy codec: every score ...
-FRAC_LOSSY = 0.99  # ... and this share of them within ATOL_EXACT
+# Two runs of the same scores (engine vs single-request predict, card vs
+# CPU, port vs reference) compute products of different shapes or on
+# different devices, so rows agree to f32 rounding, not bit for bit.
+# Under a lossy codec a last-ulp difference can also flip a codec
+# decision of a row's wire message: an entry crosses the top-k threshold
+# or an int8 rounding boundary. A flipped top-k decision on the score
+# download drops or keeps a whole score (an error of up to 1), so no
+# bound on the error itself holds. Where both runs recorded their wire
+# messages (``codec.message_codes``), each large error must belong to a
+# row whose messages differ, and such rows must stay rare. At d_hidden
+# 1024 (256 int8 codes kept in each feature upload) the card ("NVIDIA
+# H100 80GB HBM3", 700.00 W) and the CPU sent differing messages for
+# 0.63% of 289,345 VFL rows, at most 1.10% of one stream's (154 streams
+# of about 1,900 rows; tools/torch_wire_flips.py); MAX_FLIPPED leaves
+# room above that, as one run's rows are few.
+ATOL_EXACT = 1e-5   # every score of a local route, or of a row whose messages agree
+FRAC_LOSSY = 0.99   # a lossy run: this share of its scores within ATOL_EXACT
+MAX_FLIPPED = 0.03  # ... and at most this share of its rows with differing messages
+ATOL_LOSSY = 2e-2   # a lossy run whose messages were not compared: every score
 
 
-def within_tolerance(errs, lossy: bool) -> tuple:
-    """(ok, max_abs_err, share within ATOL_EXACT) of the absolute score
-    errors of one run under the tolerance stated above."""
-    errs = np.concatenate([np.ravel(e) for e in errs]) if len(errs) else np.zeros(0)
-    if not errs.size:
-        return True, 0.0, 1.0
-    max_err = float(errs.max())
-    within = float((errs <= ATOL_EXACT).mean())
-    if lossy:
-        return (max_err <= ATOL_LOSSY and within >= FRAC_LOSSY), max_err, within
-    return max_err <= ATOL_EXACT, max_err, within
+class Tolerance(typing.NamedTuple):
+    ok: bool
+    max_err: float   # largest absolute score error
+    within: float    # share of scores within ATOL_EXACT
+    flipped: float   # share of rows whose wire messages differ (0 if not compared)
+    why: str         # what failed, or ""
+
+
+def within_tolerance(errs, lossy: bool, flips=None) -> Tolerance:
+    """Hold the absolute score errors of one run to the tolerance above.
+
+    ``errs``: per-request arrays (rows, out_dim). ``flips``: per-request
+    (rows,) bools, True where the row's wire messages differ between the
+    two runs compared, or None when the messages were not compared.
+
+    - not lossy: every score within ATOL_EXACT;
+    - lossy, messages compared: every score of a row whose messages
+      agree within ATOL_EXACT (so every larger error sits in a row whose
+      messages differ), at most MAX_FLIPPED of the rows with differing
+      messages, and FRAC_LOSSY of the scores within ATOL_EXACT;
+    - lossy, not compared: every score within ATOL_LOSSY and FRAC_LOSSY
+      of them within ATOL_EXACT.
+    """
+    errs = [np.asarray(e, np.float64).reshape(len(e), -1) for e in errs]
+    flat = np.concatenate([e.ravel() for e in errs]) if errs else np.zeros(0)
+    if not flat.size:
+        return Tolerance(True, 0.0, 1.0, 0.0, "")
+    max_err = float(flat.max())
+    within = float((flat <= ATOL_EXACT).mean())
+    if not lossy:
+        ok = max_err <= ATOL_EXACT
+        return Tolerance(ok, max_err, within, 0.0,
+                         "" if ok else f"a score beyond {ATOL_EXACT}")
+    why = "" if within >= FRAC_LOSSY else f"fewer than {FRAC_LOSSY} within {ATOL_EXACT}"
+    if flips is None:
+        if max_err > ATOL_LOSSY:
+            why = why or f"a score beyond {ATOL_LOSSY}"
+        return Tolerance(not why, max_err, within, 0.0, why)
+    rows_err = np.concatenate([e.max(axis=1) for e in errs])
+    flipped = np.concatenate([np.asarray(f, bool).ravel() for f in flips])
+    if flipped.shape != rows_err.shape:
+        raise ValueError(f"{flipped.size} message flags for {rows_err.size} rows")
+    share = float(flipped.mean())
+    unexplained = rows_err[~flipped]
+    if unexplained.size and unexplained.max() > ATOL_EXACT:
+        why = why or (f"a score beyond {ATOL_EXACT} ({unexplained.max():.3g}) "
+                      "in a row whose wire messages agree")
+    if share > MAX_FLIPPED:
+        why = why or f"{share:.4f} of the rows with differing messages"
+    return Tolerance(not why, max_err, within, share, why)
+
+
+def message_flips(codes_a, codes_b) -> np.ndarray:
+    """(rows,) bools: rows whose recorded wire message codes differ."""
+    return (codes_a.cpu() != codes_b.cpu()).any(dim=1).numpy()
+
+
+def wire_diff(codes_a, codes_b, d_hidden: int) -> dict:
+    """How one row's recorded wire messages differ between two sends
+    (``PredictResult.wire`` / ``ServedResult.wire`` rows): for each of
+    the h_A and h_B uploads and the score download, the entries kept by
+    one send and dropped by the other ("kept set"), and the entries both
+    kept with different int8 codes ("int8 code"). Empty when equal."""
+    a, b = codes_a.cpu().long(), codes_b.cpu().long()
+    out = {}
+    for name, sl in (("h_A", slice(0, d_hidden)),
+                     ("h_B", slice(d_hidden, 2 * d_hidden)),
+                     ("scores", slice(2 * d_hidden, None))):
+        x, y = a[sl], b[sl]
+        kept = int(((x != 0) != (y != 0)).sum())
+        code = int(((x != y) & (x != 0) & (y != 0)).sum())
+        if kept or code:
+            out[name] = {"kept set": kept, "int8 code": code}
+    return out
 
 
 def models_from_checkpoint(ckpt_dir: str, spec, ecfg, step: int | None = None,
@@ -154,16 +229,20 @@ def train_models(spec, ecfg, *, rounds: int, clients: int, seed: int,
     return fed.global_models, fed.server_gmv
 
 
-def make_requests(spec, mix: str, n: int, *, rows: int, seed: int) -> list:
-    """A deterministic heterogeneous request stream for one mix preset.
-    Row counts vary per request (1..rows) so the stream exercises
-    multiple capacity buckets and the chunking path. The same numpy
-    stream as the reference; its ``hash(mix)`` is salted per process,
-    so the two agree within one process only."""
+def make_requests(spec, mix: str, n: int, *, rows: int, seed: int,
+                  salt: int | None = None) -> list:
+    """A heterogeneous request stream for one mix preset. Row counts vary
+    per request (1..rows) so the stream exercises multiple capacity
+    buckets and the chunking path. By default the same numpy stream as
+    the reference, seeded with ``hash(mix)``, which Python salts per
+    process, so the two agree within one process only; an int ``salt``
+    stands in for that hash, and the stream is then the same in every
+    process."""
     from repro_torch.core.inference import InferenceRequest
 
     p_mm, p_a, p_b, p_vfl = MIXES[mix]
-    rng = np.random.default_rng([seed, hash(mix) & 0xFFFF])
+    rng = np.random.default_rng([seed, (hash(mix) if salt is None else salt)
+                                 & 0xFFFF])
     kinds = rng.choice(4, size=n, p=[p_mm, p_a, p_b, p_vfl])
     out = []
     for kind in kinds:
@@ -179,9 +258,10 @@ def make_requests(spec, mix: str, n: int, *, rows: int, seed: int) -> list:
     return out
 
 
-def serve_mix(engine, spec, mix: str, n: int, *, rows: int, seed: int) -> dict:
+def serve_mix(engine, spec, mix: str, n: int, *, rows: int, seed: int,
+              salt: int | None = None) -> dict:
     """Run one mix through the engine; per-mix latency/throughput/bytes."""
-    reqs = make_requests(spec, mix, n, rows=rows, seed=seed)
+    reqs = make_requests(spec, mix, n, rows=rows, seed=seed, salt=salt)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     wall = time.perf_counter() - t0
@@ -198,12 +278,13 @@ def serve_mix(engine, spec, mix: str, n: int, *, rows: int, seed: int) -> dict:
     }
 
 
-def build_engine(args, models, server_gmv, ecfg, kind):
+def build_engine(args, models, server_gmv, ecfg, kind, record_wire=False):
     from repro_torch.core.serving import ServingConfig, ServingEngine
 
     cfg = ServingConfig(
         capacities=tuple(int(c) for c in args.capacities.split(",")),
-        codec=args.codec, window=args.window, prefetch=args.prefetch)
+        codec=args.codec, window=args.window, prefetch=args.prefetch,
+        record_wire=record_wire)
     return ServingEngine(models, ecfg, kind, server_gmv=server_gmv, cfg=cfg,
                          device=args.device)
 
@@ -253,7 +334,8 @@ def selftest(args) -> None:
     ecfg = EncoderConfig(d_hidden=args.d_hidden, n_layers=args.n_layers,
                          enc_type=args.enc_type)
     models, gmv = load_models(args, spec, ecfg)
-    engine = build_engine(args, models, gmv, ecfg, spec.kind)
+    engine = build_engine(args, models, gmv, ecfg, spec.kind,
+                          record_wire=True)
 
     total_bytes = 0
     for mix in ("mixed_unimodal", "vfl_heavy"):
@@ -263,23 +345,28 @@ def selftest(args) -> None:
         if [r.index for r in results] != list(range(len(reqs))):
             raise AssertionError(f"results out of stream order ({mix})")
         errs = {False: [], True: []}  # lossy -> per-request abs errors
+        flips = []  # lossy rows whose engine and predict messages differ
         for res, req in zip(results, reqs):
             ref = predict(models, req, ecfg, spec.kind, server_gmv=gmv,
                           codec=args.codec if req.vfl else None,
-                          device=engine.device)
+                          device=engine.device, record_wire=True)
             if res.route is not ref.route:
                 raise AssertionError((res.route, ref.route))
             if res.scores.shape != ref.scores.shape:
                 raise AssertionError((res.scores.shape, ref.scores.shape))
             lossy = req.vfl and args.codec != "none"
             errs[lossy].append((res.scores - ref.scores).abs().cpu().numpy())
+            if lossy:
+                flips.append(message_flips(res.wire, ref.wire))
         for lossy, e in errs.items():
-            ok, err, within = within_tolerance(e, lossy)
-            if not ok:
+            tol = within_tolerance(e, lossy, flips if lossy else None)
+            if not tol.ok:
                 raise AssertionError(
                     f"engine scores diverge from predict ({mix}, "
-                    f"{'lossy' if lossy else 'exact'} routes): max abs err "
-                    f"{err:.3g}, {within:.4f} within {ATOL_EXACT}")
+                    f"{'lossy' if lossy else 'exact'} routes): {tol.why}; max "
+                    f"abs err {tol.max_err:.3g}, {tol.within:.4f} within "
+                    f"{ATOL_EXACT}, {tol.flipped:.4f} of rows with differing "
+                    "wire messages")
         total_bytes += sum(r.bytes for r in results)
         worst = max(float(np.max(e)) for es in errs.values() for e in es)
         print(f"selftest mix {mix}: {len(reqs)} requests match predict "

@@ -1,4 +1,5 @@
-"""Core functional layers: linear, RMS norm and the task losses.
+"""Core functional layers: linear, RMS norm, embedding, activations and
+the task losses.
 
 Params are plain nested dicts of tensors with the reference's keys
 (``src/repro/models/common.py``); every layer is an (init, apply) pair
@@ -41,6 +42,27 @@ def rmsnorm(p, x, eps: float = 1e-5):
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["g"].float()).to(x.dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype, *, device):
+    table = torch.randn((vocab, d), generator=gen, device=gen.device) * 0.02
+    return {"table": table.to(device=device, dtype=dtype)}
+
+
+def embed(p, tokens, compute_dtype):
+    return p["table"][tokens.long()].to(compute_dtype)
+
+
+def activation(name: str):
+    """The reference's activations by name; ``gelu`` is its tanh form
+    (``jax.nn.gelu`` defaults to it)."""
+    if name == "gelu":
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "relu2":  # squared ReLU (nemotron-4)
+        return lambda x: torch.square(torch.relu(x))
+    if name == "silu":
+        return torch.nn.functional.silu
+    raise ValueError(name)
 
 
 def softmax_cross_entropy(logits, labels):

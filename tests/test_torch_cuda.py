@@ -15,7 +15,12 @@ plus one bf16 ulp for bf16. The sLSTM kernel's recurrent products sum in
 another order than the plain version's: within ``slstm_error_bound``
 (atol 1e-5, rtol 1e-4, plus one bf16 ulp for bf16). Flash attention
 against its plain version: 2e-5 in f32 and 2e-2 in bf16, the reference's
-kernel-test tolerances.
+kernel-test tolerances. The mLSTM scan's h and final (C, n) against the
+step recurrence: within ``mlstm_error_bound`` (atol 1e-5 plus 1e-4 of the
+row's largest value: dot products of dk terms summed in another order,
+the decay factored per chunk). The sLSTM from a running state: output
+and final state within ``slstm_error_bound``. The reduced xlstm through
+``serve_lm`` on the card against the CPU: logits within 1e-3.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,8 @@ from repro_torch.kernels.blendavg.ref import blend_error_bound, blend_params_ref
 from repro_torch.kernels.flash_attention import flash_attention as flash_launcher
 from repro_torch.kernels.flash_attention.ref import TOL as FLASH_TOL
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.mlstm_scan import mlstm_scan as mlstm_launcher
+from repro_torch.kernels.mlstm_scan.ref import mlstm_error_bound, mlstm_scan_ref
 from repro_torch.kernels.slstm_cell import slstm_cell as slstm_launcher
 from repro_torch.kernels.slstm_cell.ref import slstm_cell_ref, slstm_error_bound
 from repro_torch.kernels.wire_codec import wire_codec as launcher
@@ -258,3 +265,95 @@ def test_encoder_launches_its_kernel_once_on_card(enc_type):
     assert tuple(a - b for a, b in zip(after, before)) == want_delta
     want = encoder_apply(params_from_numpy(params_to_numpy(p), "cpu"), x, ecfg)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------- mLSTM scan --
+
+def _mlstm_inputs(b, h, s, dk, dv, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, s, dk)).astype(np.float32)
+    k = (rng.standard_normal((b, h, s, dk)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((b, h, s, dv)).astype(np.float32)
+    lf = (-np.abs(rng.standard_normal((b, h, s))) * 0.2).astype(np.float32)
+    return [torch.from_numpy(x).cuda() for x in (q, k, v, lf)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (1, 2, 64, 16, 16, 16), (2, 3, 100, 32, 16, 32), (1, 1, 128, 64, 64, 128),
+    (2, 4, 77, 512, 512, 64), (1, 2, 12, 64, 100, 64), (2, 4, 512, 512, 512, 64),
+])
+def test_mlstm_kernel_matches_plain_on_card(b, h, s, dk, dv, chunk, normalize):
+    """h and the final (C, n) within mlstm_error_bound of the step
+    recurrence; S not a multiple of the chunk included."""
+    _skip_without_card()
+    q, k, v, lf = _mlstm_inputs(b, h, s, dk, dv, seed=s + dk)
+    before = mlstm_launcher.launches
+    got, (c, n) = mlstm_launcher.mlstm_scan_cuda(q, k, v, lf, chunk=chunk,
+                                                 normalize=normalize,
+                                                 return_state=True)
+    want, (wc, wn) = mlstm_scan_ref(q, k, v, lf, normalize=normalize,
+                                    return_state=True)
+    torch.cuda.synchronize()
+    assert mlstm_launcher.launches == before + 1
+    for g, w in ((got, want), (c, wc), (n, wn)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = (g - w).abs()
+        assert bool((err <= mlstm_error_bound(w)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,hd", [(8, 4, 512, 256), (8, 4, 1, 256),
+                                      (2, 4, 50, 8)])
+def test_slstm_kernel_from_a_state_matches_plain_on_card(b, h, s, hd):
+    _skip_without_card()
+    pre, r = _slstm_inputs(b, h, s, hd, seed=hd + s)
+    rng = np.random.default_rng(s)
+    c, n, m, hp = (rng.standard_normal((b, h, hd)).astype(np.float32) for _ in range(4))
+    state = tuple(torch.from_numpy(x).cuda() for x in
+                  (c, np.abs(n) + 1, 0.5 * m, np.tanh(hp)))
+    before = slstm_launcher.launches
+    got, fin = slstm_launcher.slstm_cell_cuda(pre, r, initial_state=state,
+                                              return_state=True)
+    want, wfin = slstm_cell_ref(pre, r, state, return_state=True)
+    torch.cuda.synchronize()
+    assert slstm_launcher.launches == before + 1
+    for g, w in ((got, want), *zip(fin, wfin)):
+        err = (g - w).abs()
+        assert bool((err <= slstm_error_bound(w, g)).all()), float(err.max())
+    # the zero-state call gives what it gave before the state existed
+    zero = slstm_launcher.slstm_cell_cuda(pre, r)
+    assert torch.equal(zero, slstm_launcher.slstm_cell_cuda(pre, r,
+                                                            return_state=True)[0])
+
+
+@pytest.mark.cuda
+def test_serve_lm_on_card_launches_its_kernels():
+    """The reduced xlstm through serve_lm on the card: one mLSTM and one
+    sLSTM launch a layer pair in prefill, only the sLSTM in a decode
+    step, and the card's logits agree with the CPU's."""
+    _skip_without_card()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import backbone as bb
+
+    cfg = get_config("blendfl_paper")  # two pairs, d 256
+    p = bb.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    counts = []
+
+    def hook(stage, i):
+        counts.append((stage, mlstm_launcher.launches, slstm_launcher.launches))
+
+    start = (mlstm_launcher.launches, slstm_launcher.launches)
+    res = serve_lm.generate(p, cfg, toks.cuda(), gen=3, max_len=64, hook=hook)
+    deltas = [(s, m - pm, sl - ps) for (s, m, sl), (_, pm, ps) in
+              zip(counts, [("", *start)] + counts[:-1])]
+    assert deltas == [("prefill", 2, 2)] + [("decode", 0, 2)] * 3
+    want = serve_lm.generate(params_from_numpy(params_to_numpy(p), "cpu"), cfg,
+                             toks, gen=3, max_len=64)
+    torch.testing.assert_close(res["logits"].cpu(), want["logits"], atol=1e-3,
+                               rtol=1e-3)

@@ -29,7 +29,9 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.kernels.blendavg.ops",
               "repro_torch.kernels.slstm_cell.ops",
               "repro_torch.kernels.flash_attention.ops",
-              "repro_torch.models.recurrent"):
+              "repro_torch.kernels.mlstm_scan.ops",
+              "repro_torch.models.recurrent", "repro_torch.models.backbone",
+              "repro_torch.configs.xlstm_350m", "repro_torch.launch.serve_lm"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -46,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                       ROOT / "chip_smoke.py"]))
+                                       ROOT / "chip_smoke.py",
+                                       ROOT / "tools" / "torch_wire_flips.py"]))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -94,6 +97,17 @@ def test_entry_points_need_cuda_without_device():
     with pytest.raises(RuntimeError, match="CUDA"):
         Federation.init(torch.Generator(), FedConfig(rounds=1), spec, ecfg,
                         partition(tr, 3), va)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import backbone
+
+    cfg = get_config("xlstm_350m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backbone.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backbone.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):  # the LM driver's default
+        serve_lm.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -115,7 +129,8 @@ def test_missing_nvcc_raises(monkeypatch):
     from repro_torch.kernels import _build
 
     assert [p.name for p in _build.sources()] == [
-        "blendavg.cu", "flash_attention.cu", "slstm_cell.cu", "wire_codec.cu"]
+        "blendavg.cu", "flash_attention.cu", "mlstm_scan.cu", "slstm_cell.cu",
+        "wire_codec.cu"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
