@@ -91,11 +91,13 @@ def mlstm_scan_cuda(q, k, v, log_f, *, chunk: int = 64, normalize: bool = True,
             raise ValueError(f"mlstm_scan_cuda takes CUDA tensors on one "
                              f"device, got {name} on {x.device}")
     out = torch.empty((b, h, s, dv), dtype=torch.float32, device=q.device)
+    run = bool(b * h and s and dk and dv)
     c = n = None
-    if return_state:
-        c = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
-        n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
-    if b * h and s and dk and dv:
+    if return_state:  # a launch writes every entry; else the zero state
+        new = torch.empty if run else torch.zeros
+        c = new((b, h, dk, dv), dtype=torch.float32, device=q.device)
+        n = new((b, h, dk), dtype=torch.float32, device=q.device)
+    if run:
         fn = _fn()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -28,11 +28,11 @@
 // gate pre-activation in shared memory; after a barrier, threads j < hd
 // do the gate math for column j with the state in registers and write
 // h_t. No fast math: tanhf, expf, log1pf are the accurate library
-// functions. The step loop is one noinline function that the zero-state
-// and the stateful kernels both call: inlined into the stateful kernel,
-// the same loop compiled to slower steps (chip_smoke.py phase 14 at
-// (8, 4, 512, 256) on an "NVIDIA H100 80GB HBM3" at 700.00 W: 9.26 ms
-// a launch inlined, 6.37-6.52 ms with the shared call).
+// functions. The step loop is a noinline function: inlined into the
+// kernel beside the state loads and stores, the same loop compiled to
+// slower steps (chip_smoke.py phase 14 at (8, 4, 512, 256) on an
+// "NVIDIA H100 80GB HBM3" at 700.00 W: 9.26 ms a launch inlined,
+// 6.37-6.52 ms as a call).
 //
 // Bound: operations. A call does B*H*S*2*hd*4hd f32 FLOPs in the
 // recurrent products (at B=64, H=4, S=64, hd=256: 8.6 GFLOP, 128 us at
@@ -76,9 +76,8 @@ struct State {
   float* h1;
 };
 
-// The step loop, one compiled function for every instance (noinline), so
-// that the stateful and zero-state kernels run the same loop code; c, n,
-// m come in and go out through cnm.
+// The step loop, a compiled function of its own (noinline); c, n, m come
+// in and go out through cnm.
 template <typename T>
 __device__ __noinline__ void run_steps(const T* __restrict__ pre,
                                        const T* __restrict__ r_h,
@@ -119,11 +118,9 @@ __device__ __noinline__ void run_steps(const T* __restrict__ pre,
   cnm[2] = m;
 }
 
-// kState: the launch carries a state (s0 and/or s1 set); the zero-state
-// instances compile without any state code. __launch_bounds__ holds the
-// kernel to 64 registers a thread, so that a block of 1024 threads
-// (hd = 256) fits an SM's register file.
-template <typename T, bool kState>
+// __launch_bounds__ holds the kernel to 64 registers a thread, so that a
+// block of 1024 threads (hd = 256) fits an SM's register file.
+template <typename T>
 __global__ void __launch_bounds__(4 * kMaxHd)
     slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
                  T* __restrict__ out, int n_heads, int seq, int hd,
@@ -138,7 +135,7 @@ __global__ void __launch_bounds__(4 * kMaxHd)
   float cnm[3] = {0.0f, 0.0f, -1e30f};
   if (j < hd) {
     h_prev[j] = 0.0f;
-    if (kState && st.c0 != nullptr) {
+    if (st.c0 != nullptr) {
       const int64_t sj = (int64_t)bh * hd + j;
       cnm[0] = st.c0[sj];
       cnm[1] = st.n0[sj];
@@ -150,7 +147,7 @@ __global__ void __launch_bounds__(4 * kMaxHd)
   run_steps<T>(pre_x + (int64_t)bh * seq * four_hd,
                r + (int64_t)head * hd * four_hd, out + (int64_t)bh * seq * hd,
                h_prev, gates, seq, hd, cnm);
-  if (kState && st.c1 != nullptr && j < hd) {
+  if (st.c1 != nullptr && j < hd) {
     const int64_t sj = (int64_t)bh * hd + j;
     st.c1[sj] = cnm[0];
     st.n1[sj] = cnm[1];
@@ -159,13 +156,13 @@ __global__ void __launch_bounds__(4 * kMaxHd)
   }
 }
 
-template <typename T, bool kState>
+template <typename T>
 int launch(const void* pre_x, const void* r, void* out, int batch,
            int n_heads, int seq, int hd, State st, void* stream) {
   if (hd < 1 || hd > kMaxHd || batch < 1 || n_heads < 1 || seq < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)5 * hd * sizeof(float);
-  slstm_kernel<T, kState><<<(unsigned)(batch * n_heads), 4 * hd, smem,
+  slstm_kernel<T><<<(unsigned)(batch * n_heads), 4 * hd, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(pre_x), static_cast<const T*>(r),
       static_cast<T*>(out), n_heads, seq, hd, st);
@@ -177,42 +174,25 @@ int launch(const void* pre_x, const void* r, void* out, int batch,
 // Plain C entry points for ctypes. pre_x is a contiguous
 // (batch, n_heads, seq, 4, hd) array, r a contiguous (n_heads, hd, 4*hd)
 // array and out a contiguous (batch, n_heads, seq, hd) array, all of the
-// named dtype and on the device of `stream`; 1 <= hd <= 256. The
-// *_state entry points also take the initial state c0, n0, m0, h0 and
-// the final state c1, n1, m1, h1, each a contiguous (batch, n_heads, hd)
-// f32 array: c0 .. h0 all null (the zero state) or none, and likewise
-// c1 .. h1 (not written). Returns cudaGetLastError() after the launch.
-extern "C" int slstm_cell_f32(const void* pre_x, const void* r, void* out,
-                              int batch, int n_heads, int seq, int hd,
-                              void* stream) {
-  return launch<float, false>(pre_x, r, out, batch, n_heads, seq, hd,
-                              State{}, stream);
-}
-
-extern "C" int slstm_cell_bf16(const void* pre_x, const void* r, void* out,
-                               int batch, int n_heads, int seq, int hd,
-                               void* stream) {
-  return launch<__nv_bfloat16, false>(pre_x, r, out, batch, n_heads, seq,
-                                      hd, State{}, stream);
-}
-
+// named dtype and on the device of `stream`; 1 <= hd <= 256. c0, n0, m0,
+// h0 are the initial state and c1, n1, m1, h1 the final state, each a
+// contiguous (batch, n_heads, hd) f32 array: c0 .. h0 all null (the zero
+// state) or none, and likewise c1 .. h1 (not written). Returns
+// cudaGetLastError() after the launch.
 #define STATE_ARGS                                                        \
   const float *c0, const float *n0, const float *m0, const float *h0,    \
       float *c1, float *n1, float *m1, float *h1
 
-extern "C" int slstm_cell_state_f32(const void* pre_x, const void* r,
-                                    void* out, STATE_ARGS, int batch,
-                                    int n_heads, int seq, int hd,
-                                    void* stream) {
-  return launch<float, true>(pre_x, r, out, batch, n_heads, seq, hd,
-                             State{c0, n0, m0, h0, c1, n1, m1, h1}, stream);
+extern "C" int slstm_cell_f32(const void* pre_x, const void* r, void* out,
+                              STATE_ARGS, int batch, int n_heads, int seq,
+                              int hd, void* stream) {
+  return launch<float>(pre_x, r, out, batch, n_heads, seq, hd,
+                       State{c0, n0, m0, h0, c1, n1, m1, h1}, stream);
 }
 
-extern "C" int slstm_cell_state_bf16(const void* pre_x, const void* r,
-                                     void* out, STATE_ARGS, int batch,
-                                     int n_heads, int seq, int hd,
-                                     void* stream) {
-  return launch<__nv_bfloat16, true>(pre_x, r, out, batch, n_heads, seq, hd,
-                                     State{c0, n0, m0, h0, c1, n1, m1, h1},
-                                     stream);
+extern "C" int slstm_cell_bf16(const void* pre_x, const void* r, void* out,
+                               STATE_ARGS, int batch, int n_heads, int seq,
+                               int hd, void* stream) {
+  return launch<__nv_bfloat16>(pre_x, r, out, batch, n_heads, seq, hd,
+                               State{c0, n0, m0, h0, c1, n1, m1, h1}, stream);
 }

@@ -30,18 +30,16 @@ _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns: dict = {}
 
 
-def _fn(dtype, state: bool):
-    """The C entry point: slstm_cell_<dtype>, or with eight more state
-    pointers slstm_cell_state_<dtype>."""
-    key = (dtype, state)
-    fn = _fns.get(key)
+def _fn(dtype):
+    """The C entry point slstm_cell_<dtype>: three tensors, eight state
+    pointers (null for the zero state or a state not written), four
+    ints and the stream."""
+    fn = _fns.get(dtype)
     if fn is None:
-        name = f"slstm_cell{'_state' if state else ''}_{_ENTRY[dtype]}"
-        fn = getattr(_build.load(SOURCE), name)
-        fn.argtypes = ([ctypes.c_void_p] * (11 if state else 3)
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn = getattr(_build.load(SOURCE), f"slstm_cell_{_ENTRY[dtype]}")
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fns[key] = fn
+        _fns[dtype] = fn
     return fn
 
 
@@ -96,12 +94,9 @@ def slstm_cell_cuda(pre_x: torch.Tensor, r: torch.Tensor, initial_state=None,
                                   device=pre_x.device) for _ in range(4))
     if out.numel() == 0:
         return (out, final) if return_state else out
-    stateful = initial_state is not None or return_state
-    fn = _fn(pre_x.dtype, stateful)
-    ptrs = ()
-    if stateful:
-        ptrs = tuple(None if x is None else x.data_ptr() for x in (
-            *(initial_state or (None,) * 4), *(final or (None,) * 4)))
+    fn = _fn(pre_x.dtype)
+    ptrs = tuple(None if x is None else x.data_ptr() for x in (
+        *(initial_state or (None,) * 4), *(final or (None,) * 4)))
     with torch.cuda.device(pre_x.device):
         stream = torch.cuda.current_stream(pre_x.device).cuda_stream
         err = fn(pre_x.data_ptr(), r.data_ptr(), out.data_ptr(), *ptrs, b, h,

@@ -58,12 +58,17 @@ MIXES = {
 # row whose messages differ, and such rows must stay rare. At d_hidden
 # 1024 (256 int8 codes kept in each feature upload) the card ("NVIDIA
 # H100 80GB HBM3", 700.00 W) and the CPU sent differing messages for
-# 0.63% of 289,345 VFL rows, at most 1.10% of one stream's (154 streams
-# of about 1,900 rows; tools/torch_wire_flips.py); MAX_FLIPPED leaves
-# room above that, as one run's rows are few.
+# 0.566% of the 1237 VFL rows of chip_smoke.py's fixed streams, and
+# 0.63% of 289,345 rows over 154 random streams, 6 of which went above
+# 1% (at most 1.10%; tools/torch_wire_flips.py, which reports the share
+# and holds no cap). The recurrent (sLSTM) encoder's features, carried
+# through 64 steps, agree less closely: card and CPU sent differing
+# messages for 1.37% of the same fixed streams' 1237 rows (17 rows), so
+# a card-vs-CPU run of that encoder is held to MAX_FLIPPED_RECURRENT.
 ATOL_EXACT = 1e-5   # every score of a local route, or of a row whose messages agree
 FRAC_LOSSY = 0.99   # a lossy run: this share of its scores within ATOL_EXACT
-MAX_FLIPPED = 0.03  # ... and at most this share of its rows with differing messages
+MAX_FLIPPED = 0.01  # ... and at most this share of its rows with differing messages
+MAX_FLIPPED_RECURRENT = 0.03  # the same, card vs CPU on the recurrent encoder
 ATOL_LOSSY = 2e-2   # a lossy run whose messages were not compared: every score
 
 
@@ -75,20 +80,24 @@ class Tolerance(typing.NamedTuple):
     why: str         # what failed, or ""
 
 
-def within_tolerance(errs, lossy: bool, flips=None) -> Tolerance:
+def within_tolerance(errs, lossy: bool, flips=None,
+                     max_flipped: float = MAX_FLIPPED) -> Tolerance:
     """Hold the absolute score errors of one run to the tolerance above.
 
     ``errs``: per-request arrays (rows, out_dim). ``flips``: per-request
     (rows,) bools, True where the row's wire messages differ between the
     two runs compared, or None when the messages were not compared.
+    ``max_flipped``: the share of rows whose messages may differ.
 
     - not lossy: every score within ATOL_EXACT;
     - lossy, messages compared: every score of a row whose messages
       agree within ATOL_EXACT (so every larger error sits in a row whose
-      messages differ), at most MAX_FLIPPED of the rows with differing
+      messages differ), at most ``max_flipped`` of the rows with differing
       messages, and FRAC_LOSSY of the scores within ATOL_EXACT;
     - lossy, not compared: every score within ATOL_LOSSY and FRAC_LOSSY
       of them within ATOL_EXACT.
+
+    A non-finite error (NaN or inf on either side) fails in every case.
     """
     errs = [np.asarray(e, np.float64).reshape(len(e), -1) for e in errs]
     flat = np.concatenate([e.ravel() for e in errs]) if errs else np.zeros(0)
@@ -96,13 +105,16 @@ def within_tolerance(errs, lossy: bool, flips=None) -> Tolerance:
         return Tolerance(True, 0.0, 1.0, 0.0, "")
     max_err = float(flat.max())
     within = float((flat <= ATOL_EXACT).mean())
+    if not np.isfinite(flat).all():
+        return Tolerance(False, max_err, within, 0.0,
+                         f"{int((~np.isfinite(flat)).sum())} non-finite score errors")
     if not lossy:
         ok = max_err <= ATOL_EXACT
         return Tolerance(ok, max_err, within, 0.0,
                          "" if ok else f"a score beyond {ATOL_EXACT}")
     why = "" if within >= FRAC_LOSSY else f"fewer than {FRAC_LOSSY} within {ATOL_EXACT}"
     if flips is None:
-        if max_err > ATOL_LOSSY:
+        if not max_err <= ATOL_LOSSY:
             why = why or f"a score beyond {ATOL_LOSSY}"
         return Tolerance(not why, max_err, within, 0.0, why)
     rows_err = np.concatenate([e.max(axis=1) for e in errs])
@@ -111,10 +123,10 @@ def within_tolerance(errs, lossy: bool, flips=None) -> Tolerance:
         raise ValueError(f"{flipped.size} message flags for {rows_err.size} rows")
     share = float(flipped.mean())
     unexplained = rows_err[~flipped]
-    if unexplained.size and unexplained.max() > ATOL_EXACT:
+    if not np.all(unexplained <= ATOL_EXACT):
         why = why or (f"a score beyond {ATOL_EXACT} ({unexplained.max():.3g}) "
                       "in a row whose wire messages agree")
-    if share > MAX_FLIPPED:
+    if share > max_flipped:
         why = why or f"{share:.4f} of the rows with differing messages"
     return Tolerance(not why, max_err, within, share, why)
 

@@ -50,13 +50,40 @@ def test_a_large_error_where_the_messages_agree_fails():
 
 def test_too_many_flipped_rows_fail():
     errs, flips = _run()
-    assert sf.MAX_FLIPPED == 0.03
-    for i in range(10):  # 10 of 300 rows: above MAX_FLIPPED
+    assert sf.MAX_FLIPPED == 0.01
+    for i in range(4):  # 4 of 300 rows: above MAX_FLIPPED
         flips[i][0] = True
     tol = sf.within_tolerance(errs, lossy=True, flips=flips)
     assert not tol.ok and "differing messages" in tol.why
-    flips[0][0] = False  # 9 of 300: within
+    flips[0][0] = flips[1][0] = False  # 2 of 300: within
     assert sf.within_tolerance(errs, lossy=True, flips=flips).ok
+    # the recurrent encoder's card-vs-CPU cap
+    assert sf.MAX_FLIPPED_RECURRENT == 0.03
+    for i in range(9):  # 9 of 300: within 3%
+        flips[i][0] = True
+    assert not sf.within_tolerance(errs, lossy=True, flips=flips).ok
+    assert sf.within_tolerance(errs, lossy=True, flips=flips,
+                               max_flipped=sf.MAX_FLIPPED_RECURRENT).ok
+    flips[9][0] = True  # 10 of 300: above
+    tol = sf.within_tolerance(errs, lossy=True, flips=flips,
+                              max_flipped=sf.MAX_FLIPPED_RECURRENT)
+    assert not tol.ok and "differing messages" in tol.why
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("compared", [True, False])
+@pytest.mark.parametrize("flipped_row", [False, True])
+def test_a_non_finite_error_fails(bad, compared, flipped_row):
+    """A NaN or inf score on either side fails, lossy or not, whether or
+    not the messages were compared, and also in a row whose messages
+    differ; one such score is far fewer than 1% of the run's."""
+    errs, flips = _run()
+    errs[7][1, 4] = bad
+    flips[7][1] = flipped_row
+    for lossy in (True, False):
+        tol = sf.within_tolerance(errs, lossy=lossy,
+                                  flips=flips if compared and lossy else None)
+        assert not tol.ok and "non-finite" in tol.why, tol
 
 
 def test_share_within_exact_still_holds():

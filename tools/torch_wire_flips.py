@@ -103,7 +103,6 @@ def main(argv=None) -> int:
                              "median": float(np.median(shares)),
                              "max": float(shares.max())},
         "streams_above_max_flipped": int((shares > sf.MAX_FLIPPED).sum()),
-        "streams_above_1pct": int((shares > 0.01).sum()),
         "kinds": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         "rows_beyond_atol_lossy": big,
         "unexplained_scores": unexplained,
