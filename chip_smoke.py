@@ -49,10 +49,16 @@ outside a checkout. Phases, each fatal on failure:
    the bound;
 10. flash attention against plain: every mask and shape of the CPU tests
    (causal, GQA, MQA with Sq < Sk, ragged, windows 8/32/127,
-   non-causal), the transformer encoder's full width (64, 4, 64, 256),
-   f32 and bf16, and causal Sq > Sk, whose rows without a visible key
-   must be exactly 0; then timed beside the plain version,
-   ``scaled_dot_product_attention`` (timed only) and the bound;
+   non-causal), the edges of the kernel's tiling (Sq not a multiple of
+   its 64-row blocks, Sk not a multiple of its 32-key tiles, d = 10 and
+   256 with 4 query heads a K/V head, windows across tiles), causal Sq >
+   Sk, whose rows without a visible key must be exactly 0, the
+   transformer encoder's full width (64, 4, 64, 256) and a long causal
+   GQA case (1, 8, 2, 1024, 1024, 128), f32 and bf16; then timed at full
+   width (f32, bf16) and the long case (f32, bf16), each beside
+   ``scaled_dot_product_attention`` on the same inputs (timed only, never
+   on the path), with the plain version at full width f32, the bound and
+   the kernel/SDPA ratio;
 11. full-width serving with the recurrent, then the transformer encoders
    (d_hidden=1024, 4 heads of 256; phase 4's set-up and checks, the
    CPU comparison on the first requests of each mix): each encoder
@@ -83,6 +89,10 @@ messages differ between the two runs compared.
 
 Every phase prints its time. It then prints one JSON line of per-kernel
 numbers, the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Times: ``ms``, ``plain_ms`` and ``library_ms`` are per call, from CUDA
+events around many calls; ``device_ms`` and its kin are the profiler's,
+counted per kernel name (``per_call_device_ms``), and None, with a
+``profiler dropped events`` line, where the profile lost launches.
 """
 from __future__ import annotations
 
@@ -106,6 +116,7 @@ ROOT = Path(__file__).resolve().parent
 EPS32 = float(np.finfo(np.float32).eps)
 
 FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores (dense)
 CODEC_OPS_PER_ELEM = 8  # abs, compare, mul, rint, max, min, mul, select
 BLEND_OPS_PER_ELEM = 2  # multiply, add
 
@@ -175,29 +186,65 @@ def cuda_time_ms(fn, iters=200, warmup=10):
 
 def device_kernels(run) -> list:
     """Profile one call of ``run``: [(device us, calls, name)] of every
-    kernel and copy it put on the card, largest first."""
+    kernel and copy it put on the card, largest first. Once this script
+    has run its first phases, a profile can lose the first launch or two
+    it sees (a profile of one flash launch recorded none, one of 50
+    recorded 49), so each profile starts with a warm-up step of small
+    kernels whose events the profiler's schedule discards."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    scratch = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(16):
+            scratch.add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up step ends: record from here
         run()
         torch.cuda.synchronize()
+        prof.step()
     return sorted(((ev.self_device_time_total, ev.count, ev.key)
                    for ev in prof.key_averages()
                    if ev.self_device_time_total > 0), reverse=True)
 
 
-def device_ms(fn, iters=50):
-    """Device time per call of ``fn`` (every kernel it launches), or None
-    when the profiler records no device time. The profiler may drop
-    events of a long run: for a function that launches one kernel the
-    time is divided by the launches it recorded, not by ``iters``."""
+def per_call_device_ms(one_call, many, iters):
+    """Device ms per call from two profiles of one function: ``one_call``
+    (one call) and ``many`` (``iters`` calls), each [(device us, count,
+    name)] as ``device_kernels`` gives them. Each name's time is divided
+    by that name's own recorded count, and a call's time is the sum over
+    names of time a launch times launches a call. Returns (ms or None,
+    {name: (launches recorded in ``many``, ``iters`` times those in
+    ``one_call``)} for the names where the two differ): a profile that
+    dropped (or gained) events gives None, never a low number; so does
+    one with no device time."""
+    per_call = {name: n for _, n, name in one_call}
+    recorded = {name: (us, n) for us, n, name in many}
+    dropped = {name: (recorded.get(name, (0.0, 0))[1], iters * per_call.get(name, 0))
+               for name in sorted(per_call.keys() | recorded.keys())}
+    dropped = {name: c for name, c in dropped.items() if c[0] != c[1]}
+    if dropped or not recorded:
+        return None, dropped
+    us = sum(t / n * per_call[name] for name, (t, n) in recorded.items())
+    return us / 1e3, {}
+
+
+def device_ms(fn, iters=50, label=""):
+    """Device time per call of ``fn`` (every kernel and copy it puts on
+    the card) from the profiler, or None when the profiler recorded no
+    device time or dropped events; the latter is printed."""
     fn()
-    kernels = device_kernels(lambda: [fn() for _ in range(iters)])
-    total_us = sum(k[0] for k in kernels)
-    calls = kernels[0][1] if len(kernels) == 1 else iters
-    return total_us / calls / 1e3 if total_us > 0 else None
+    one = device_kernels(fn)
+    many = device_kernels(lambda: [fn() for _ in range(iters)])
+    ms, dropped = per_call_device_ms(one, many, iters)
+    if dropped:
+        print(f"profiler dropped events{' (' + label + ')' if label else ''}: "
+              f"launches recorded / expected "
+              f"{ {name[:60]: c for name, c in dropped.items()} }; "
+              "device time not reported")
+    return ms
 
 
 def device_breakdown(run, wall_s, top=6, match=()):
@@ -214,6 +261,24 @@ def device_breakdown(run, wall_s, top=6, match=()):
             "matched": {m: {"ms": sum(us for us, _, name in kernels if m in name) / 1e3,
                             "calls": sum(n for _, n, name in kernels if m in name)}
                         for m in match}}
+
+
+def ptxas_summary(report: str) -> list:
+    """[(kernel, "N registers; stack and spills")] from nvcc's -Xptxas -v
+    output: each entry function's registers and its stack frame and
+    spill line."""
+    out, name, spill = [], None, {}
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Function properties for" in line and i + 1 < len(lines):
+            spill[line.rsplit(" ", 1)[-1]] = lines[i + 1].strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out.append((name, f"{regs}; {spill.get(name, 'no stack line')}"))
+            name = None
+    return out
 
 
 # ----------------------------------------------------------------- phases --
@@ -789,7 +854,18 @@ FLASH_TEST_CASES = (
     (1, 4, 4, 40, 72, 16, True, 0), (1, 4, 2, 128, 128, 32, True, 8),
     (1, 4, 2, 128, 128, 32, True, 32), (1, 4, 2, 128, 128, 32, True, 127),
     (2, 4, 4, 64, 64, 32, False, 0))
+# the edges of the kernel's tiling (64 query rows of a K/V group a block,
+# 32 keys a tile): Sq not a multiple of 64, Sk not a multiple of 32, d =
+# 10 (scalar staging) and 256 with 4 query heads a K/V head in one block,
+# causal with Sq > Sk (rows without a key), a window across key tiles
+FLASH_EDGE_CASES = (
+    (2, 4, 4, 97, 97, 64, False, 0), (1, 4, 1, 33, 77, 10, False, 0),
+    (2, 8, 2, 77, 77, 256, False, 0), (1, 4, 1, 16, 16, 10, True, 0),
+    (2, 4, 2, 80, 48, 32, True, 0), (1, 4, 2, 100, 130, 16, True, 40),
+    (1, 2, 1, 37, 50, 10, False, 5))
 FLASH_MAIN = (64, 4, 4, 64, 64, 256, False, 0)
+# a long causal GQA case: 8 query heads over 2 K/V heads, 1024 tokens
+FLASH_LONG = (1, 8, 2, 1024, 1024, 128, True, 0)
 
 
 def slstm_inputs(torch, b, h, s, hd, seed, dtype=None):
@@ -830,12 +906,13 @@ def time_slstm(torch, slaunch, sref, shape, mem_rate, plain=True):
                    b * h * s * 4 * hd * 4)
     ms = cuda_time_ms(lambda: slaunch.slstm_cell_cuda(*nxt()), iters=50, warmup=3)
     out = {"shape": list(shape), "ms": ms,
-           "device_ms": device_ms(lambda: slaunch.slstm_cell_cuda(*nxt()), iters=20)}
+           "device_ms": device_ms(lambda: slaunch.slstm_cell_cuda(*nxt()), iters=20,
+                                  label=f"slstm {shape}")}
     if plain:
         out["plain_ms"] = cuda_time_ms(lambda: sref.slstm_cell_ref(*nxt()),
                                        iters=5, warmup=1)
         out["plain_device_ms"] = device_ms(lambda: sref.slstm_cell_ref(*nxt()),
-                                           iters=3)
+                                           iters=3, label=f"slstm plain {shape}")
     out["bound_ms"], out["bound_by"] = slstm_bound_ms(b, h, s, hd, 4, mem_rate)
     return out
 
@@ -872,35 +949,52 @@ def visible_pairs(sq, sk, causal, window) -> int:
     return int(mask.sum())
 
 
-def time_flash(torch, flaunch, fref, case, mem_rate):
+def time_flash(torch, flaunch, fref, case, mem_rate, dtype=None, plain=True):
+    """The flash kernel at ``case`` in ``dtype`` (f32 if None), beside
+    scaled_dot_product_attention on the same inputs and, if ``plain``,
+    the plain version: per-call CUDA-event times (the headline),
+    profiler device times, and the bound."""
     b, hq, hkv, sq, sk, d, causal, window = case
     F = torch.nn.functional
-    nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * 4
-    nxt = rotation(lambda: flash_inputs(torch, b, hq, hkv, sq, sk, d, seed=d),
-                   nbytes)
+    dtype = dtype or torch.float32
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * itemsize
+    nxt = rotation(lambda: flash_inputs(torch, b, hq, hkv, sq, sk, d, seed=d,
+                                        dtype=dtype), nbytes)
+    tag = f"{case[:6]} {str(dtype)[6:]}"
 
     def kern():
         return flaunch.flash_attention_cuda(*nxt(), causal=causal, window=window)
 
-    def plain():
+    def plain_fn():
         return fref.flash_attention_ref(*nxt(), causal=causal, window=window)
 
     def sdpa():  # the library yardstick: timed here, never on the path
-        return F.scaled_dot_product_attention(*nxt(), is_causal=False)
+        return F.scaled_dot_product_attention(*nxt(), is_causal=causal,
+                                              enable_gqa=hq != hkv)
 
-    out = {"shape": [b, hq, sq, d], "ms": cuda_time_ms(kern),
-           "plain_ms": cuda_time_ms(plain, iters=50),
+    check(window == 0 and (not causal or sq == sk),
+          "SDPA's causal mask is end-aligned only when Sq == Sk, no window")
+    out = {"shape": [b, hq, hkv, sq, sk, d], "causal": causal,
+           "dtype": str(dtype)[6:], "ms": cuda_time_ms(kern),
            "library_ms": cuda_time_ms(sdpa),
-           "device_ms": device_ms(kern), "plain_device_ms": device_ms(plain),
-           "library_device_ms": device_ms(sdpa)}
+           "device_ms": device_ms(kern, label=f"flash {tag}"),
+           "library_device_ms": device_ms(sdpa, label=f"SDPA {tag}")}
+    if plain:
+        out["plain_ms"] = cuda_time_ms(plain_fn, iters=50)
+        out["plain_device_ms"] = device_ms(plain_fn, label=f"flash plain {tag}")
     # bound: q, k, v read once and the output written once, over the
-    # memory rate; 4*d f32 operations (q.k and p*v) for each visible
-    # (query, key) pair, over the f32 peak
+    # memory rate; 4*d operations (q.k and p*v) for each visible (query,
+    # key) pair, over the peak of the inputs' type (f32 outside the
+    # tensor cores, bf16 on them)
     bytes_ms = nbytes / mem_rate * 1e3
     ops = 4 * d * visible_pairs(sq, sk, causal, window) * b * hq
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    ops_ms = ops / peak * 1e3
     out["bound_ms"] = max(bytes_ms, ops_ms)
     out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    out["vs_library"] = out["ms"] / out["library_ms"]
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
 
 
@@ -911,9 +1005,12 @@ def slstm_phase(torch, slaunch, sref, mem_rate):
     slstm_err, n_cases = {}, 0
     for shape in SLSTM_TEST_SHAPES + SLSTM_MAIN_SHAPES:
         pre, r = slstm_inputs(torch, *shape, seed=sum(shape))
-        slstm_err["float32"] = max(slstm_err.get("float32", 0.0),
-                                   check_slstm(torch, slaunch, sref, pre, r))
+        err = check_slstm(torch, slaunch, sref, pre, r)
+        slstm_err["float32"] = max(slstm_err.get("float32", 0.0), err)
         n_cases += 1
+        if shape in SLSTM_MAIN_SHAPES:  # the recurrent encoder's shapes
+            print(f"slstm_cell {shape} f32: h max abs err {err:.3g} against "
+                  "the plain version")
     for shape in SLSTM_MAIN_SHAPES:
         pre, r = slstm_inputs(torch, *shape, seed=1, dtype=torch.bfloat16)
         slstm_err["bfloat16"] = max(slstm_err.get("bfloat16", 0.0),
@@ -934,36 +1031,43 @@ def slstm_phase(torch, slaunch, sref, mem_rate):
 
 def flash_phase(torch, flaunch, fref, mem_rate):
     """Phase 10: the flash kernel against its plain version (every mask
-    and shape of the CPU tests, full width, f32 and bf16, rows without a
-    visible key), then timed at full width beside the plain version and
-    scaled_dot_product_attention. Returns (max abs err by dtype, timing)."""
+    and shape of the CPU tests, the tiling's edges, full width, the long
+    causal GQA case, f32 and bf16, rows without a visible key), then
+    timed at full width (f32, with the plain version; bf16) and at the
+    long causal GQA case (f32, bf16), each beside
+    scaled_dot_product_attention. Returns (max abs err by dtype, the
+    timings, the f32 full-width one first)."""
     flash_err, n_cases = {}, 0
-    for case in FLASH_TEST_CASES + (FLASH_MAIN,):
+    for case in FLASH_TEST_CASES + FLASH_EDGE_CASES + (FLASH_MAIN, FLASH_LONG):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(torch, *case[:6], seed=sum(case[:6]), dtype=dtype)
-            err, _ = check_flash(torch, flaunch, fref, q, k, v, *case[6:])
+            err, got = check_flash(torch, flaunch, fref, q, k, v, *case[6:])
+            b, hq, hkv, sq, sk = case[:5]
+            if case[6] and sq > sk:  # causal: the first sq - sk rows see no key
+                check(bool((got[:, :, :sq - sk] == 0).all()),
+                      f"flash {case}: rows without a visible key are not 0")
             key = str(dtype).replace("torch.", "")
             flash_err[key] = max(flash_err.get(key, 0.0), err)
             n_cases += 1
-    # causal with Sq > Sk: the first 32 query rows see no key and are 0
-    q, k, v = flash_inputs(torch, 2, 4, 2, 80, 48, 32, seed=5)
-    err, got = check_flash(torch, flaunch, fref, q, k, v, True, 0)
-    check(bool((got[:, :, :32] == 0).all()) and bool(torch.isfinite(got).all()),
-          "flash: rows without a visible key are not exactly 0")
-    flash_err["float32"] = max(flash_err["float32"], err)
     del q, k, v, got
-    print(f"{n_cases + 1} cases within tolerance of the plain version "
-          f"(f32 2e-5, bf16 2e-2), rows without keys exactly 0; max abs err "
+    print(f"{n_cases} cases within tolerance of the plain version (f32 2e-5, "
+          f"bf16 2e-2), finite, rows without keys exactly 0; max abs err "
           f"{flash_err}")
-    flash_time = time_flash(torch, flaunch, fref, FLASH_MAIN, mem_rate)
-    print(f"flash_attention {flash_time['shape']}: kernel {flash_time['ms']:.5f} "
-          f"ms (device {flash_time['device_ms']} ms), plain "
-          f"{flash_time['plain_ms']:.5f} ms (device "
-          f"{flash_time['plain_device_ms']} ms), SDPA "
-          f"{flash_time['library_ms']:.5f} ms (device "
-          f"{flash_time['library_device_ms']} ms); bound "
-          f"{flash_time['bound_ms']:.6f} ms ({flash_time['bound_by']})")
-    return flash_err, flash_time
+    times = [time_flash(torch, flaunch, fref, FLASH_MAIN, mem_rate),
+             time_flash(torch, flaunch, fref, FLASH_MAIN, mem_rate,
+                        dtype=torch.bfloat16, plain=False),
+             time_flash(torch, flaunch, fref, FLASH_LONG, mem_rate, plain=False),
+             time_flash(torch, flaunch, fref, FLASH_LONG, mem_rate,
+                        dtype=torch.bfloat16, plain=False)]
+    for t in times:
+        plain = (f", plain {t['plain_ms']:.5f} ms (device {t['plain_device_ms']} ms)"
+                 if "plain_ms" in t else "")
+        print(f"flash_attention {t['shape']} causal={t['causal']} {t['dtype']}: "
+              f"kernel {t['ms']:.5f} ms (device {t['device_ms']} ms){plain}, SDPA "
+              f"{t['library_ms']:.5f} ms (device {t['library_device_ms']} ms); "
+              f"kernel / SDPA {t['vs_library']:.3f}; bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), {t['bound_share']:.3f} of it")
+    return flash_err, times
 
 
 def variant_serving(torch, spec, enc, sf, counted) -> dict:
@@ -1113,9 +1217,9 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate):
     ops_ms = flops / FP32_OPS_PER_S * 1e3
     t = {"shape": list(MLSTM_MAIN[:5]), "chunk": chunk,
          "ms": cuda_time_ms(kern, iters=20, warmup=3),
-         "device_ms": device_ms(kern, iters=10),
+         "device_ms": device_ms(kern, iters=10, label="mlstm"),
          "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
-         "plain_device_ms": device_ms(plain, iters=2),
+         "plain_device_ms": device_ms(plain, iters=2, label="mlstm plain"),
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "gflop": flops / 1e9}
@@ -1166,9 +1270,10 @@ def slstm_state_phase(torch, slaunch, sref, mem_rate):
 
         t = {"shape": [b, h, s, hd], "state": True,
              "ms": cuda_time_ms(kern, iters=20, warmup=3),
-             "device_ms": device_ms(kern, iters=10),
+             "device_ms": device_ms(kern, iters=10, label=f"slstm state {s}"),
              "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
-             "plain_device_ms": device_ms(plain, iters=2)}
+             "plain_device_ms": device_ms(plain, iters=2,
+                                          label=f"slstm state plain {s}")}
         t["bound_ms"], t["bound_by"] = slstm_bound_ms(b, h, s, hd, 4, mem_rate)
         times.append(t)
         print(f"slstm_cell with a state {t['shape']}: kernel {t['ms']:.5f} ms "
@@ -1377,6 +1482,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {[p.name for p in libs]} in {time.perf_counter() - t0:.2f} s")
+    for src in _build.sources():  # registers, stack and spills of each kernel
+        for name, info in ptxas_summary(_build.report(src)):
+            print(f"{src.name}: {name}: {info}")
 
     spec = TaskSpec("blendfl-1024", "multilabel", 25, 64, 128, 64, 128)
     ecfg = enc.EncoderConfig(d_hidden=1024, n_layers=4, enc_type="mlp")
@@ -1474,7 +1582,7 @@ def main() -> int:
     slstm_err, slstm_times = slstm_phase(torch, slaunch, sref, mem_rate)
 
     phase("10 flash attention against plain")
-    flash_err, flash_time = flash_phase(torch, flaunch, fref, mem_rate)
+    flash_err, flash_times = flash_phase(torch, flaunch, fref, mem_rate)
 
     phase("11 full-width serving, recurrent and transformer encoders")
     variants = variant_serving(torch, spec, enc, sf, counted)
@@ -1538,6 +1646,7 @@ def main() -> int:
         "shape": main_s["shape"], "per_shape": slstm_times + slstm_state_times,
         "max_abs_err_by_dtype": slstm_err,
     }
+    flash_time = flash_times[0]  # (64, 4, 64, 256) f32: the serving shape
     flash_record = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
@@ -1547,7 +1656,7 @@ def main() -> int:
         "ms": flash_time["ms"], "plain_ms": flash_time["plain_ms"],
         "bound_ms": flash_time["bound_ms"], "bound_by": flash_time["bound_by"],
         "library_ms": flash_time["library_ms"],  # scaled_dot_product_attention
-        "shape": flash_time["shape"], "timing": flash_time,
+        "shape": flash_time["shape"], "per_case": flash_times,
         "max_abs_err_by_dtype": flash_err,
     }
     mlstm_record = {

@@ -24,8 +24,10 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 
 # No --use_fast_math: the wire codec needs IEEE division and rintf.
+# -Xptxas -v: ptxas reports each kernel's registers, stack and spills;
+# the compiler's output is kept beside the library (``report``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.RLock()
 _loaded: dict = {}  # source path -> ctypes.CDLL
@@ -73,6 +75,7 @@ def _finish(proc, cmd, tmp: Path, out: Path) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial .so
 
 
@@ -106,3 +109,11 @@ def load(src: Path) -> ctypes.CDLL:
             build_all()
             _loaded[src] = ctypes.CDLL(str(_target(src)))
         return _loaded[src]
+
+
+def report(src: Path) -> str:
+    """What nvcc printed when it built ``src`` (ptxas's registers, stack
+    and spills of each kernel), or "" if this build directory has no
+    record of it."""
+    log = _target(Path(src).resolve()).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

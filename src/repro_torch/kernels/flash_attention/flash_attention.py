@@ -21,8 +21,12 @@ SOURCE = Path(__file__).with_name("flash_attention.cu")
 # the launches of one run.
 launches = 0
 
-MAX_HEAD_DIM = 256  # kMaxD in flash_attention.cu: 8 output columns a lane
-MAX_QUERIES = 65535 * 8  # the grid's y limit times kRows query rows a block
+MAX_HEAD_DIM = 256  # kMaxD in flash_attention.cu
+BLOCK_M = 64  # kBlockM in flash_attention.cu: query rows a block
+# A block's rows run over every query head of one K/V group, so the grid
+# holds (B * Hkv, ceil(group * Sq / BLOCK_M)) blocks: y at most 65535.
+MAX_GROUP_ROWS = 65535 * BLOCK_M  # (Hq / Hkv) * Sq, at most
+MAX_KV_PAIRS = 2**31 - 1  # B * Hkv, the grid's x limit
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -42,7 +46,8 @@ def _fn(dtype):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool, window: int) -> torch.Tensor:
     """q (B, Hq, Sq, d), k and v (B, Hkv, Sk, d), one dtype (f32 or bf16),
-    contiguous on one CUDA device; Hq % Hkv == 0, d <= 256. ``window`` of
+    contiguous on one CUDA device; Hq % Hkv == 0, d <= 256, (Hq / Hkv) * Sq
+    <= MAX_GROUP_ROWS. ``window`` of
     0 or less means no window, as in the reference. Returns (B, Hq, Sq, d)
     in q's dtype."""
     global launches
@@ -62,9 +67,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_cuda takes a head dim of at most "
                          f"{MAX_HEAD_DIM}, got {d}")
-    if sq > MAX_QUERIES or b * hq > 2**31 - 1:
-        raise ValueError(f"{sq} queries or {b * hq} (batch, head) pairs "
-                         "exceed the grid")
+    if (hq // hkv) * sq > MAX_GROUP_ROWS or b * hkv > MAX_KV_PAIRS:
+        raise ValueError(f"{hq // hkv} x {sq} query rows of a K/V group (at "
+                         f"most {MAX_GROUP_ROWS}) or {b * hkv} (batch, K/V "
+                         f"head) pairs (at most {MAX_KV_PAIRS}) exceed the grid")
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention_cuda takes CUDA tensors on one "

@@ -231,6 +231,46 @@ def test_flash_kernel_matches_plain_on_card(b, hq, hkv, sq, sk, d, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# the edges of the kernel's tiling: a block holds 64 query rows of one
+# K/V group (its query heads' rows one after another) and walks 32-key
+# tiles. b, hq, hkv, sq, sk, d, causal, window
+FLASH_EDGE_CASES = [
+    (2, 4, 4, 97, 97, 64, False, 0),    # Sq not a multiple of 64
+    (1, 4, 1, 33, 77, 10, False, 0),    # Sk not a multiple of 32; d = 10
+    (1, 8, 2, 16, 16, 10, True, 0),     # d = 10, 4 heads a K/V head in one block
+    (2, 8, 2, 77, 77, 256, False, 0),   # d = 256, 4 heads a K/V head
+    (2, 4, 2, 80, 48, 32, True, 0),     # causal, Sq > Sk: rows without keys
+    (1, 4, 1, 97, 77, 16, True, 0),     # the same across heads in a block
+    (1, 4, 2, 100, 130, 16, True, 40),  # a window across key tiles
+    (1, 4, 2, 128, 128, 32, False, 45),  # a window without causal
+    (1, 8, 2, 1024, 1024, 128, True, 0),  # long causal GQA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", FLASH_EDGE_CASES)
+def test_flash_kernel_tiling_edges_on_card(b, hq, hkv, sq, sk, d, causal,
+                                           window, dtype):
+    """One launch, within the tolerance of the plain version, finite, and
+    the rows that see no key exactly 0."""
+    _skip_without_card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=sq + sk + d, dtype=dt)
+    before = flash_launcher.launches
+    got = flash_launcher.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_launcher.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    if causal and sq > sk:
+        assert bool((got[:, :, :sq - sk] == 0).all())
+    tol = FLASH_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rows_without_keys_are_zero_on_card():
     """Causal with Sq > Sk: the first Sq - Sk query rows see no key and

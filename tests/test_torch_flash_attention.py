@@ -113,6 +113,47 @@ def test_scale_rounds_like_the_reference():
         assert float(attention_scale(d)) == float(want)
 
 
+def _rna_tf32(x):
+    """cvt.rna.tf32.f32 on the CPU: round an f32 to TF32's 10 mantissa
+    bits, to nearest with ties away from zero (finite values)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b as the f32 kernel's tensor cores form it: operands rounded to
+    TF32 (exact products, f32 sums); 3 passes is the 3xTF32 split
+    small*big + big*small + big*big, 1 pass plain TF32."""
+    a_big, b_big = _rna_tf32(a), _rna_tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _rna_tf32(a - a_big), _rna_tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_tf32_split_arithmetic_meets_the_f32_tolerance(passes, within):
+    """The arithmetic model of the f32 kernel's products: q, k, p and v
+    split into TF32 big + small parts (3xTF32) stay within TOL[float32] of
+    the plain version at (8, 4, 64, 256); plain (1x) TF32 does not, by a
+    wide margin (about 2e-6 against 7e-4 here), which is why the kernel
+    never takes it."""
+    q, k, v = _qkv(8, 4, 4, 64, 64, 256, seed=0)
+    want = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                           causal=False).numpy()
+    s = _tf32_product(q, np.swapaxes(k, -1, -2), passes) * np.float32(
+        attention_scale(256))
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    got = _tf32_product(p, v, passes) / p.sum(-1, keepdims=True)
+    err = np.abs(got - want)
+    tol = TOL["float32"]
+    assert bool((err <= tol + tol * np.abs(want)).all()) == within
+    if within:
+        assert err.max() < 5e-6
+    else:
+        assert err.max() > 2e-4
+
+
 def test_wrapper_refuses_other_devices():
     q, k, v = (torch.from_numpy(x).to("meta") for x in _qkv(1, 1, 1, 2, 2, 4, 0))
     with pytest.raises(ValueError, match="CUDA or the CPU"):
@@ -121,6 +162,10 @@ def test_wrapper_refuses_other_devices():
 
 def _t(*shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype)
+
+
+def _m(*shape):
+    return torch.empty(shape, device="meta")
 
 
 @pytest.mark.parametrize("q,k,v,match", [
@@ -135,6 +180,15 @@ def _t(*shape, dtype=torch.float32):
      "contiguous"),
     (_t(1, 1, 2, 264), _t(1, 1, 2, 264), _t(1, 1, 2, 264), "at most 256"),
     (_t(1, 2, 4, 8), _t(1, 2, 4, 8), _t(1, 2, 4, 8), "CUDA"),
+    # the grid: 65535 blocks of BLOCK_M rows over the (Hq / Hkv) * Sq query
+    # rows of a K/V group; 4 query heads a K/V head pass the limit that 4
+    # K/V heads of their own keep (shapes only: meta tensors hold no data)
+    (_m(1, 4, launcher.MAX_GROUP_ROWS // 4 + 1, 8), _m(1, 1, 4, 8),
+     _m(1, 1, 4, 8), "exceed the grid"),
+    (_m(1, 1, launcher.MAX_GROUP_ROWS + 1, 8), _m(1, 1, 4, 8), _m(1, 1, 4, 8),
+     "exceed the grid"),
+    (_m(1, 4, launcher.MAX_GROUP_ROWS // 4 + 1, 8), _m(1, 4, 4, 8),
+     _m(1, 4, 4, 8), "CUDA"),
 ])
 def test_cuda_launcher_refuses_before_launching(q, k, v, match):
     """No silent fallback and no bad launch: the launcher raises on what
