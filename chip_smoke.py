@@ -42,11 +42,14 @@ outside a checkout. Phases, each fatal on failure:
    same weights and shuffles on both, then one ``int8_topk`` codec round,
    within the CPU parity tests' tolerances (the codec round's params at
    the lossy run-level tolerance);
-9. sLSTM cell against plain: the kernel on the card against its plain
-   version at the CPU tests' shapes and the recurrent encoder's full
-   width (B = 2 and 64 rows, 4 heads, S = 64, hd = 256), f32 and bf16,
-   then timed at the serving capacities beside the plain version and
-   the bound;
+9. sLSTM cell against plain: the built kernel's partition of each call
+   (clusters, rows and units a CTA, shared memory) against
+   ``slstm_cell.plan`` with the card's cluster budget, in one wave; the kernel
+   on the card against its plain version at the CPU tests' shapes, the
+   partition's edges (a ragged last row group, H = 1, a ragged last CTA
+   of units) and the recurrent encoder's full width (B = 2 and 64 rows,
+   4 heads, S = 64, hd = 256), f32 and bf16, then timed at the serving
+   capacities beside the plain version and the bound;
 10. flash attention against plain: every mask and shape of the CPU tests
    (causal, GQA, MQA with Sq < Sk, ragged, windows 8/32/127,
    non-causal), the edges of the kernel's tiling (Sq not a multiple of
@@ -64,6 +67,9 @@ outside a checkout. Phases, each fatal on failure:
    CPU comparison on the first requests of each mix): each encoder
    kernel launches exactly once per encoder application (2 per
    multimodal or VFL micro-batch, 1 per unimodal one), a profiled mix;
+   for the recurrent encoder, its card-vs-CPU difference layer by layer
+   on the fixed streams' VFL rows (input layer, the sLSTM's input
+   projection, its h sequence, the feature, the kernel alone);
 12. the CLI: ``serve_federated --selftest --train-rounds 0`` with each of
    the two encoders, on the card;
 13. mLSTM scan against plain: the kernel's h and final (C, n) against its
@@ -72,8 +78,8 @@ outside a checkout. Phases, each fatal on failure:
    normalize on and off, then timed beside the plain version and the
    bound;
 14. the sLSTM cell from a running state against plain: prefill length
-   (8, 4, 512, 256) and a decode step (S = 1), output and final state,
-   then timed;
+   (8, 4, 512, 256), a decode step (S = 1), hd = 100 and a decode step
+   at 10 rows, output and final state, then the first two timed;
 15. full-width xlstm-350m serving through ``repro_torch.launch.serve_lm``
    (24 layers, d_model 1024, random weights from seed 0): prefill of
    8 x 512 tokens and 32 greedy decode steps, exactly 12 mLSTM + 12 sLSTM
@@ -841,9 +847,13 @@ def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
 
 # ---------------------------------------------- sLSTM and flash attention --
 
-# the CPU tests' shapes (tests/test_kernels.py), then the recurrent
+# the CPU tests' shapes (tests/test_kernels.py), the edges of the
+# kernel's partition (several row groups with a ragged last one: 20 and
+# 5 rows a cluster; H = 1; a last CTA of 31 units), then the recurrent
 # encoder's at full width: (B, H, S, hd) with B = 2 and 64 capacity rows
-SLSTM_TEST_SHAPES = ((1, 2, 32, 16), (2, 4, 50, 8), (1, 1, 64, 32))
+SLSTM_TEST_SHAPES = ((1, 2, 32, 16), (2, 4, 50, 8), (1, 1, 64, 32),
+                     (65, 4, 3, 256), (17, 4, 50, 256), (37, 1, 20, 256),
+                     (5, 3, 9, 255))
 SLSTM_MAIN_SHAPES = ((2, 4, 64, 256), (64, 4, 64, 256))
 
 # (b, hq, hkv, sq, sk, d, causal, window): the CPU tests' cases
@@ -999,9 +1009,28 @@ def time_flash(torch, flaunch, fref, case, mem_rate, dtype=None, plain=True):
 
 
 def slstm_phase(torch, slaunch, sref, mem_rate):
-    """Phase 9: the sLSTM kernel against its plain version (the CPU
-    tests' shapes and full width, f32 and bf16), then timed at the
-    serving capacities. Returns (max abs err by dtype, timings)."""
+    """Phase 9: the kernel's partition (the built kernel's plan equal to
+    ``slstm_cell.plan`` with the card's cluster budget, its clusters in
+    one wave where the heads and the 32-row cap allow, at every shape of
+    phases 9 and 14), then the sLSTM kernel against its
+    plain version (the CPU tests' shapes, the partition's edges and full
+    width, f32 and bf16), then timed at the serving capacities. Returns
+    (max abs err by dtype, timings)."""
+    for b, h, s, hd in SLSTM_TEST_SHAPES + SLSTM_MAIN_SHAPES + SLSTM_STATE_SHAPES:
+        got, budget, active = slaunch.kernel_plan(b, h, hd)
+        want = slaunch.plan(b, h, hd, budget)
+        one_wave = h * got.groups <= max(budget, h) or got.rows == slaunch.MAX_ROWS
+        check(got == want and active >= 1 and one_wave,
+              f"slstm plan at {(b, h, s, hd)}: the kernel's {got} (budget "
+              f"{budget}, the card holds {active}) against {want}")
+    for b, h, s, hd in SLSTM_MAIN_SHAPES + SLSTM_STATE_SHAPES[:1]:
+        p, budget, active = slaunch.kernel_plan(b, h, hd)
+        print(f"slstm_cell plan at {(b, h, s, hd)}: {h * p.groups} clusters of "
+              f"{p.cluster} CTAs ({p.cluster * h * p.groups} CTAs; the card "
+              f"holds {active} such clusters at once, budget {budget}), "
+              f"{p.units} units and {p.rows} rows a CTA, {p.rows_per_thread} "
+              f"rows and {p.gates_per_thread} gates a thread, {p.threads} "
+              f"computing threads, {p.smem} bytes of shared memory")
     slstm_err, n_cases = {}, 0
     for shape in SLSTM_TEST_SHAPES + SLSTM_MAIN_SHAPES:
         pre, r = slstm_inputs(torch, *shape, seed=sum(shape))
@@ -1011,7 +1040,7 @@ def slstm_phase(torch, slaunch, sref, mem_rate):
         if shape in SLSTM_MAIN_SHAPES:  # the recurrent encoder's shapes
             print(f"slstm_cell {shape} f32: h max abs err {err:.3g} against "
                   "the plain version")
-    for shape in SLSTM_MAIN_SHAPES:
+    for shape in SLSTM_MAIN_SHAPES + ((17, 4, 50, 256),):
         pre, r = slstm_inputs(torch, *shape, seed=1, dtype=torch.bfloat16)
         slstm_err["bfloat16"] = max(slstm_err.get("bfloat16", 0.0),
                                     check_slstm(torch, slaunch, sref, pre, r))
@@ -1070,6 +1099,58 @@ def flash_phase(torch, flaunch, fref, mem_rate):
     return flash_err, times
 
 
+def recurrent_layers(torch, spec, ecfg, models, seed=0) -> dict:
+    """Fault (g), layer by layer: the recurrent encoder's card-vs-CPU max
+    abs difference on the VFL requests of phase 11's fixed streams (every
+    row, both modalities), at its input layer tanh(x @ w_in + b), the
+    sLSTM's input projection pre_x = h @ wx + b, the sLSTM h sequence,
+    the encoder's output feature, and the sLSTM kernel alone (the card's
+    kernel against the plain version on the CPU's pre_x). The layers
+    repeat ``encoder_apply``'s recurrent branch, held equal to it."""
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.encoders import encoder_apply
+    from repro_torch.kernels.slstm_cell.ops import slstm_cell
+    from repro_torch.launch import serve_federated as sf
+    from repro_torch.models.common import dense, rmsnorm
+
+    nh = ecfg.n_heads
+    cpu_models = params_from_numpy(params_to_numpy(models), "cpu")
+
+    def layers(p, x, r=None):
+        inp = torch.tanh(dense(p["in"], x))
+        b, s, d = inp.shape
+        cell = p["cell"]
+        pre = (inp @ cell["wx"] + cell["b"]).float()  # as slstm_scan forms it
+        pre = pre.reshape(b, s, 4, nh, d // nh).permute(0, 3, 1, 2, 4).contiguous()
+        hs = slstm_cell(pre, cell["r"].float() if r is None else r)
+        feat = rmsnorm(p["norm"], hs.permute(0, 2, 1, 3).reshape(b, s, d)[:, -1])
+        return {"input layer": inp, "pre_x": pre, "sLSTM h": hs, "feature": feat}
+
+    worst = {}
+    with torch.no_grad():
+        for mix in MIXES:
+            for req in sf.make_requests(spec, mix, 64, rows=64, seed=seed,
+                                        salt=MIX_SALT[mix]):
+                if not req.vfl:
+                    continue
+                for name, x in (("f_A", req.x_a), ("f_B", req.x_b)):
+                    xc = torch.from_numpy(np.ascontiguousarray(x))
+                    card = layers(models[name], xc.cuda())
+                    cpu = layers(cpu_models[name], xc)
+                    check(torch.equal(card["feature"],
+                                      encoder_apply(models[name], xc.cuda(), ecfg)),
+                          "the layer breakdown does not repeat encoder_apply")
+                    alone = slstm_cell(cpu["pre_x"].cuda(),
+                                       cpu_models[name]["cell"]["r"].float().cuda())
+                    diffs = {k: float((card[k].cpu() - cpu[k]).abs().max())
+                             for k in cpu}
+                    diffs["sLSTM kernel alone"] = float(
+                        (alone.cpu() - cpu["sLSTM h"]).abs().max())
+                    for k, v in diffs.items():
+                        worst[k] = max(worst.get(k, 0.0), v)
+    return worst
+
+
 def variant_serving(torch, spec, enc, sf, counted) -> dict:
     """Phase 11: full-width serving (phase 4's set-up and checks) with
     the recurrent, then the transformer encoders; each encoder kernel
@@ -1096,6 +1177,14 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
               f"{enc_type} serving launched another kernel: {got}")
         check(got["wire_codec"] == 3 * bt["vfl_fallback"],
               f"wire_codec launches {got['wire_codec']}")
+        if enc_type == "recurrent":  # fault (g): where card and CPU part
+            layers = recurrent_layers(torch, spec, vcfg, vmodels)
+            flipped = res["tolerance"]["engine vs cpu (int8_topk routes)"]["flipped"]
+            print("recurrent encoder card vs CPU, max abs difference by layer "
+                  "(VFL rows of the fixed streams): " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in layers.items())
+                  + f"; rows with differing wire messages {flipped:.5f}")
+            res["layers_card_vs_cpu"] = layers
         engine = res.pop("engine")
         bd = device_breakdown(
             lambda: sf.serve_mix(engine, spec, "all_multimodal", 64, rows=64,
@@ -1104,7 +1193,8 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
         print_breakdown(f"{enc_type} all_multimodal", bd)
         print(f"    {own}: {bd['matched'][symbol]['ms']:.3f} ms in "
               f"{bd['matched'][symbol]['calls']} launches")
-        variants[enc_type] = {"launches": got[own], "breakdown": bd}
+        variants[enc_type] = {"launches": got[own], "breakdown": bd,
+                              "layers_card_vs_cpu": res.get("layers_card_vs_cpu")}
         del engine, vmodels, vgmv, res
         torch.cuda.empty_cache()
     return variants
@@ -1130,8 +1220,11 @@ MLSTM_TEST_CASES = ((1, 2, 64, 16, 16, 16), (2, 3, 100, 32, 16, 32),
                     (1, 1, 128, 64, 64, 128), (2, 4, 77, 512, 512, 64))
 MLSTM_MAIN = (8, 4, 512, 512, 512, 64)
 # the stateful sLSTM at xlstm-350m's width: prefill of 512 tokens, and a
-# decode step (S = 1), each from a running (non-zero) state
-SLSTM_STATE_SHAPES = ((8, 4, 512, 256), (8, 4, 1, 256))
+# decode step (S = 1), each from a running (non-zero) state (these two
+# are timed); then the partition's edges from a state: hd = 100 (4 CTAs
+# of 25 units) and a decode step at 10 rows (3 rows a cluster)
+SLSTM_STATE_SHAPES = ((8, 4, 512, 256), (8, 4, 1, 256), (3, 2, 17, 100),
+                      (10, 4, 1, 256))
 # xlstm-350m serving: 8 prompts of 512 tokens, 32 greedy decode steps
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 512, 32
 # card against CPU at full width: 2 prompts of 128 tokens, then 4
@@ -1239,9 +1332,10 @@ def running_state(torch, b, h, hd, seed):
 
 
 def slstm_state_phase(torch, slaunch, sref, mem_rate):
-    """Phase 14: the sLSTM kernel from a running state (prefill length
-    and a decode step) against its plain version, output and final state
-    within slstm_error_bound; then timed. Returns (max abs err, timings)."""
+    """Phase 14: the sLSTM kernel from a running state (prefill length,
+    a decode step, the partition's edges) against its plain version,
+    output and final state within slstm_error_bound; then xlstm-350m's
+    two shapes timed. Returns (max abs err, timings)."""
     worst, times = 0.0, []
     for b, h, s, hd in SLSTM_STATE_SHAPES:
         pre, r = slstm_inputs(torch, b, h, s, hd, seed=s)
@@ -1255,6 +1349,8 @@ def slstm_state_phase(torch, slaunch, sref, mem_rate):
             check(bool((e <= sref.slstm_error_bound(w, g)).all()),
                   f"stateful slstm {(b, h, s, hd)} beyond its bound: {float(e.max())}")
             worst = max(worst, float(e.max()))
+        if (b, h, hd) != (LM_BATCH, 4, 256):
+            continue
         nxt = rotation(lambda: (*slstm_inputs(torch, b, h, s, hd, seed=b),
                                 running_state(torch, b, h, hd, seed=1)),
                        b * h * s * 4 * hd * 4 + 4 * b * h * hd * 4)

@@ -167,6 +167,11 @@ def _slstm_inputs(b, h, s, hd, seed, dtype=torch.float32):
     (1, 1, 64, 32, "float32"), (2, 4, 64, 256, "float32"),
     (3, 2, 17, 100, "float32"), (2, 4, 50, 8, "bfloat16"),
     (2, 4, 64, 256, "bfloat16"),
+    # the cluster design's edges: several row groups with a ragged last
+    # one (rows 20 and 5 a cluster), H = 1, a ragged last CTA of units
+    (65, 4, 3, 256, "float32"), (17, 4, 50, 256, "float32"),
+    (37, 1, 20, 256, "float32"), (5, 3, 9, 255, "float32"),
+    (17, 4, 50, 256, "bfloat16"),
 ])
 def test_slstm_kernel_matches_plain_on_card(b, h, s, hd, dtype):
     _skip_without_card()
@@ -189,6 +194,25 @@ def test_slstm_launcher_refuses_wide_heads_on_card():
     with pytest.raises(ValueError, match="at most 256"):
         slstm_launcher.slstm_cell_cuda(pre, r)
     assert slstm_launcher.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_plan_matches_the_kernels_on_card(dtype):
+    """The Python mirror of the kernel's partition (checked on the CPU by
+    tests/test_torch_slstm_plan.py) is the plan the built kernel makes
+    with the card's cluster budget; its clusters fit the budget unless
+    the heads or the 32-row cap need more, and the card holds one."""
+    _skip_without_card()
+    for b, h, hd in ((64, 4, 256), (2, 4, 256), (8, 4, 256), (65, 4, 256),
+                     (17, 4, 256), (37, 1, 256), (3, 2, 100), (10, 4, 256),
+                     (128, 8, 256), (1, 1, 8), (300, 2, 64)):
+        got, budget, active = slstm_launcher.kernel_plan(b, h, hd,
+                                                          getattr(torch, dtype))
+        assert got == slstm_launcher.plan(b, h, hd, budget), (b, h, hd)
+        assert (h * got.groups <= max(budget, h)
+                or got.rows == slstm_launcher.MAX_ROWS), (b, h, hd, got, budget)
+        assert active >= 1, (b, h, hd, got)
 
 
 # ----------------------------------------------------- flash attention --
@@ -345,7 +369,9 @@ def test_mlstm_kernel_matches_plain_on_card(b, h, s, dk, dv, chunk, normalize):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,s,hd", [(8, 4, 512, 256), (8, 4, 1, 256),
-                                      (2, 4, 50, 8)])
+                                      (2, 4, 50, 8),
+                                      (3, 2, 17, 100),  # 4 CTAs of 25 units
+                                      (10, 4, 1, 256)])  # 3 rows a cluster
 def test_slstm_kernel_from_a_state_matches_plain_on_card(b, h, s, hd):
     _skip_without_card()
     pre, r = _slstm_inputs(b, h, s, hd, seed=hd + s)
