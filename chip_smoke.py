@@ -72,11 +72,13 @@ outside a checkout. Phases, each fatal on failure:
    projection, its h sequence, the feature, the kernel alone);
 12. the CLI: ``serve_federated --selftest --train-rounds 0`` with each of
    the two encoders, on the card;
-13. mLSTM scan against plain: the kernel's h and final (C, n) against its
-   plain version (the step recurrence) at the CPU tests' shapes, a
-   ragged S, and xlstm-350m's (8, 4, 512, 512, 512) at chunk 64,
-   normalize on and off, then timed beside the plain version and the
-   bound;
+13. mLSTM scan against plain: the kernel's plan at full width (cluster
+   size from the card's cluster capacities, waves, shared memory) and
+   its ptxas registers and spills; the kernel's h and final (C, n)
+   against its plain version (the step recurrence) at the CPU tests'
+   shapes, a ragged S, and xlstm-350m's (8, 4, 512, 512, 512) at chunk
+   64, normalize on and off, then timed beside the plain version and the
+   bound at both rates (f32 on SIMT, 3xTF32 on the tensor cores);
 14. the sLSTM cell from a running state against plain: prefill length
    (8, 4, 512, 256), a decode step (S = 1), hd = 100 and a decode step
    at 10 rows, output and final state, then the first two timed;
@@ -123,6 +125,7 @@ EPS32 = float(np.finfo(np.float32).eps)
 
 FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores (dense)
+TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
 CODEC_OPS_PER_ELEM = 8  # abs, compare, mul, rint, max, min, mul, select
 BLEND_OPS_PER_ELEM = 2  # multiply, add
 
@@ -1277,11 +1280,29 @@ def mlstm_flops(b, h, s, dk, dv, chunk):
     return b * h * nc * per
 
 
-def mlstm_phase(torch, mlaunch, mref, mem_rate):
-    """Phase 13: the mLSTM kernel against its plain version (the CPU
-    tests' shapes, a ragged S, full width; normalize on and off; h, C and
-    n), then timed at full width beside the plain version and the bound.
+def mlstm_phase(torch, mlaunch, mref, mem_rate, ptxas):
+    """Phase 13: the kernel's plan at full width (cluster size, waves,
+    shared memory; the built kernel's equal to ``mlstm_scan.plan`` with
+    the card's cluster capacities) and its registers, then the mLSTM
+    kernel against its plain version (the CPU tests' shapes, a ragged S,
+    full width; normalize on and off; h, C and n), then timed at full
+    width beside the plain version and the bound at both f32-accurate
+    rates: three TF32 products for each f32 one on the tensor cores (495
+    TFLOP/s), as the kernel runs them, which is the lower and so the
+    bound (``bound_ms``), and f32 on SIMT (67 TFLOP/s, ``bound_ms_simt``).
     Returns (max abs err, errors at full width, timing)."""
+    b, h, s, dk, dv, chunk = MLSTM_MAIN
+    plan, active = mlaunch.kernel_plan(b * h, dk, dv, chunk)
+    check(plan == mlaunch.plan(b * h, dk, dv, chunk, active)
+          and plan.waves <= mlaunch.plan(b * h, dk, dv, chunk, active, cluster=1).waves,
+          f"mlstm plan at {MLSTM_MAIN}: the kernel's {plan} against "
+          f"{mlaunch.plan(b * h, dk, dv, chunk, active)}")
+    inst = f"ILi{chunk}ELi{plan.tk}ELi{mlaunch.score_slots(chunk, plan.cluster)}E"
+    regs = [info for name, info in ptxas if "mlstm_kernel" in name and inst in name]
+    print(f"mlstm_scan plan at {MLSTM_MAIN[:5]} chunk {chunk}: {plan.clusters} "
+          f"clusters of {plan.cluster} CTAs ({plan.ctas} CTAs, {plan.waves} waves; "
+          f"the card holds {active} clusters of each size at once), TK "
+          f"{plan.tk}, {plan.smem} bytes of shared memory; ptxas {regs}")
     worst, n_cases = 0.0, 0
     for case in MLSTM_TEST_CASES + (MLSTM_MAIN,):
         for normalize in (True, False):
@@ -1295,7 +1316,6 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate):
     print(f"{n_cases} cases (h, final C and n) within mlstm_error_bound of the "
           f"plain version; max abs err {worst:.3g}; at {MLSTM_MAIN[:5]}: "
           f"{main_errs}")
-    b, h, s, dk, dv, chunk = MLSTM_MAIN
     nbytes = 4 * b * h * (s * (2 * dk + 2 * dv + 1) + dk * dv + dk)
     nxt = rotation(lambda: mlstm_inputs(torch, b, h, s, dk, dv, seed=1), nbytes)
 
@@ -1307,7 +1327,7 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate):
 
     flops = mlstm_flops(b, h, s, dk, dv, chunk)
     bytes_ms = nbytes / mem_rate * 1e3
-    ops_ms = flops / FP32_OPS_PER_S * 1e3
+    ops_ms = min(3 * flops / TF32_OPS_PER_S, flops / FP32_OPS_PER_S) * 1e3
     t = {"shape": list(MLSTM_MAIN[:5]), "chunk": chunk,
          "ms": cuda_time_ms(kern, iters=20, warmup=3),
          "device_ms": device_ms(kern, iters=10, label="mlstm"),
@@ -1315,11 +1335,17 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate):
          "plain_device_ms": device_ms(plain, iters=2, label="mlstm plain"),
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-         "gflop": flops / 1e9}
+         "bound_ms_simt": max(bytes_ms, flops / FP32_OPS_PER_S * 1e3),
+         "engine": "tensor cores: mma.sync m16n8k8 TF32, 3xTF32 split",
+         "gflop": flops / 1e9, "plan": vars(plan), "active_clusters": active,
+         "ptxas": regs}
     print(f"mlstm_scan {t['shape']} chunk {chunk}: kernel {t['ms']:.5f} ms "
           f"(device {t['device_ms']} ms), plain {t['plain_ms']:.5f} ms (device "
-          f"{t['plain_device_ms']} ms); bound {t['bound_ms']:.6f} ms "
-          f"({t['bound_by']}, {t['gflop']:.2f} GFLOP)")
+          f"{t['plain_device_ms']} ms); bound {t['bound_ms']:.6f} ms in 3xTF32 "
+          f"on the tensor cores ({t['bound_by']}, {t['gflop']:.2f} GFLOP), "
+          f"{t['bound_ms_simt']:.6f} ms in f32 on SIMT; kernel at "
+          f"{t['bound_ms'] / t['ms']:.3f} / {t['bound_ms_simt'] / t['ms']:.3f} "
+          "of them")
     return worst, main_errs, t
 
 
@@ -1687,8 +1713,8 @@ def main() -> int:
     variant_cli(sf, slaunch, flaunch)
 
     phase("13 mLSTM scan against plain")
-    mlstm_err, mlstm_main_errs, mlstm_time = mlstm_phase(torch, mlaunch, mref,
-                                                         mem_rate)
+    mlstm_err, mlstm_main_errs, mlstm_time = mlstm_phase(
+        torch, mlaunch, mref, mem_rate, ptxas_summary(_build.report(mlaunch.SOURCE)))
 
     phase("14 sLSTM cell with a state against plain")
     slstm_state_err, slstm_state_times = slstm_state_phase(torch, slaunch, sref,
@@ -1762,6 +1788,9 @@ def main() -> int:
         "launches": lm["launches"]["mlstm_scan"], "max_abs_err": mlstm_err,
         "ms": mlstm_time["ms"], "plain_ms": mlstm_time["plain_ms"],
         "bound_ms": mlstm_time["bound_ms"], "bound_by": mlstm_time["bound_by"],
+        "bound_ms_simt": mlstm_time["bound_ms_simt"],
+        "engine": mlstm_time["engine"], "plan": mlstm_time["plan"],
+        "ptxas": mlstm_time["ptxas"],
         "library_ms": None,  # no single PyTorch call computes the scan
         "shape": mlstm_time["shape"], "timing": mlstm_time,
         "max_abs_err_full_width": mlstm_main_errs,

@@ -367,6 +367,122 @@ def test_mlstm_kernel_matches_plain_on_card(b, h, s, dk, dv, chunk, normalize):
         assert bool((err <= mlstm_error_bound(w)).all()), float(err.max())
 
 
+def _check_mlstm_on_card(b, h, s, dk, dv, chunk, normalize=True):
+    q, k, v, lf = _mlstm_inputs(b, h, s, dk, dv, seed=s + dk + dv)
+    before = mlstm_launcher.launches
+    got, (c, n) = mlstm_launcher.mlstm_scan_cuda(q, k, v, lf, chunk=chunk,
+                                                 normalize=normalize,
+                                                 return_state=True)
+    want, (wc, wn) = mlstm_scan_ref(q, k, v, lf, normalize=normalize,
+                                    return_state=True)
+    torch.cuda.synchronize()
+    assert mlstm_launcher.launches == before + 1
+    for g, w in ((got, want), (c, wc), (n, wn)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = (g - w).abs()
+        assert bool((err <= mlstm_error_bound(w)).all()), float(err.max())
+
+
+# the edges of the tensor-core design: b, h, s, dk, dv, chunk
+MLSTM_EDGE_CASES = [
+    (1, 2, 40, 30, 50, 16),     # dk and dv not multiples of 4: scalar staging
+    (2, 2, 70, 64, 37, 32),     # dv not a multiple of 4
+    (1, 3, 45, 18, 64, 64),     # dk not a multiple of 4
+    (3, 1, 90, 64, 320, 64),    # 5 column blocks: the last cluster not full
+    (1, 2, 100, 64, 192, 32),   # 3 column blocks
+    (2, 2, 40, 64, 64, 64),     # S < chunk
+    (2, 3, 1, 64, 64, 64),      # S = 1
+    (1, 2, 300, 352, 128, 128),  # chunk 128 at the largest dk that fits
+    (1, 2, 150, 672, 64, 64),   # chunk 64 at the largest dk (TK = 16)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", MLSTM_EDGE_CASES)
+def test_mlstm_kernel_edges_on_card(b, h, s, dk, dv, chunk):
+    _skip_without_card()
+    _check_mlstm_on_card(b, h, s, dk, dv, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,b,h,s,dk,dv,chunk", [
+    (1, 1, 2, 100, 64, 64, 64),     # one column block
+    (2, 1, 3, 100, 64, 128, 64),
+    (2, 2, 2, 50, 48, 192, 64),     # 3 column blocks: the last cluster not full
+    (4, 1, 2, 77, 512, 320, 64),    # 5 column blocks in 2 clusters of 4
+    (8, 2, 4, 77, 512, 512, 64),
+    (1, 1, 1, 260, 64, 512, 128),   # other chunks run alone
+])
+def test_mlstm_kernel_every_cluster_size_on_card(cluster, b, h, s, dk, dv, chunk):
+    """Each cluster size the kernel may take, at a shape whose plan takes
+    it (one wave, the column blocks allowing; chunk 64, the only chunk
+    that shares its scores): the scores of a chunk split over the
+    cluster's CTAs give the same h and state within the bound."""
+    _skip_without_card()
+    plan, _ = mlstm_launcher.kernel_plan(b * h, dk, dv, chunk)
+    assert plan.cluster == cluster, plan
+    _check_mlstm_on_card(b, h, s, dk, dv, chunk, normalize=cluster != 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,cluster", [(c, 1) for c in (16, 32, 128)]
+                         + [(64, c) for c in (1, 2, 4, 8)])
+def test_mlstm_score_tiles_are_owned_once_on_card(chunk, cluster):
+    """The kernel's deal of a chunk's lower-triangular 16 x 8 score tiles
+    (``score_tile`` in the source, the function the kernel calls): each
+    is computed by exactly one warp of the cluster, on that warp's own
+    row tile, within its ``score_slots`` (the instance's NS), and the
+    busiest warp uses every slot; every score row i gets columns 0 .. i."""
+    _skip_without_card()
+    mt, warps = chunk // 16, mlstm_launcher.WARPS
+    slots = mlstm_launcher.score_slots(chunk, cluster)
+    owned, most = {}, 0
+    for rank in range(cluster):
+        for warp in range(warps):
+            tiles = [mlstm_launcher.kernel_score_tile(chunk, cluster, rank, warp, i)
+                     for i in range(slots)]
+            assert mlstm_launcher.kernel_score_tile(chunk, cluster, rank, warp,
+                                                    slots) == -2
+            assert min(tiles) >= -1
+            most = max(most, sum(j >= 0 for j in tiles))
+            for j in tiles:
+                if j >= 0:
+                    owned[(warp % mt, j)] = owned.get((warp % mt, j), 0) + 1
+    want = {(r, j) for r in range(mt) for j in range(2 * (r + 1))}
+    assert set(owned) == want and set(owned.values()) == {1}
+    assert most == slots
+    for i in range(chunk):
+        cols = {8 * j + c for (r, j) in owned if r == i // 16 for c in range(8)}
+        assert set(range(i + 1)) <= cols
+    if chunk != mlstm_launcher.SHARE_CHUNK:  # built for no cluster
+        assert mlstm_launcher.kernel_score_tile(chunk, 2, 0, 0, 0) == -2
+
+
+@pytest.mark.cuda
+def test_mlstm_plan_and_smem_match_the_kernels_on_card():
+    """The Python mirror of the kernel's plan (checked on the CPU by
+    tests/test_torch_mlstm_plan.py) is the plan the built kernel makes
+    with the card's cluster capacities; its grid takes no more waves than
+    the cluster-free one; the shared memory the CPU tests use is the
+    kernel's own."""
+    _skip_without_card()
+    for bh, dk, dv, chunk in ((32, 512, 512, 64), (8, 512, 512, 64),
+                              (256, 512, 512, 64), (3, 64, 320, 64),
+                              (2, 352, 128, 128), (4, 30, 50, 16),
+                              (64, 672, 512, 64), (1, 1, 1, 16)):
+        got, active = mlstm_launcher.kernel_plan(bh, dk, dv, chunk)
+        assert got == mlstm_launcher.plan(bh, dk, dv, chunk, active), (bh, dk, dv)
+        one = mlstm_launcher.plan(bh, dk, dv, chunk, active, cluster=1)
+        assert got.waves <= one.waves
+    for chunk in mlstm_launcher.TILES:
+        for dk in (1, 17, 64, 256, 352, 353, 512, 672, 673, 832, 900):
+            for cluster in mlstm_launcher.CLUSTERS:
+                want = mlstm_launcher.smem_bytes(chunk, dk, cluster)
+                got = mlstm_launcher.kernel_smem_bytes(chunk, dk, cluster)
+                assert got == (want if want <= mlstm_launcher.MAX_SMEM_BYTES
+                               else -1), (chunk, dk, cluster)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,s,hd", [(8, 4, 512, 256), (8, 4, 1, 256),
                                       (2, 4, 50, 8),

@@ -51,7 +51,8 @@ def test_importing_every_module_loads_no_jax():
                                        ROOT / "chip_smoke.py",
                                        ROOT / "tools" / "torch_wire_flips.py",
                                        ROOT / "tools" / "torch_flash_ablation.py",
-                                       ROOT / "tools" / "torch_slstm_ablation.py"]))
+                                       ROOT / "tools" / "torch_slstm_ablation.py",
+                                       ROOT / "tools" / "torch_mlstm_ablation.py"]))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

@@ -126,7 +126,9 @@ def test_tile_and_shared_memory():
     with pytest.raises(ValueError, match="chunk"):
         launcher.tile(256, 1000)
     # the model path: chunk 64 at dk = 512 fits a block; chunk 128 does not
-    assert launcher.smem_bytes(64, 512) == 186624 <= launcher.MAX_SMEM_BYTES
+    assert launcher.smem_bytes(64, 512) == 213008 <= launcher.MAX_SMEM_BYTES
+    # sharing the scores across a cluster takes a second P buffer
+    assert launcher.smem_bytes(64, 512, 4) == 230416 <= launcher.MAX_SMEM_BYTES
     assert launcher.smem_bytes(128, 512) > launcher.MAX_SMEM_BYTES
 
 
