@@ -13,10 +13,12 @@ outside a checkout. Phases, each fatal on failure:
 3. wire codec against plain: the kernel's wrapper on tensors on the card,
    held against its plain PyTorch version (serving shapes, ragged N, an
    all-zero row, ties at the threshold, bf16, every codec, the features
-   the full-width encoders produce, and the training round's message
-   shapes, whose rows span more blocks than the kernel's capped grid),
+   the full-width encoders produce, and the message shapes of a full
+   and of a K = 4 sampled training round, whose rows span more blocks
+   than the kernel's capped grid),
    then timed with CUDA events beside the plain version and the HBM
-   bound;
+   bound, and at its least work, one row of 32 entries (the launch
+   floor);
 4. full-width serving: the ``ServingEngine`` (int8_topk codec) over three
    request mixes on the widest BlendFL model the repository supports
    (MLP encoders, d_hidden=1024, 4 layers, 64x128 features per modality,
@@ -28,9 +30,11 @@ outside a checkout. Phases, each fatal on failure:
 5. the CLI: ``repro_torch.launch.serve_federated --selftest`` serving a
    federation it trains inline on the card (2 rounds, 3 clients);
 6. blend kernel against plain: the BlendAvg blend on the card against its
-   plain version at the test shapes and the training round's leaf shapes,
-   a zero omega and bf16, then timed beside the plain version, the
-   library call ``omega @ stacked`` and the HBM bound;
+   plain version at the test shapes, the training round's leaf shapes
+   and a K = 4 sampled round's ((4, 1,048,576), (5, 2,097,152),
+   (4, 2,097,152), (5, 262,144)), a zero omega and bf16, then timed
+   beside the plain version, the library call ``omega @ stacked`` and
+   the HBM bound;
 7. full-width training: BlendFL rounds (Algorithm 1 with BlendAvg, SGD)
    of 16 clients on the same model width, 8192 training rows: phase
    seconds, finite losses, omegas, blend launches of exactly one per
@@ -40,8 +44,11 @@ outside a checkout. Phases, each fatal on failure:
    way) and the codec's times at the round's message shapes;
 8. card against CPU: the quickstart-shaped federation, 2 rounds from the
    same weights and shuffles on both, then one ``int8_topk`` codec round,
-   within the CPU parity tests' tolerances (the codec round's params at
-   the lossy run-level tolerance);
+   3 async rounds of 2 sampled clients under the ``staleness`` policy
+   (the same ids on both), 2 rounds of scaffold with the adam server
+   optimizer, and 2 median rounds at 4 clients, within the CPU parity
+   tests' tolerances (the codec round's params at the lossy run-level
+   tolerance);
 9. sLSTM cell against plain: the built kernel's partition of each call
    (clusters, rows and units a CTA, shared memory) against
    ``slstm_cell.plan`` with the card's cluster budget, in one wave; the kernel
@@ -88,7 +95,17 @@ outside a checkout. Phases, each fatal on failure:
    launches in prefill and 0 + 12 in each decode step and no other
    kernel, prefill against ``forward``, a profiled prefill and step;
 16. xlstm-350m card against CPU: prefill of 2 x 128 tokens and 4 decode
-   steps, logits and caches within a stated tolerance.
+   steps, logits and caches within a stated tolerance;
+17. full-width sampled and strategy rounds: phase 7's federation at K = 4
+   of its 16 clients: 3 async BlendAvg rounds (uniform policy; wall time
+   beside phase 7's full round, ids, staleness, ``last_round`` moving
+   only at the participants, finite losses, one blend launch a leaf of
+   each group that blended) and a profiled one, a round under each other
+   policy, a round of each strategy and server optimizer (fedavg,
+   fedprox, scaffold, fedavg with adam and with momentum, median and
+   trimmed_mean launching no blend, krum one a leaf) with its peak
+   device memory, and a sampled async ``int8_topk`` round (one codec
+   launch a leaf each way).
 
 Phase 4's streams are fixed (``MIX_SALT`` stands in for the per-process
 ``hash(mix)``), so every run serves the same requests; its check accepts
@@ -319,8 +336,8 @@ def kernel_cases(torch, feats):
                         ("encoder_h_b", feats[1], 256)]:
         for codec, (kk, q) in codecs.items():
             cases.append((f"{label}/{codec}", x, k if kk else None, q))
-    # the training round's messages: uplink (C=16, leaf) and downlink
-    # (1, leaf) at k = a quarter of the row, in f32 and bf16; a 1M-wide row
+    # the training round's messages: uplink (C=16 or K=4, leaf) and
+    # downlink (1, leaf) at k = a quarter of the row, in f32 and bf16; a 1M-wide row
     # needs 4096 blocks of 256 threads, so the kernel's grid (capped at 256
     # blocks a row) loops over each row 16 times
     for l, n in TRAIN_CODEC_SHAPES:
@@ -406,13 +423,19 @@ def blend_inputs(torch, l, n, seed, dtype=None, zero=True):
 
 
 # the wire codec's messages in a full-width codec round: the largest
-# uplink leaf, the largest downlink leaf, and f_*/in/w
-TRAIN_CODEC_SHAPES = ((16, 1048576), (1, 2097152), (16, 131072))
+# uplink leaf, the largest downlink leaf, and f_*/in/w; then the uplink
+# leaves of a K = 4 sampled round (phase 17), the K rows of each
+TRAIN_CODEC_SHAPES = ((16, 1048576), (1, 2097152), (16, 131072),
+                      (4, 1048576), (4, 131072))
 
 # the leaf shapes of one full-width round's blends (C = 16 clients, the
 # server head stacked onto g_M), then the CPU tests' shapes
 BLEND_MAIN_SHAPES = ((16, 1048576), (17, 2097152), (16, 131072), (16, 1024))
 BLEND_TEST_SHAPES = ((3, 1000), (5, 2048), (2, 33), (7, 4097))
+# a K = 4 sampled round's blends: the largest leaves of the A and B
+# groups (K rows) and of g_M (K + 1 rows, the server head stacked on),
+# then two more row counts of that order
+BLEND_SAMPLED_SHAPES = ((4, 1048576), (5, 2097152), (4, 2097152), (5, 262144))
 
 
 def check_blend(torch, blaunch, bref, x, omega):
@@ -506,6 +529,16 @@ def blended(logs) -> list:
     return [m for m in "ABM" if float(np.sum(logs[f"omega_{m}"])) > 0]
 
 
+def training_data(spec):
+    """The full-width federation's data (phases 7 and 17): 8192 training
+    rows over 16 clients, a 1024-row validation and test set."""
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import train_val_test
+
+    tr, va, te = train_val_test(spec, 8192, 1024, 1024, seed=0)
+    return partition(tr, 16, seed=1), va, te
+
+
 def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
                         mem_rate) -> dict:
     """Phase 7: BlendFL rounds at full width on the card (see the module
@@ -515,12 +548,9 @@ def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
     from repro_torch.common.tree import tree_leaves
     from repro_torch.core.engine import CLIENT_GROUPS
     from repro_torch.core.federation import FedConfig, Federation, evaluate_global
-    from repro_torch.core.partitioner import partition
-    from repro_torch.data.synthetic import train_val_test
 
     t0 = time.perf_counter()
-    tr, va, te = train_val_test(spec, 8192, 1024, 1024, seed=0)
-    clients = partition(tr, 16, seed=1)
+    clients, va, te = training_data(spec)
     cfg = FedConfig(n_clients=16, rounds=3, lr=1e-2, batch_size=64)
     fed = Federation.init(torch.Generator().manual_seed(0), cfg, spec, ecfg,
                           clients, va, device="cuda")
@@ -639,50 +669,111 @@ def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
     return {"launches": launches, "round_wall_s": walls, "breakdown": bd,
             "codec_launches": codec_launches, "codec_round_s": codec_wall,
-            "codec_times": codec_times, "evaluate_global": ev}
+            "codec_times": codec_times, "evaluate_global": ev,
+            "data": (clients, va)}
 
 
-def card_vs_cpu(torch, rounds=2, **kw) -> dict:
+def server_moments(srv) -> dict:
+    """A server optimizer's state as it is compared: m, the step t, and
+    adam's v as sqrt(v), a weighted L2 norm of the blended deltas that
+    moves no more than they do (v itself, about 0.01 * delta^2, lies
+    below any atol that suits the deltas)."""
+    from repro_torch.common.tree import tree_map
+
+    out = {"m": srv["m"], "t": srv["t"]}
+    if "v" in srv:
+        out["sqrt_v"] = tree_map(lambda v: v.sqrt(), srv["v"])
+    return out
+
+
+def card_vs_cpu(torch, rounds=2, data_seed=0, **kw) -> dict:
     """Phase 8: the quickstart-shaped federation on the card and on the
     CPU, from the same weights and shuffles (both draw them from
     CPU generators seeded alike), held to the CPU parity tolerances;
-    ``kw`` goes to ``FedConfig``. Every BlendAvg delta of this
-    configuration lies at least 4e-3 from 0 on the CPU, well clear of
-    what the card's rounding can move, so the omega masks agree."""
+    ``kw`` goes to ``FedConfig`` (3 clients unless it says otherwise),
+    ``data_seed`` to the data.
+    A sampled round's ids must be equal on both. The smallest BlendAvg
+    delta of the CPU run is printed: a delta within the card's rounding
+    of 0 could flip an omega mask (ROADMAP fault (d)). After an adam
+    server step the params' atol is scaled by server_lr / SERVER_EPS, the
+    step's largest gain on a small delta. SCAFFOLD's control variates are
+    held to rtol 1e-4, atol 1e-3, since SCAFFOLD divides the trained
+    weights' difference by steps * lr; the server optimizer's m, sqrt(v)
+    and step to the params' tolerance without adam's gain, which in an
+    async round a straggler's stale base carries into the blended delta
+    (the tolerances of tests/test_torch_strategies.py and
+    tests/_torch_parity.server_moments)."""
+    import repro_torch.core.federation as fed_mod
     from repro_torch.common.tree import tree_leaves
     from repro_torch.convert import params_to_numpy
+    from repro_torch.core.aggregate import SERVER_EPS
     from repro_torch.core.encoders import EncoderConfig
     from repro_torch.core.federation import FedConfig, Federation, evaluate_global
     from repro_torch.core.partitioner import partition
     from repro_torch.data.synthetic import make_task, train_val_test
 
     spec = make_task("smnist")
-    tr, va, te = train_val_test(spec, 500, 300, 300)
-    clients = partition(tr, 3, frac_paired=0.4, frac_fragmented=0.3,
-                        frac_partial=0.3)
-    cfg = FedConfig(n_clients=3, rounds=rounds, lr=1e-2, batch_size=64, **kw)
+    tr, va, te = train_val_test(spec, 500, 300, 300, seed=data_seed)
+    cfg = FedConfig(**{"n_clients": 3, "rounds": rounds, "lr": 1e-2,
+                       "batch_size": 64, **kw})
+    clients = partition(tr, cfg.n_clients, frac_paired=0.4,
+                        frac_fragmented=0.3, frac_partial=0.3)
     lossy = cfg.codec != "none"
+    atol = PARAM_ATOL
+    if cfg.server_opt == "adam":
+        atol *= cfg.server_lr / SERVER_EPS
     ecfg = EncoderConfig(d_hidden=48, n_layers=2)
     feds = [Federation.init(torch.Generator().manual_seed(0), cfg, spec, ecfg,
                             clients, va, device=dev) for dev in ("cuda", "cpu")]
+    weights, margins = fed_mod.blendavg_weights, []
+
+    def recording(scores, global_score, **k):  # the CPU run's deltas
+        d = np.asarray(scores, np.float64) - global_score
+        margins.append(float(np.abs(d[np.isfinite(d)]).min(initial=np.inf)))
+        return weights(scores, global_score, **k)
+
     worst = {"loss": 0.0, "omega": 0.0}
+    sampled = []
     for r in range(cfg.rounds):
-        card, cpu = (f.round() for f in feds)
+        card = feds[0].round()
+        fed_mod.blendavg_weights = recording
+        try:
+            cpu = feds[1].round()
+        finally:
+            fed_mod.blendavg_weights = weights
+        if "sampled" in cpu:
+            check(np.array_equal(card["sampled"], cpu["sampled"]),
+                  f"round {r}: card sampled {card['sampled']}, cpu "
+                  f"{cpu['sampled']}")
+            sampled.append(card["sampled"].tolist())
         for k in ("loss_partial", "loss_vfl", "loss_paired"):
+            if np.isnan(cpu[k]):  # no rows took part in this phase
+                check(np.isnan(card[k]), f"round {r} {k}: card {card[k]}")
+                continue
             rel = abs(card[k] - cpu[k]) / abs(cpu[k])
             worst["loss"] = max(worst["loss"], rel)
             check(np.isfinite(card[k]) and rel <= LOSS_RTOL,
                   f"round {r} {k}: card {card[k]} cpu {cpu[k]}")
         for m in "ABM":
+            if f"omega_{m}" not in cpu:
+                continue
             a, b = np.asarray(card[f"omega_{m}"]), np.asarray(cpu[f"omega_{m}"])
             worst["omega"] = max(worst["omega"], float(np.abs(a - b).max()))
             check(np.allclose(a, b, rtol=0, atol=OMEGA_ATOL)
                   and (a.sum() == 0) == (b.sum() == 0),
                   f"round {r} omega_{m}: card {a} cpu {b}")
-    trees = [("global params", [f.global_models for f in feds])]
+    trees = [("global params", [f.global_models for f in feds], atol)]
     if lossy:
-        trees.append(("downlink residual", [f.resid_down for f in feds]))
-    for name, (ta, tb) in trees:
+        trees.append(("downlink residual", [f.resid_down for f in feds], atol))
+    states = [f.strat_state or {} for f in feds]
+    if "c_local" in states[1]:
+        trees.append(("control variates", [{k: st[k] for k in (
+            "c_global", "c_local")} for st in states], 1e-3))
+    if "srv" in states[1]:
+        trees.append(("server optimizer", [server_moments(st["srv"])
+                                           for st in states],
+                      atol if cfg.async_mode else PARAM_ATOL))
+    for name, (ta, tb), tol in trees:
         pairs = list(zip(tree_leaves(params_to_numpy(ta)),
                          tree_leaves(params_to_numpy(tb))))
         d = np.concatenate([np.abs(a - b).ravel() for a, b in pairs])
@@ -693,17 +784,174 @@ def card_vs_cpu(torch, rounds=2, **kw) -> dict:
             check(d.max() <= LOSSY_MAX_ABS and share >= LOSSY_SHARE,
                   f"{name}: card vs CPU max {d.max()}, share {share}")
         else:
-            check(all(np.allclose(a, b, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+            check(all(np.allclose(a, b, rtol=PARAM_RTOL, atol=tol)
                       for a, b in pairs),
                   f"{name}: card vs CPU beyond tolerance")
+    for f in feds[1:]:
+        check(np.array_equal(feds[0].last_round, f.last_round)
+              and np.array_equal(feds[0].part_count, f.part_count),
+              "last_round / part_count differ card vs CPU")
     ea, eb = (evaluate_global(f, te) for f in feds)
     worst["eval"] = max(abs(ea[k] - eb[k]) for k in ea)
     if not lossy:
         check(worst["eval"] <= EVAL_ATOL, f"evaluate_global: card {ea} cpu {eb}")
-    print(f"card vs CPU, {cfg.rounds} round(s), codec {cfg.codec}: "
+    print(f"card vs CPU, {cfg.rounds} round(s), {kw or 'blendavg'}: "
           f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} }; "
-          f"multimodal AUROC {ea['multimodal_auroc']:.4f}")
+          f"multimodal AUROC {ea['multimodal_auroc']:.4f}; smallest BlendAvg "
+          f"delta {min(margins, default=float('nan')):.3g}"
+          + (f"; sampled {sampled}" if sampled else ""))
     return worst
+
+
+
+# Phase 17: K = 4 of the 16 clients a round. The strategies' runs, each
+# one round: (label, FedConfig knobs).
+SAMPLED_K = 4
+SAMPLED_STRATEGIES = (
+    ("fedavg", dict(strategy="fedavg")),
+    ("fedprox", dict(strategy="fedprox", fedprox_mu=0.01)),
+    ("scaffold", dict(strategy="scaffold")),
+    ("fedavg+adam", dict(strategy="fedavg", server_opt="adam")),
+    ("fedavg+momentum", dict(strategy="fedavg", server_opt="momentum")),
+    ("median", dict(strategy="median")),
+    ("trimmed_mean", dict(strategy="trimmed_mean", n_malicious=1)),
+    ("krum", dict(strategy="krum", n_malicious=1)),
+)
+SAMPLED_POLICIES = ("round_robin", "staleness", "omega_ema", "data_volume")
+
+
+def vfl_live(fed, ids) -> bool:
+    """Whether any aligned VFL row has both owners among ``ids`` (else a
+    sampled round has no VFL batch and its ``loss_vfl`` is NaN)."""
+    host = fed.data["vfl_host"]
+    on = np.zeros(fed.cfg.n_clients, bool)
+    on[ids] = True
+    return bool((on[host["gather_a"] // host["nfa"]]
+                 & on[host["gather_b"] // host["nfb"]]).any())
+
+
+def expected_blends(fed, logs, leaves) -> int:
+    """Blend launches a round should make: one a leaf of each group that
+    blended. BlendAvg blends a group where some omega is positive; the
+    weighted strategies and krum blend every group that ran (fedavg's
+    path blends, then keeps the global where no weight is positive);
+    median and trimmed_mean reduce by order statistics and blend none."""
+    scfg = fed.engine.cfg.strategy
+    if scfg.name in ("median", "trimmed_mean"):
+        return 0
+    if scfg.score_based:
+        return sum(leaves[m] for m in blended(logs))
+    return sum(leaves[m] for m in "ABM" if f"omega_{m}" in logs)
+
+
+def sampled_training(torch, spec, ecfg, data, counted, full_round_s) -> dict:
+    """Phase 17: full-width sampled and strategy rounds on the card (the
+    federation of phase 7 at K = 4): async BlendAvg rounds, the other
+    participation policies, every strategy and server optimizer, and a
+    sampled async int8_topk round. Every count is set to 0 just before
+    each round and read just after it."""
+    import dataclasses
+    import gc
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.engine import CLIENT_GROUPS
+    from repro_torch.core.federation import FedConfig, Federation
+
+    clients, va = data
+    base_cfg = FedConfig(n_clients=16, rounds=1, lr=1e-2, batch_size=64,
+                         n_sampled=SAMPLED_K)
+    full = float(np.median(full_round_s))
+    totals = {name: 0 for name in counted}
+    out = {"runs": {}, "full_round_s": full}
+
+    def run(label, rounds=1, keep=False, **kw):
+        cfg = dataclasses.replace(base_cfg, rounds=rounds, **kw)
+        gc.collect()  # the last run's federation (its timed phases hold it)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the kept async federation
+        fed = Federation.init(torch.Generator().manual_seed(0), cfg, spec,
+                              ecfg, clients, va, device="cuda")
+        leaves = group_leaves(tree_leaves, fed.global_models)
+        n_msg = len(tree_leaves({k: fed.global_models[k] for k in CLIENT_GROUPS}))
+        secs = timed_phases(torch, fed)
+        rec = {"rounds": []}
+        for r in range(rounds):
+            before = fed.last_round.copy()
+            for m in counted.values():
+                m.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = fed.round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {name: m.launches for name, m in counted.items()}
+            for name, n in got.items():
+                totals[name] += n
+            ids = np.asarray(logs["sampled"])
+            stale = np.maximum(r - 1 - before[ids], 0)
+            losses = {k: logs[k] for k in ("loss_partial", "loss_vfl", "loss_paired")}
+            want = {name: 0 for name in counted}
+            want["blend_params"] = expected_blends(fed, logs, leaves)
+            if cfg.codec != "none":
+                want["wire_codec"] = 2 * n_msg
+            changed = np.flatnonzero(fed.last_round != before)
+            print(f"{label} round {r}: {wall:.3f} s wall ({wall / full:.3f} of a "
+                  f"full round); phases { {k: round(v, 4) for k, v in secs.items()} } "
+                  f"s; ids {ids.tolist()}, staleness {stale.tolist()}; "
+                  f"losses { {k: round(v, 5) for k, v in losses.items()} }; "
+                  f"launches {got}")
+            if fed.engine.cfg.strategy.score_based:
+                print("    omegas " + "; ".join(
+                    f"{m} {np.round(np.asarray(logs[f'omega_{m}']), 4).tolist()}"
+                    for m in "ABM" if f"omega_{m}" in logs))
+            check(len(ids) == SAMPLED_K and len(np.unique(ids)) == SAMPLED_K,
+                  f"{label}: sampled {ids}")
+            check(np.isfinite(losses["loss_partial"])
+                  and np.isfinite(losses["loss_paired"])
+                  and np.isfinite(losses["loss_vfl"]) == vfl_live(fed, ids),
+                  f"{label} round {r}: losses {losses}")
+            check(got == want, f"{label} round {r}: launches {got}, want {want}")
+            if cfg.async_mode:
+                check(np.array_equal(changed, np.sort(ids))
+                      and (fed.last_round[ids] == r).all(),
+                      f"{label} round {r}: last_round moved at {changed}, "
+                      f"sampled {ids}")
+            else:
+                check((fed.last_round == r).all(), f"{label}: last_round")
+            rec["rounds"].append({"wall_s": wall, "phase_s": dict(secs),
+                                  "ids": ids.tolist(),
+                                  "staleness": stale.tolist(),
+                                  "launches": got, "losses": losses})
+        rec["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        rec["last_round"] = fed.last_round.tolist()
+        print(f"{label}: peak memory {rec['peak_gb']:.2f} GB; last_round "
+              f"{rec['last_round']}")
+        out["runs"][label] = rec
+        return fed if keep else None
+
+    fed = run("async blendavg", rounds=3, keep=True, async_mode=True)
+    stale = [s for r in out["runs"]["async blendavg"]["rounds"]
+             for s in r["staleness"]]
+    check(max(stale) > 0, "three async rounds saw no stale client")
+    for policy in SAMPLED_POLICIES:
+        run(f"policy {policy}", async_mode=True, policy=policy)
+    for label, kw in SAMPLED_STRATEGIES:
+        run(label, **kw)
+    run("async int8_topk", async_mode=True, codec="int8_topk")
+    out["launches"] = totals
+    walls = [r["wall_s"] for r in out["runs"]["async blendavg"]["rounds"]]
+    # the async run's next round under the profiler, last, so that no
+    # timed round follows the profiler: busy time and idle share
+    out["breakdown"] = device_breakdown(lambda: fed.round(), walls[-1],
+                                        match=("blend_kernel",))
+    print_breakdown("async blendavg, a profiled round", out["breakdown"])
+    del fed
+    print(f"K = {SAMPLED_K} async BlendAvg rounds {np.round(walls, 4).tolist()} s "
+          f"against the full round's {full:.4f} s (median of phase 7): "
+          f"{np.round(np.asarray(walls) / full, 3).tolist()}; launches over "
+          f"the phase {totals}")
+    return out
 
 
 MIXES = ("all_multimodal", "mixed_unimodal", "vfl_heavy")
@@ -1620,24 +1868,34 @@ def main() -> int:
         feats = [enc.encoder_apply(models[f], torch.from_numpy(
             xg.standard_normal((64, 64, 128)).astype(np.float32)).cuda(), ecfg)
             for f in ("f_A", "f_B")]
-    max_err = 0.0
+    max_err, train_errs = 0.0, {}
     cases = kernel_cases(torch, feats)
     for label, x, k, quantize in cases:
         err = check_kernel(torch, ops, launcher, ref, x, k, quantize)
         max_err = max(max_err, err)
+        if label.startswith("train_"):  # per message shape and dtype
+            shape = label.split("/")[0]
+            train_errs[shape] = max(train_errs.get(shape, 0.0), err)
     print(f"{len(cases)} cases match the plain version; max abs err {max_err:.3g}")
+    print(f"training message shapes, max abs err over the codecs: {train_errs}")
     del cases, x  # the training-shape messages: free before phase 7
     timings = [time_codec(torch, ops, launcher, ref, x, k, mem_rate)
                for x, k in ((feats[0][:2].contiguous(), 256),
                             (feats[0][:16].contiguous(), 256),
                             (feats[0], 256),
                             (torch.rand(64, 25, device="cuda"), 7))]
-    for t in timings:
+    # the launch floor: the kernel at its least work, one row of 32
+    floor = time_codec(torch, ops, launcher, ref,
+                       torch.rand(1, 32, device="cuda"), 8, mem_rate)
+    for t in timings + [floor]:
         print(f"wire_codec {t['shape']} k={t['k']}: kernel {t['ms']:.5f} ms, "
               f"plain {t['plain_ms']:.5f} ms, roundtrip {t['roundtrip_ms']:.5f} "
               f"ms; device {t['device_ms']} ms, plain device "
               f"{t['plain_device_ms']} ms; bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']})")
+    print(f"wire_codec launch floor: {floor['ms']:.5f} ms a call, device "
+          f"{floor['device_ms']} ms at (1, 32); (64, 1024): {timings[2]['ms']:.5f} "
+          f"ms, device {timings[2]['device_ms']} ms")
 
     phase("4 full-width serving")
     counted = {"wire_codec": launcher, "blend_params": blaunch,
@@ -1670,7 +1928,7 @@ def main() -> int:
 
     phase("6 blend kernel against plain")
     blend_err, n_cases = 0.0, 0
-    for l, n in BLEND_TEST_SHAPES + BLEND_MAIN_SHAPES:
+    for l, n in BLEND_TEST_SHAPES + BLEND_MAIN_SHAPES + BLEND_SAMPLED_SHAPES:
         for dtype in (None, torch.bfloat16):
             x, omega = blend_inputs(torch, l, n, seed=7 * l + n, dtype=dtype)
             blend_err = max(blend_err, check_blend(torch, blaunch, bref, x, omega))
@@ -1682,7 +1940,7 @@ def main() -> int:
     print(f"{n_cases + 1} cases match the plain version within the bound; "
           f"max abs err {blend_err:.3g}")
     blend_times = [time_blend(torch, blaunch, bref, l, n, mem_rate)
-                   for l, n in BLEND_MAIN_SHAPES]
+                   for l, n in BLEND_MAIN_SHAPES + BLEND_SAMPLED_SHAPES[:2]]
     for t in blend_times:
         print(f"blend {t['shape']}: kernel {t['ms']:.5f} ms (device "
               f"{t['device_ms']} ms), plain {t['plain_ms']:.5f} ms (device "
@@ -1699,6 +1957,12 @@ def main() -> int:
     phase("8 card against CPU")
     card_vs_cpu(torch)
     card_vs_cpu(torch, rounds=1, codec="int8_topk")
+    # a telemetry policy that reads no float omega: both sample alike;
+    # data seed 5 keeps every BlendAvg delta of the CPU run 1.5e-3 from 0
+    card_vs_cpu(torch, rounds=3, data_seed=5, n_sampled=2, async_mode=True,
+                policy="staleness")
+    card_vs_cpu(torch, strategy="scaffold", server_opt="adam")
+    card_vs_cpu(torch, n_clients=4, strategy="median")
 
     phase("9 sLSTM cell against plain")
     slstm_err, slstm_times = slstm_phase(torch, slaunch, sref, mem_rate)
@@ -1726,6 +1990,11 @@ def main() -> int:
     phase("16 xlstm-350m card against CPU")
     lm["card_vs_cpu"] = lm_card_vs_cpu(torch, lm_params)
     del lm_params
+    torch.cuda.empty_cache()
+
+    phase("17 full-width sampled and strategy rounds")
+    sampled = sampled_training(torch, spec, ecfg, train.pop("data"), counted,
+                               train["round_wall_s"])
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -1741,7 +2010,9 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes the fused pass
         "shape": main_t["shape"], "per_shape": timings,
         "train_codec_launches": train["codec_launches"],
-        "train_shapes": train["codec_times"],
+        "train_codec_launches_sampled": sampled["launches"]["wire_codec"],
+        "train_shapes": train["codec_times"], "launch_floor": floor,
+        "max_abs_err_train_shapes": train_errs,
     }
     main_b = blend_times[1]  # (17, 2097152): g_M/mix/w with the server head
     blend_record = {
@@ -1753,6 +2024,7 @@ def main() -> int:
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
         "library_ms": main_b["library_ms"],  # omega @ stacked (cuBLAS)
         "shape": main_b["shape"], "per_shape": blend_times,
+        "launches_sampled_rounds": sampled["launches"]["blend_params"],
     }
     main_s = slstm_times[-1]  # (64, 4, 64, 256): a full capacity batch
     slstm_record = {

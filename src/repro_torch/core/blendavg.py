@@ -24,10 +24,14 @@ import torch
 from repro_torch.common.tree import tree_leaves, tree_stack
 from repro_torch.kernels.blendavg.ops import blend_params
 
+# Async BlendAvg's omega damping exponent a in (1 + staleness)^-a (the
+# reference's default).
+STALENESS_EXP = 0.5
+
 
 def blendavg_weights(scores: Sequence[float], global_score: float,
                      staleness: Sequence[float] | None = None,
-                     staleness_exp: float = 0.5) -> np.ndarray:
+                     staleness_exp: float = STALENESS_EXP) -> np.ndarray:
     """Eq. 9-10: masked, normalized improvement weights. Zero vector if no
     candidate improves on the global model.
 

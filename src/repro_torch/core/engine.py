@@ -13,10 +13,11 @@ once:
     phase 3  ``paired_step``     masked per-client multimodal SGD/AdamW
     phase 4  ``blend_stacked``   Eq. 11 over the stacked candidates with
              / ``fedavg_update`` omegas the caller computed (Eq. 9-10 run
-                                 on the host, ``core.blendavg``), through
+             / ``robust_update`` on the host, ``core.blendavg``), through
                                  the CUDA blend kernel
                                  (``repro_torch.kernels.blendavg``; its
-                                 plain version on the CPU)
+                                 plain version on the CPU); the robust
+                                 reducers' order statistics in plain ops
 
 Where the reference maps one client's function over the C axis with
 ``jax.vmap``, the port writes the batch out: every dense layer of a
@@ -33,6 +34,17 @@ gradients and are excluded from the parameter AND moment update
 Shuffles: the reference draws its per-client permutations with
 ``jax.random`` inside the jitted phase; the port's phase drivers take the
 permutation indices as an input (``Federation`` draws them).
+
+Partial participation rides on the same stacked representation: a
+K-of-C sampled round gathers K rows of every stacked leaf
+(``core.state``), and the phase functions run at leading axis K. The
+VFL step takes optional row weights ``w`` for aligned rows whose owner
+was not sampled.
+
+Aggregation strategies (``core.aggregate``) enter through
+``_strat_grads`` (the FedProx and SCAFFOLD client terms, applied to the
+client groups of every phase, never to the server head) and the round
+hooks ``scaffold_round`` and ``server_update``.
 
 Nothing here updates a tensor in place: every step returns new trees,
 so a caller may hold on to an earlier tree (the codec's round base).
@@ -269,14 +281,27 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
         return masked_mean(
             task_loss_rows(fusion_apply_stacked(g_m, h_a, h_b), y, kind), mask)
 
+    # ---- strategy corrections (core.aggregate) ----
+
+    def _strat_grads(grads, params, strat):
+        """Apply the configured client-side strategy terms (FedProx
+        proximal pull, SCAFFOLD control-variate correction) to a phase's
+        grads; ``strat`` (anchor / c_global / c_local trees) is sliced
+        down to the groups being stepped. The default adds no ops."""
+        if strat is None or not cfg.strategy.client_active:
+            return grads
+        sub = {k: {g: v[g] for g in grads} for k, v in strat.items()}
+        return aggregate.client_term(cfg.strategy, grads, params, sub)
+
     # ---- phase 1: local unimodal training (lines 3-8) ----
 
-    def unimodal_step(models, opt_state, batch):
+    def unimodal_step(models, opt_state, batch, strat=None):
         """One optimizer step for ALL clients x BOTH modalities.
 
         batch: xa (C,B,Sa,Fa) ya (C,B,O) ma (C,B)  + xb/yb/mb. Returns
         (models', opt_state', info) where info carries per-client masked
-        losses and row counts for both modalities.
+        losses and row counts for both modalities. ``strat`` is the
+        optional per-client strategy block (see ``_strat_grads``).
         """
         params = {k: models[k] for k in UNIMODAL_GROUPS}
 
@@ -288,6 +313,7 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
             return torch.sum(la) + torch.sum(lb), (la, na, lb, nb)
 
         (la, na, lb, nb), grads = _value_and_grad(total, params)
+        grads = _strat_grads(grads, params, strat)
         flags = {"f_A": na > 0, "g_A": na > 0, "f_B": nb > 0, "g_B": nb > 0}
         sub = _state_subset(opt_state, UNIMODAL_GROUPS)
         new_params, sub = _masked_opt_update(opt, grads, sub, params, flags)
@@ -296,12 +322,15 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
 
     # ---- phase 2: split (VFL) training on fragmented rows (lines 9-23) ----
 
-    def vfl_step(models, server_gmv, opt_state, srv_state, batch):
+    def vfl_step(models, server_gmv, opt_state, srv_state, batch, strat=None):
         """One joint split-training step over pre-aligned fragmented rows.
 
         batch: xa (C,Nfa,Sa,Fa) xb (C,Nfb,Sb,Fb); gather_a/gather_b (n,)
         index the flattened (C*Nf) latent rows into server alignment order
         (the PSI output); y (n,O); part_a/part_b (C,) bool participation.
+        An optional row weight ``w`` (n,) masks aligned rows out of the
+        split loss: a K-of-C sampled round keeps the alignment's static
+        row count and gives weight 0 to rows whose owner was not sampled.
         All grads come from ONE joint backward of the split loss, which is
         definitionally the upload/download exchange.
         """
@@ -314,21 +343,36 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
             h_b = h_b.reshape(-1, h_b.shape[-1])[batch["gather_b"]]
             rows = task_loss_rows(fusion_apply(p["srv"], h_a, h_b),
                                   batch["y"], kind)
-            loss = torch.mean(rows)
+            if batch.get("w") is None:
+                loss = torch.mean(rows)
+            else:
+                loss = masked_mean(rows, batch["w"])[0]
             return loss, loss
 
         loss, g = _value_and_grad(joint, {"c": params, "srv": server_gmv})
+        # strategy terms correct the CLIENT encoders only: the server's
+        # g_M^v head never leaves the server
+        grads = _strat_grads(g["c"], params, strat)
         flags = {"f_A": batch.get("part_a"), "f_B": batch.get("part_b")}
         sub = _state_subset(opt_state, VFL_GROUPS)
-        new_params, sub = _masked_opt_update(opt, g["c"], sub, params, flags)
+        new_params, sub = _masked_opt_update(opt, grads, sub, params, flags)
         upd_srv, new_srv = srv_opt.update(g["srv"], srv_state, server_gmv)
         new_gmv = optim.apply_updates(server_gmv, upd_srv)
+        if batch.get("w") is not None:
+            # with NO live aligned row the grads are exactly zero, but
+            # AdamW would still decay the server head's moments, advance
+            # its step and weight-decay its params: keep the old head
+            live = torch.any(batch["w"] > 0)
+            new_gmv = tree_map(lambda n, o: torch.where(live, n, o),
+                               new_gmv, server_gmv)
+            new_srv = tree_map(lambda n, o: torch.where(live, n, o),
+                               new_srv, srv_state)
         return (dict(models, **new_params), new_gmv,
                 _state_merge(opt_state, sub), new_srv, loss)
 
     # ---- phase 3: local multimodal training on paired rows (lines 24-29) ----
 
-    def paired_step(models, opt_state, batch):
+    def paired_step(models, opt_state, batch, strat=None):
         """One optimizer step on paired rows for all paired clients.
 
         batch: xa (C,B,Sa,Fa) xb (C,B,Sb,Fb) y (C,B,O) m (C,B).
@@ -341,6 +385,7 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
             return torch.sum(l), (l, n)
 
         (l, n), grads = _value_and_grad(total, params)
+        grads = _strat_grads(grads, params, strat)
         flags = {k: n > 0 for k in PAIRED_GROUPS}
         sub = _state_subset(opt_state, PAIRED_GROUPS)
         new_params, sub = _masked_opt_update(opt, grads, sub, params, flags)
@@ -366,6 +411,43 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
         return tree_map(lambda b, g: torch.where(tot > 0, b, g.to(b.dtype)),
                         blended, global_tree)
 
+    def robust_update(global_tree, stacked_cands, weights):
+        """Byzantine-robust phase-4 reduction (``cfg.strategy`` one of
+        ``aggregate.ROBUST``). Returns (new_global, omega), omega the
+        effective per-candidate weights (telemetry, not blending):
+
+        - krum: the multi-Krum survivor mask multiplies the volume
+          weights, and the product goes through ``fedavg_update`` (the
+          blend kernel); at n_malicious = 0 the mask is all ones, so krum
+          is fedavg bit for bit;
+        - trimmed_mean at trim 0 is ``fedavg_update`` with uniform weights;
+        - median / trimmed_mean (trim > 0) are coordinate-wise order
+          statistics, no blend; omega reports the uniform 1/n.
+        """
+        scfg = cfg.strategy
+        weights = _f32(weights, tree_leaves(stacked_cands)[0].device)
+        n = weights.shape[0]
+        if scfg.name == "krum":
+            w = weights * aggregate.krum_mask(stacked_cands, scfg.n_malicious)
+            new = fedavg_update(global_tree, stacked_cands, w)
+            tot = torch.sum(w)
+            omega = torch.where(tot > 0, w / torch.clamp_min(tot, 1e-12),
+                                torch.zeros_like(w))
+            return new, omega
+        uniform = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                             device=weights.device)
+        if scfg.name == "trimmed_mean":
+            if scfg.n_malicious == 0:
+                return fedavg_update(global_tree, stacked_cands,
+                                     uniform), uniform
+            new = aggregate.trimmed_mean_tree(stacked_cands, scfg.n_malicious)
+        elif scfg.name == "median":
+            new = aggregate.coordinate_median_tree(stacked_cands)
+        else:
+            raise ValueError(f"not a robust strategy: {scfg.name!r}")
+        new = tree_map(lambda b, g: b.to(g.dtype), new, global_tree)
+        return new, uniform
+
     def broadcast(global_tree, n_clients: int):
         """LocalUpdate (line 32): every client adopts the blended weights,
         each in storage of its own."""
@@ -387,13 +469,28 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
         return wire.downlink_roundtrip(new_global, prev_global, resid,
                                        cfg.codec)
 
+    # ---- aggregation-strategy round hooks (core.aggregate) ----
+
+    def scaffold_round(c_global, c_local, anchor, trained, steps, frac):
+        """SCAFFOLD Option-II control-variate update for the round's
+        participants, scaled by the client lr this engine steps with."""
+        return aggregate.scaffold_round(cfg.strategy, c_global, c_local,
+                                        anchor, trained, steps, cfg.lr, frac)
+
+    def server_update(srv, new_global, prev_global):
+        """Server-side FedAdam / momentum on the blended delta."""
+        return aggregate.server_update(cfg.strategy, srv, new_global,
+                                       prev_global)
+
     return SimpleNamespace(
         opt=opt, srv_opt=srv_opt, unimodal_loss=unimodal_loss,
         paired_loss=paired_loss,
         unimodal_step=unimodal_step, vfl_step=vfl_step, paired_step=paired_step,
         blend_stacked=blend_stacked, fedavg_update=fedavg_update,
+        robust_update=robust_update,
         broadcast=broadcast, codec_uplink=codec_uplink,
-        codec_downlink=codec_downlink)
+        codec_downlink=codec_downlink, scaffold_round=scaffold_round,
+        server_update=server_update)
 
 
 # ------------------------------------------------------- in-host driver ----
@@ -414,6 +511,8 @@ class RoundEngine:
         self.vfl_phase = self.fns.vfl_step
         self.codec_uplink = self.fns.codec_uplink
         self.codec_downlink = self.fns.codec_downlink
+        self.scaffold_round = self.fns.scaffold_round
+        self.server_update = self.fns.server_update
 
     def init_opt_state(self, stacked_models):
         return self.opt.init({k: stacked_models[k] for k in CLIENT_GROUPS})
@@ -423,11 +522,13 @@ class RoundEngine:
 
     # -- phase drivers --
 
-    def unimodal_phase(self, models, opt_state, data, perms):
+    def unimodal_phase(self, models, opt_state, data, perms, strat=None):
         """data: xa (C,N,Sa,Fa) ya (C,N,O) ma (C,N) + xb/yb/mb, with N a
         multiple of the batch size; perms: (idx_a, idx_b), each (C, N)
         int64 per-client row orders on the data's device. Returns the mean
-        of valid per-(client, batch, modality) losses (NaN if none)."""
+        of valid per-(client, batch, modality) losses (NaN if none).
+        ``strat`` is the optional per-client strategy block, constant
+        across the minibatches."""
         B = self.batch_size
         c, n_rows = data["ma"].shape
         idx_a, idx_b = perms
@@ -441,7 +542,7 @@ class RoundEngine:
                      "xb": data["xb"][rows, sb], "yb": data["yb"][rows, sb],
                      "mb": data["mb"][rows, sb]}
             models, opt_state, info = self.fns.unimodal_step(models, opt_state,
-                                                             batch)
+                                                             batch, strat)
             infos.append(info)
         st = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
         valid_a = (st["n_a"] > 0).float()
@@ -450,7 +551,7 @@ class RoundEngine:
         cnt = torch.sum(valid_a) + torch.sum(valid_b)
         return models, opt_state, _mean_or_nan(tot, cnt)
 
-    def paired_phase(self, models, opt_state, data, perm):
+    def paired_phase(self, models, opt_state, data, perm, strat=None):
         """data: xa/xb (C,N,S,F) y (C,N,O) m (C,N); perm (C, N) int64."""
         B = self.batch_size
         c, n_rows = data["m"].shape
@@ -460,7 +561,7 @@ class RoundEngine:
             sel = perm[:, t * B:(t + 1) * B]
             batch = {k: data[k][rows, sel] for k in ("xa", "xb", "y", "m")}
             models, opt_state, info = self.fns.paired_step(models, opt_state,
-                                                           batch)
+                                                           batch, strat)
             infos.append(info)
         loss = torch.stack([i["loss"] for i in infos])
         valid = (torch.stack([i["n"] for i in infos]) > 0).float()

@@ -1,5 +1,5 @@
-"""BlendFL federation — Algorithm 1 over in-host clients, full
-participation (port of ``src/repro/core/federation.py``).
+"""BlendFL federation — Algorithm 1 over in-host clients (port of
+``src/repro/core/federation.py``).
 
 One ``round`` is the paper's training epoch:
 
@@ -16,18 +16,36 @@ engine's phases each round, and runs the server-side BlendAvg scoring
 (AUROC/AUPRC on the representative validation set, a host metric); the
 weighted blend goes through the engine's blend kernel.
 
+Partial participation (``FedConfig.n_sampled`` = K > 0): each round a
+host-side participation policy (``FedConfig.policy``,
+``repro_torch.core.schedule``) picks K of the C clients from the
+telemetry (round, ``last_round``, omega EMA, participation counts, row
+counts), drawing from ``host_rng``, a ``np.random.default_rng(cfg.seed)``
+as in the reference, so that both pick the same ids. Their rows of the
+stacked models, optimizer state and batches are gathered to (K, ...)
+trees (``core.state``), trained, and the moments scattered back. The VFL
+alignment keeps its row count; rows whose owner was not sampled get row
+weight 0. With ``FedConfig.async_mode`` only the participants receive
+the broadcast (stragglers keep stale weights, tracked by ``last_round``),
+and a candidate trained from an s-rounds-old base has its Eq. 9-10 omega
+damped by (1 + s)^-``core.blendavg.STALENESS_EXP``.
+
+Strategies (``FedConfig.strategy``, ``core.aggregate``): blendavg,
+fedavg, fedprox, scaffold and the robust median, trimmed_mean and krum,
+each with an optional server optimizer (adam, momentum) on the blended
+delta.
+
 Shuffles: each phase takes its per-client row orders from ``perms``, a
 callable ``perms(phase, n_clients, n_rows)`` that returns, for
-``phase="unimodal"``, a pair of (C, n_rows) index arrays (modality A,
-then B) and, for ``phase="paired"``, one. The default draws them with
-``torch.randperm`` from a CPU ``torch.Generator`` seeded with
-``cfg.seed``; a parity test passes the reference's draws instead.
+``phase="unimodal"``, a pair of (n_clients, n_rows) index arrays
+(modality A, then B) and, for ``phase="paired"``, one; ``n_clients`` is
+K in a sampled round. The default draws them with ``torch.randperm``
+from a CPU ``torch.Generator`` seeded with ``cfg.seed``; a parity test
+passes the reference's draws instead.
 
-Not ported yet (ROADMAP.md, modules to port, item 9): K-of-C sampled
-and async rounds, participation policies, and every strategy but
-blendavg and fedavg; nor (item 17) training the ``recurrent`` and
-``transformer`` encoders, which the port only serves. Asking for one
-raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md, modules to port, item 17): training the
+``recurrent`` and ``transformer`` encoders, which the port only serves.
+Asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,7 +61,8 @@ from repro_torch.common.tree import tree_map, tree_unstack
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import aggregate as strategies
 from repro_torch.core import codec as wire
-from repro_torch.core import vfl
+from repro_torch.core import schedule, vfl
+from repro_torch.core import state as rstate
 from repro_torch.core.blendavg import blendavg_weights
 from repro_torch.core.encoders import (
     EncoderConfig,
@@ -65,13 +84,13 @@ from repro_torch.metrics import auprc, auroc
 from repro_torch.models.common import dense
 
 
+# Decay of the per-client omega EMA that the participation policies read
+# (the reference's default).
+EMA_BETA = 0.9
+
+
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """The reference's federation configuration, less the knobs of what
-    the port does not run (async staleness damping, the omega-EMA
-    policy's beta, the robust reducers' ``n_malicious``, the server
-    optimizer's rate) and the ``aggregator`` alias of ``strategy``."""
-
     n_clients: int = 3
     rounds: int = 20
     local_epochs: int = 1  # local passes between aggregations (Fig. 2 x-axis)
@@ -81,26 +100,45 @@ class FedConfig:
     momentum: float = 0.0  # sgd momentum
     weight_decay: float = 0.0  # adamw decoupled weight decay
     schedule: str = "constant"  # constant | cosine (over all optimizer steps)
-    strategy: str = "blendavg"  # blendavg | fedavg (the rest raise)
-    fedprox_mu: float = 0.0  # > 0 only with fedprox (which raises)
-    server_opt: str = "none"  # none (adam | momentum raise)
+    # Aggregation strategy (``core.aggregate``): blendavg | fedavg |
+    # fedprox | scaffold | median | trimmed_mean | krum.
+    strategy: str = "blendavg"
+    fedprox_mu: float = 0.0
+    # Server-side optimizer on the blended delta, before broadcast.
+    server_opt: str = "none"  # none | adam | momentum
+    server_lr: float = 1.0
+    n_malicious: int = 1  # the robust reducers' assumed attacker budget f
     # Which local rows feed phase-1 unimodal training: "all" (every
     # locally held x_m row) or "partial" (only the partial(D_m) subset).
     unimodal_data: str = "all"  # all | partial
     metric: str = "auroc"
     seed: int = 0
-    # K-of-C sampled and async rounds, and their participation policies,
-    # are not ported: anything but these defaults raises at init.
     n_sampled: int = 0  # K-of-C sampling; 0 = full participation
+    # Async rounds (requires n_sampled): only sampled clients receive the
+    # broadcast; the rest keep stale weights and their later candidates
+    # get staleness-damped omegas.
     async_mode: bool = False
-    policy: str = "uniform"
+    policy: str = "uniform"  # participation policy (core.schedule)
     codec: str = "none"  # none | int8 | topk | int8_topk
     topk_frac: float = 0.25  # entries kept per leaf by sparsifying codecs
+
+    def __post_init__(self):
+        k = self.n_sampled or self.n_clients
+        f = self.n_malicious
+        if self.strategy == "krum" and k < f + 3:
+            raise ValueError(
+                f"krum needs at least n_malicious + 3 = {f + 3} candidates "
+                f"per round, got K={k}")
+        if self.strategy == "trimmed_mean" and k < 2 * f + 1:
+            raise ValueError(
+                f"trimmed_mean needs at least 2 * n_malicious + 1 = "
+                f"{2 * f + 1} candidates per round, got K={k}")
 
     @property
     def strategy_cfg(self) -> strategies.StrategyConfig:
         return strategies.make_strategy(self.strategy, self.fedprox_mu,
-                                        self.server_opt)
+                                        self.server_opt, self.server_lr,
+                                        self.n_malicious)
 
 
 # ------------------------------------------------------------- evaluation --
@@ -190,8 +228,10 @@ def _build_vfl_data(clients: list[ClientData], spec: TaskSpec, device):
     (PSI stand-in) as gather indices into the flattened (C*Nf) latent rows.
 
     Only rows in the cross-client overlap are kept: rows whose partner
-    modality never arrived can't train. Returns the device batch, or
-    None when no row aligns.
+    modality never arrived can't train. Returns (device batch, host
+    alignment metadata), or (None, None) when no row aligns; the metadata
+    (numpy gather indices and per-side padded row counts) lets a sampled
+    round remap the alignment onto the gathered K-client layout.
     """
     c = len(clients)
     overlap = fragmented_overlap(clients)
@@ -217,19 +257,21 @@ def _build_vfl_data(clients: list[ClientData], spec: TaskSpec, device):
     pos_b = np.nonzero(ids_b >= 0)[0]
     _, ia, ib = vfl.align_by_id(ids_a[pos_a], ids_b[pos_b])
     if len(ia) == 0:
-        return None
+        return None, None
     gather_a = pos_a[ia]
     gather_b = pos_b[ib]
     part_a = np.zeros(c, bool)
     part_b = np.zeros(c, bool)
     part_a[np.unique(gather_a // nfa)] = True
     part_b[np.unique(gather_b // nfb)] = True
-    return {"xa": xa, "xb": xb,
-            "gather_a": torch.as_tensor(gather_a, device=device),
-            "gather_b": torch.as_tensor(gather_b, device=device),
-            "y": ya.reshape(c * nfa, -1)[torch.as_tensor(gather_a, device=device)],
-            "part_a": torch.as_tensor(part_a, device=device),
-            "part_b": torch.as_tensor(part_b, device=device)}
+    batch = {"xa": xa, "xb": xb,
+             "gather_a": torch.as_tensor(gather_a, device=device),
+             "gather_b": torch.as_tensor(gather_b, device=device),
+             "y": ya.reshape(c * nfa, -1)[torch.as_tensor(gather_a, device=device)],
+             "part_a": torch.as_tensor(part_a, device=device),
+             "part_b": torch.as_tensor(part_b, device=device)}
+    host = {"gather_a": gather_a, "gather_b": gather_b, "nfa": nfa, "nfb": nfb}
+    return batch, host
 
 
 def generator_perms(seed: int) -> Callable:
@@ -269,11 +311,27 @@ class Federation:
     data: dict  # device-resident padded stacked batches per phase
     device: torch.device
     perms: Callable  # perms(phase, n_clients, n_rows): per-client row orders
+    # partial-participation round state
+    host_rng: np.random.Generator = None  # host-side client-sampling RNG
+    last_round: np.ndarray = None  # (C,) round each client last synced
     round_no: int = 0  # index of the NEXT round to run
+    # participation-policy telemetry (core.schedule): EMA of each
+    # client's BlendAvg omega and participation counts, updated every
+    # aggregation
+    policy_obj: object = None  # schedule.Policy
+    omega_ema: np.ndarray = None  # (C,) float64
+    part_count: np.ndarray = None  # (C,) int64
     # wire-codec error-feedback residuals (None when cfg.codec == "none"):
     # stacked per-client uplink rows + one server-side downlink tree
     resid_up: dict = None
     resid_down: dict = None
+    # aggregation-strategy state (None for stateless strategies):
+    # SCAFFOLD's c_global / c_local (stacked) and/or the server
+    # optimizer's moments under "srv"
+    strat_state: dict = None
+    # optimizer steps each model group takes a round (SCAFFOLD's
+    # Option-II 1/(steps*lr) scaling)
+    scaffold_steps: dict = None
 
     @property
     def models(self) -> list[dict]:
@@ -301,11 +359,10 @@ class Federation:
         if cfg.policy != "uniform" and not cfg.n_sampled:
             raise ValueError(f"policy={cfg.policy!r} requires n_sampled > 0 "
                              "(full participation has nothing to schedule)")
-        if cfg.n_sampled:
-            raise NotImplementedError(
-                "K-of-C sampled and async rounds are not ported yet "
-                "(ROADMAP.md, modules to port, item 9); use n_sampled=0")
-        scfg = cfg.strategy_cfg  # raises for the strategies not ported
+        # validates the policy name even when n_sampled == 0
+        policy_obj = schedule.make_policy(cfg.policy, cfg.n_clients,
+                                          cfg.n_sampled or cfg.n_clients)
+        scfg = cfg.strategy_cfg
         device = resolve_device(device)
         if base is None:
             base = init_client_models(gen, spec, ecfg, device=device)
@@ -313,31 +370,44 @@ class Federation:
             base = params_from_numpy(tree_map(
                 lambda x: x.detach().cpu().numpy()
                 if isinstance(x, torch.Tensor) else x, base), device)
+        vfl_batch, vfl_host = _build_vfl_data(clients, spec, device)
         data = {
             "uni": _build_unimodal_data(clients, cfg, spec, device),
             "paired": _build_paired_data(clients, cfg, spec, device),
-            "vfl": _build_vfl_data(clients, spec, device),
+            "vfl": vfl_batch,
+            "vfl_host": vfl_host,
             "val": {"x_a": _on(val.x_a, device), "x_b": _on(val.x_b, device)},
             # the server head's FedAvg weight (Eq. 8 candidate)
             "n_overlap": len(fragmented_overlap(clients)),
         }
-        steps_per_epoch = (data["uni"]["ma"].shape[1] // cfg.batch_size
-                           + (data["paired"]["m"].shape[1] // cfg.batch_size
-                              if data["paired"] is not None else 0)
-                           + (1 if data["vfl"] is not None else 0))
+        # optimizer steps a round: encoders step in all three phases,
+        # unimodal heads in phase 1, the fusion head in phase 3 (one step
+        # a minibatch; the VFL exchange is one full-batch step)
+        nb_uni = data["uni"]["ma"].shape[1] // cfg.batch_size
+        nb_paired = (data["paired"]["m"].shape[1] // cfg.batch_size
+                     if data["paired"] is not None else 0)
+        nb_vfl = 1 if data["vfl"] is not None else 0
         engine = RoundEngine(
             EngineConfig(ecfg=ecfg, kind=spec.kind, optimizer=cfg.optimizer,
                          lr=cfg.lr, momentum=cfg.momentum,
                          weight_decay=cfg.weight_decay, schedule=cfg.schedule,
-                         total_steps=cfg.rounds * cfg.local_epochs * steps_per_epoch,
+                         total_steps=(cfg.rounds * cfg.local_epochs
+                                      * (nb_uni + nb_paired + nb_vfl)),
                          # the server head steps once per epoch (one
                          # full-batch VFL exchange), not once per minibatch
                          server_total_steps=cfg.rounds * cfg.local_epochs,
                          codec=wire.make_codec(cfg.codec, cfg.topk_frac),
                          strategy=scfg),
             cfg.batch_size)
+        e = float(cfg.local_epochs)
+        scaffold_steps = {
+            "f_A": e * (nb_uni + nb_vfl + nb_paired),
+            "f_B": e * (nb_uni + nb_vfl + nb_paired),
+            "g_A": e * nb_uni, "g_B": e * nb_uni, "g_M": e * nb_paired,
+        }
         # all clients start from the same global init (standard FL practice)
         stacked = engine.fns.broadcast(base, cfg.n_clients)
+        groups = {k: base[k] for k in CLIENT_GROUPS}
         codec_on = cfg.codec != "none"
         return Federation(
             cfg=cfg, spec=spec, ecfg=ecfg, clients=clients, engine=engine,
@@ -347,44 +417,69 @@ class Federation:
             srv_opt_state=engine.init_server_opt_state(base["g_M"]),
             val=val, data=data, device=device,
             perms=perms if perms is not None else generator_perms(cfg.seed),
+            host_rng=np.random.default_rng(cfg.seed),
+            last_round=np.full(cfg.n_clients, -1, np.int64),
+            policy_obj=policy_obj,
+            omega_ema=np.zeros(cfg.n_clients),
+            part_count=np.zeros(cfg.n_clients, np.int64),
             resid_up=wire.zeros_like_tree(stacked) if codec_on else None,
-            resid_down=(wire.zeros_like_tree(
-                {k: base[k] for k in CLIENT_GROUPS}) if codec_on else None),
+            resid_down=wire.zeros_like_tree(groups) if codec_on else None,
+            strat_state=(strategies.init_state(
+                scfg, {k: stacked[k] for k in CLIENT_GROUPS}, groups)
+                if scfg.stateful else None),
+            scaffold_steps=scaffold_steps,
         )
 
     def _index(self, p) -> torch.Tensor:
         return torch.tensor(np.asarray(p), dtype=torch.int64,
                             device=self.device)
 
-    # ---- phases 1-3: one engine call each ----
+    # ---- phases 1-3: one engine call each, on the round's (C or K) rows ----
 
-    def _unimodal_phase(self) -> float:
-        c, n_rows = self.data["uni"]["ma"].shape
+    def _strat_block(self, anchor, idxd=None):
+        """Per-participant strategy block for the phase functions (None
+        for strategies with no client-side term): each participant's
+        round-start weights anchor the FedProx pull; SCAFFOLD's c_local
+        rows gather with the sampled ids like opt moments."""
+        scfg = self.engine.cfg.strategy
+        if not scfg.client_active:
+            return None
+        strat = {}
+        if scfg.prox:
+            strat["anchor"] = anchor
+        if scfg.control:
+            sub = strategies.sample_state(self.strat_state, idxd)
+            strat["c_global"] = sub["c_global"]
+            strat["c_local"] = sub["c_local"]
+        return strat
+
+    def _unimodal_phase(self, models, opt_state, data, strat=None):
+        c, n_rows = data["ma"].shape
         idx_a, idx_b = self.perms("unimodal", c, n_rows)
-        self.stacked, self.opt_state, loss = self.engine.unimodal_phase(
-            self.stacked, self.opt_state, self.data["uni"],
-            (self._index(idx_a), self._index(idx_b)))
-        return float(loss)
+        models, opt_state, loss = self.engine.unimodal_phase(
+            models, opt_state, data, (self._index(idx_a), self._index(idx_b)),
+            strat)
+        return models, opt_state, float(loss)
 
-    def _vfl_phase(self) -> float:
+    def _vfl_phase(self, models, opt_state, batch, strat=None):
         """Full-batch split exchange, exactly as Alg. 1: every aligned
-        fragmented row goes through ONE joint forward/backward."""
-        if self.data["vfl"] is None:
-            return float("nan")
-        (self.stacked, self.server_gmv, self.opt_state, self.srv_opt_state,
-         loss) = self.engine.vfl_phase(self.stacked, self.server_gmv,
-                                       self.opt_state, self.srv_opt_state,
-                                       self.data["vfl"])
-        return float(loss)
+        fragmented row goes through ONE joint forward/backward. The loss
+        is NaN when no aligned row takes part."""
+        if batch is None:
+            return models, opt_state, float("nan")
+        (models, self.server_gmv, opt_state, self.srv_opt_state,
+         loss) = self.engine.vfl_phase(models, self.server_gmv, opt_state,
+                                       self.srv_opt_state, batch, strat)
+        return models, opt_state, float(loss)
 
-    def _paired_phase(self) -> float:
-        if self.data["paired"] is None:
-            return float("nan")
-        c, n_rows = self.data["paired"]["m"].shape
+    def _paired_phase(self, models, opt_state, data, strat=None):
+        if data is None:
+            return models, opt_state, float("nan")
+        c, n_rows = data["m"].shape
         perm = self._index(self.perms("paired", c, n_rows))
-        self.stacked, self.opt_state, loss = self.engine.paired_phase(
-            self.stacked, self.opt_state, self.data["paired"], perm)
-        return float(loss)
+        models, opt_state, loss = self.engine.paired_phase(
+            models, opt_state, data, perm, strat)
+        return models, opt_state, float(loss)
 
     # ---- phase 4: aggregation + broadcast ----
 
@@ -400,45 +495,68 @@ class Federation:
         return out
 
     def _blend_group(self, global_tree, stacked_cands, scores, global_score,
-                     fedavg_weights):
+                     fedavg_weights, staleness=None):
         """Shared scored/weighted blend dispatch; the blend itself runs
         through the engine's kernel path. BlendAvg consumes the Eq. 9-10
-        scores (a group where no candidate improves keeps the global model
-        and launches nothing); fedavg consumes the data-volume
-        ``fedavg_weights``. Returns (new_global, omega)."""
+        scores, damped by ``staleness`` in async rounds (a group where no
+        candidate improves keeps the global model and launches nothing);
+        every other strategy consumes ``fedavg_weights`` (data volumes
+        for fedavg / fedprox, uniform presence for scaffold). The robust
+        strategies go to the engine's ``robust_update``: they treat every
+        candidate as present. Returns (new_global, omega)."""
         fns = self.engine.fns
-        if self.engine.cfg.strategy.score_based:
-            omega = blendavg_weights(scores, global_score)
+        scfg = self.engine.cfg.strategy
+        if scfg.score_based:
+            omega = blendavg_weights(scores, global_score, staleness=staleness)
             if omega.sum() == 0:  # no improvement anywhere -> keep global
                 return global_tree, omega
             return fns.blend_stacked(stacked_cands, omega), omega
         w = np.asarray(fedavg_weights, np.float64)
+        if scfg.robust:
+            new, omega = fns.robust_update(global_tree, stacked_cands, w)
+            return new, omega.cpu().numpy()
         new = fns.fedavg_update(global_tree, stacked_cands, w)
         tot = w.sum()
         return new, (w / tot if tot > 0 else w)
 
-    def _aggregate(self, base=None) -> dict:
-        """Phase 4 over the candidates ``self.stacked``. With a wire codec
-        configured, ``base`` is the tree the clients started the round
-        from: candidates arrive as decoded uplink deltas, and the new
-        global leaves as a decoded downlink delta."""
+    def _aggregate(self, cand_stacked, idx=None, base=None) -> dict:
+        """Phase 4 over the trained candidates ``cand_stacked`` (the C
+        clients, or the K sampled ones with ``idx`` their ids: only they
+        compete, and in async mode their omegas are staleness-damped).
+        With a wire codec configured, ``base`` is the tree the
+        participants started the round from: candidates arrive as decoded
+        uplink deltas, and the new global leaves as a decoded downlink
+        delta."""
         cfg, val, fns = self.cfg, self.val, self.engine.fns
         ecfg, kind, metric = self.ecfg, self.spec.kind, self.cfg.metric
         x_a, x_b = self.data["val"]["x_a"], self.data["val"]["x_b"]
+        scfg = self.engine.cfg.strategy
+        idxd = None if idx is None else self._index(idx)
         info = {}
 
-        cand_stacked = self.stacked
         codec_on = self.resid_up is not None
-        # the pre-round global tree: the codec's downlink reference
+        # the pre-round global tree: the codec's downlink reference and
+        # the server optimizer's delta base
         prev_glob = {k: self.global_models[k] for k in CLIENT_GROUPS}
         if codec_on:
-            assert base is not None, "codec rounds must pass the uplink base"
-            cand_stacked, self.resid_up = self.engine.codec_uplink(
-                cand_stacked, base, self.resid_up)
+            resid = rstate.sample_block(
+                "codec", {"resid_up": self.resid_up}, idxd)["resid_up"]
+            cand_stacked, resid = self.engine.codec_uplink(cand_stacked, base,
+                                                           resid)
+            self.resid_up = rstate.scatter_block(
+                "codec", {"resid_up": self.resid_up}, {"resid_up": resid},
+                idxd)["resid_up"]
+        sub_clients = (self.clients if idx is None
+                       else [self.clients[i] for i in idx])
+        stale = None
+        if idx is not None:
+            # rounds the candidate's base global model is behind; fresh
+            # participants (synced at the end of the previous round) are 0
+            stale = np.maximum(self.round_no - 1 - self.last_round[idx], 0)
 
-        blend = self.engine.cfg.strategy.score_based
+        blend = scfg.score_based  # the weighted strategies never read scores
         for mod, x_val in (("A", x_a), ("B", x_b)):
-            present = [cd.has_a if mod == "A" else cd.has_b for cd in self.clients]
+            present = [cd.has_a if mod == "A" else cd.has_b for cd in sub_clients]
             if not any(present):
                 continue
             cand = {"f": cand_stacked[f"f_{mod}"], "g": cand_stacked[f"g_{mod}"]}
@@ -450,16 +568,18 @@ class Federation:
                     self.engine.uni_scores(cand["f"], cand["g"], x_val), present)
                 gscore = eval_unimodal(glob["f"], glob["g"], x_val, val.y, ecfg,
                                        kind, metric)
-            else:  # fedavg: data-volume weights
-                ns = [cd.n_samples() if p else 0
-                      for cd, p in zip(self.clients, present)]
-            blended, omega = self._blend_group(glob, cand, scores, gscore, ns)
+            else:  # scaffold: uniform over participants; else data volumes
+                ns = [(1 if scfg.control else cd.n_samples()) if p else 0
+                      for cd, p in zip(sub_clients, present)]
+            blended, omega = self._blend_group(glob, cand, scores, gscore, ns,
+                                               staleness=stale)
             info[f"omega_{mod}"] = omega
             self.global_models[f"f_{mod}"] = blended["f"]
             self.global_models[f"g_{mod}"] = blended["g"]
 
-        # multimodal: client g_M heads + the server's g_M^v (Eq. 8)
-        present = [cd.has_paired for cd in self.clients] + [True]
+        # multimodal: participating client g_M heads + the server's g_M^v
+        # (Eq. 8); the server head trains every round, so it is never stale
+        present = [cd.has_paired for cd in sub_clients] + [True]
         cand = stack_with(cand_stacked["g_M"], self.server_gmv)
         f_a, f_b = self.global_models["f_A"], self.global_models["f_B"]
         scores = gscore = ns = None
@@ -468,15 +588,29 @@ class Federation:
                 self.engine.multi_scores(f_a, f_b, cand, x_a, x_b), present)
             gscore = eval_multimodal(f_a, f_b, self.global_models["g_M"],
                                      x_a, x_b, val.y, ecfg, kind, metric)
+        elif scfg.control:  # present heads uniformly, the server's if any overlap
+            ns = [1 if cd.has_paired else 0 for cd in sub_clients]
+            ns.append(1 if self.data["n_overlap"] else 0)
         else:
             # paired counts per client, the server head carrying the VFL
             # overlap size — zero when no rows overlap
-            ns = [len(cd.paired_a) if cd.has_paired else 0 for cd in self.clients]
+            ns = [len(cd.paired_a) if cd.has_paired else 0 for cd in sub_clients]
             ns.append(self.data["n_overlap"])
+        stale_m = None if stale is None else np.append(stale, 0.0)
         blended, omega = self._blend_group(self.global_models["g_M"], cand,
-                                           scores, gscore, ns)
+                                           scores, gscore, ns, staleness=stale_m)
         info["omega_M"] = omega
         self.global_models["g_M"] = blended
+
+        # server-side optimizer on the blended delta, before anything is
+        # broadcast: clients (and the downlink codec) see the adjusted
+        # global, and the server's g_M^v re-seeds from it
+        if scfg.server_opt != "none":
+            glob = {k: self.global_models[k] for k in CLIENT_GROUPS}
+            glob, srv = self.engine.server_update(self.strat_state["srv"],
+                                                  glob, prev_glob)
+            self.strat_state = dict(self.strat_state, srv=srv)
+            self.global_models.update(glob)
         # the server's split-training head re-seeds from the TRUE blend
         # (it never crosses a wire), codec or not
         gmv_true = self.global_models["g_M"]
@@ -490,23 +624,128 @@ class Federation:
             self.global_models.update(glob)
 
         # LocalUpdate: broadcast blended models back (line 32). Clients keep
-        # their optimizer moments; only the weights are replaced.
+        # their optimizer moments; only the weights are replaced. Async
+        # rounds broadcast to the participants only.
         glob_groups = {k: self.global_models[k] for k in CLIENT_GROUPS}
-        self.stacked = dict(fns.broadcast(glob_groups, cfg.n_clients))
+        if idx is not None and cfg.async_mode:
+            self.stacked = dict(rstate.scatter_block(
+                "models", self.stacked, fns.broadcast(glob_groups, len(idx)),
+                idxd))
+            self.last_round[np.asarray(idx)] = self.round_no
+        else:
+            self.stacked = dict(fns.broadcast(glob_groups, cfg.n_clients))
+            self.last_round[:] = self.round_no
         self.server_gmv = tree_map(torch.clone, gmv_true)
+
+        # policy telemetry: fold this round's per-client omega (mean over
+        # the heads that competed; omega_M's server slot excluded) into
+        # the EMA at the participants' slots, count participation
+        heads = [np.asarray(info[k], np.float64)
+                 for k in ("omega_A", "omega_B") if k in info]
+        heads.append(np.asarray(info["omega_M"], np.float64)[: len(sub_clients)])
+        cli_omega = np.mean(np.stack(heads), axis=0)
+        sel = np.arange(cfg.n_clients) if idx is None else np.asarray(idx)
+        b = EMA_BETA
+        self.omega_ema[sel] = b * self.omega_ema[sel] + (1 - b) * cli_omega
+        self.part_count[sel] += 1
         return info
+
+    def _scaffold_update(self, anchor, trained, idxd=None):
+        """SCAFFOLD Option-II control-variate update on the TRUE trained
+        weights (before any lossy uplink codec touches the candidates)."""
+        if not self.engine.cfg.strategy.control:
+            return
+        st = self.strat_state
+        cl = strategies.sample_state(st, idxd)["c_local"]
+        k = self.cfg.n_clients if idxd is None else int(idxd.shape[0])
+        new_cg, new_cl = self.engine.scaffold_round(
+            st["c_global"], cl, anchor, trained, self.scaffold_steps,
+            k / self.cfg.n_clients)
+        self.strat_state = strategies.scatter_state(
+            st, {**st, "c_global": new_cg, "c_local": new_cl}, idxd)
+
+    # ---- K-of-C sampled rounds ----
+
+    def _sampled_vfl_batch(self, idx: np.ndarray, idxd: torch.Tensor):
+        """Remap the precomputed VFL alignment onto the gathered K-client
+        layout. The aligned row count stays as it is: rows whose a- or
+        b-side owner was not sampled keep their slot with row weight 0
+        (and index 0). Returns None when no aligned row survives."""
+        if self.data["vfl"] is None:
+            return None
+        host, full = self.data["vfl_host"], self.data["vfl"]
+        nfa, nfb = host["nfa"], host["nfb"]
+        ga, gb = host["gather_a"], host["gather_b"]
+        k = len(idx)
+        pos = np.full(self.cfg.n_clients, -1)
+        pos[idx] = np.arange(k)
+        oa, ob = ga // nfa, gb // nfb
+        keep = (pos[oa] >= 0) & (pos[ob] >= 0)
+        if not keep.any():
+            return None
+        dev = self.device
+        return {
+            "xa": rstate.sample_clients(full["xa"], idxd),
+            "xb": rstate.sample_clients(full["xb"], idxd),
+            "gather_a": self._index(np.where(keep, pos[oa] * nfa + ga % nfa, 0)),
+            "gather_b": self._index(np.where(keep, pos[ob] * nfb + gb % nfb, 0)),
+            "y": full["y"],
+            "w": torch.as_tensor(keep.astype(np.float32), device=dev),
+            "part_a": torch.as_tensor(
+                np.bincount(pos[oa[keep]], minlength=k) > 0, device=dev),
+            "part_b": torch.as_tensor(
+                np.bincount(pos[ob[keep]], minlength=k) > 0, device=dev),
+        }
+
+    def _sched_telemetry(self) -> dict:
+        """What the participation policy sees: round index, omega EMA,
+        participation counts, last_round, and static data volumes."""
+        return {"round": self.round_no, "last_round": self.last_round,
+                "omega_ema": self.omega_ema, "part_count": self.part_count,
+                "rows": np.asarray([cd.n_samples() for cd in self.clients],
+                                   np.float64)}
 
     # ---- round / fit ----
 
     def round(self) -> dict:
-        """One global training epoch (Algorithm 1 body)."""
+        """One global training epoch (Algorithm 1 body). With
+        ``cfg.n_sampled`` the policy picks the K ids from the telemetry,
+        the round gathers those clients' stacked rows, runs the phases at
+        leading axis K, scatters optimizer state back, and aggregates
+        over the K candidates."""
         logs = {}
-        base = self.stacked  # codec uplink base (pre-round weights)
+        idx = idxd = None
+        if self.cfg.n_sampled:
+            idx = self.policy_obj.select(self.host_rng, self._sched_telemetry())
+            idxd = self._index(idx)
+            logs["sampled"] = idx
+
+        def rows(tree):
+            return tree if tree is None or idxd is None else \
+                rstate.sample_clients(tree, idxd)
+
+        models = rows(self.stacked)
+        # codec uplink base AND strategy anchor: the weights each
+        # participant starts the round from
+        base = models
+        strat = self._strat_block(base, idxd)
+        opt_state = rstate.sample_block("opt", self.opt_state, idxd)
+        uni, paired = rows(self.data["uni"]), rows(self.data["paired"])
+        vfl_batch = (self.data["vfl"] if idx is None
+                     else self._sampled_vfl_batch(idx, idxd))
         for _ in range(self.cfg.local_epochs):
-            logs["loss_partial"] = self._unimodal_phase()
-            logs["loss_vfl"] = self._vfl_phase()
-            logs["loss_paired"] = self._paired_phase()
-        logs.update(self._aggregate(base=base))
+            models, opt_state, logs["loss_partial"] = self._unimodal_phase(
+                models, opt_state, uni, strat)
+            models, opt_state, logs["loss_vfl"] = self._vfl_phase(
+                models, opt_state, vfl_batch, strat)
+            models, opt_state, logs["loss_paired"] = self._paired_phase(
+                models, opt_state, paired, strat)
+        # moments ride home with their clients; the trained weights only
+        # matter as aggregation candidates (broadcast decides what sticks)
+        self.opt_state = rstate.scatter_block("opt", self.opt_state, opt_state,
+                                              idxd)
+        self._scaffold_update(base, models, idxd)
+        logs.update(self._aggregate(models, idx=idx, base=base))
         self.round_no += 1
         return logs
 

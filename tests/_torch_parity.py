@@ -155,3 +155,169 @@ def engine_matches_jax_engine(s, mix, codec):
                 "wire_messages", "wire_bytes"):
         assert teng.stats[key] == jeng.stats[key], key
     assert teng.stats["wire_bytes"] == sum(r.bytes for r in tres)
+
+
+# ------------------------------------------------------------ training --
+
+# The training parity runs: smnist, MLP encoders, batch 64, lr 1e-2
+# (the sampled-round and strategy runs: 4 clients, d_hidden=32, one
+# hidden layer).
+FED_SPLIT = dict(frac_paired=0.4, frac_fragmented=0.3, frac_partial=0.3)
+LOSS_RTOL = 1e-4
+OMEGA_ATOL = 1e-3
+PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+DELTA_MARGIN = 1e-3
+
+
+def federation_pair(monkeypatch, rounds, *, data_seed=0, n_clients=4,
+                    n_train=400, n_val=200, n_test=10, d_hidden=32,
+                    n_layers=1, **kw):
+    """The reference's and the port's ``Federation`` side by side for
+    ``rounds`` rounds, from the reference's initial weights and with its
+    shuffles replayed (``JaxKeyPerms``); ``kw`` goes to both
+    ``FedConfig``s (lr 1e-2 unless it says otherwise). Returns (per-round
+    (jax logs, port logs), the two federations, every (scores, global
+    score) the reference's BlendAvg scored, the omega EMA each of its
+    policy selections saw, the two test sets)."""
+    import importlib
+
+    import torch
+
+    from repro.core import encoders as jenc
+    from repro.core import partitioner as jpart
+    from repro.core.federation import FedConfig as JFedConfig
+    from repro.core.federation import Federation as JFederation
+    from repro.data import synthetic as jsyn
+    from repro_torch.core import encoders as tenc
+    from repro_torch.core import partitioner as tpart
+    from repro_torch.core.federation import FedConfig, Federation
+    from repro_torch.data import synthetic as tsyn
+
+    # the module, not the ``federation`` names that ``repro.core`` exports
+    jfed_mod = importlib.import_module("repro.core.federation")
+    weights = jfed_mod.blendavg_weights
+    seen, emas = [], []
+
+    def recording(scores, global_score, **k):
+        seen.append((np.asarray(scores, np.float64), float(global_score)))
+        return weights(scores, global_score, **k)
+
+    monkeypatch.setattr(jfed_mod, "blendavg_weights", recording)
+    cfg = {"n_clients": n_clients, "rounds": rounds, "lr": 1e-2,
+           "batch_size": 64, **kw}
+    jtr, jva, jte = jsyn.train_val_test(jsyn.make_task("smnist"), n_train,
+                                        n_val, n_test, seed=data_seed)
+    spec = tsyn.make_task("smnist")
+    ttr, tva, tte = tsyn.train_val_test(spec, n_train, n_val, n_test,
+                                        seed=data_seed)
+    jf = JFederation.init(jax.random.PRNGKey(0), JFedConfig(**cfg), spec,
+                          jenc.EncoderConfig(d_hidden=d_hidden, n_layers=n_layers),
+                          jpart.partition(jtr, n_clients, **FED_SPLIT), jva)
+    tf = Federation.init(torch.Generator(), FedConfig(**cfg), spec,
+                         tenc.EncoderConfig(d_hidden=d_hidden, n_layers=n_layers),
+                         tpart.partition(ttr, n_clients, **FED_SPLIT), tva,
+                         device="cpu",
+                         base=jax.tree.map(np.asarray, jf.global_models),
+                         perms=JaxKeyPerms(0))
+    select = jf.policy_obj.select
+
+    def recording_select(rng, telemetry):
+        emas.append(np.array(telemetry["omega_ema"]))
+        return select(rng, telemetry)
+
+    jf.policy_obj.select = recording_select
+    logs = [(jf.round(), tf.round()) for _ in range(rounds)]
+    return logs, (jf, tf), seen, emas, (jte, tte)
+
+
+def assert_margins(seen, emas=()):
+    """Every BlendAvg delta the reference scored lies at least
+    DELTA_MARGIN from 0, and every two omega EMAs a policy compared are
+    equal or DELTA_MARGIN apart (ROADMAP fault (d)): so a last-ulp
+    difference between the frameworks cannot flip a mask or a pick."""
+    for scores, glob in seen:
+        d = scores - glob
+        assert np.all(np.abs(d[np.isfinite(d)]) >= DELTA_MARGIN), (scores, glob)
+    for ema in emas:
+        gaps = np.abs(ema[:, None] - ema[None, :])
+        assert np.all((gaps == 0) | (gaps >= DELTA_MARGIN)), ema
+
+
+def assert_round_close(jl, tl):
+    """One round's logs: sampled ids equal, losses within LOSS_RTOL (NaN
+    on both sides where a phase had no rows), omegas within OMEGA_ATOL
+    with the same keep-global outcome."""
+    assert jl.keys() == tl.keys()
+    if "sampled" in jl:
+        np.testing.assert_array_equal(tl["sampled"], np.asarray(jl["sampled"]))
+    for k in ("loss_partial", "loss_vfl", "loss_paired"):
+        if np.isnan(jl[k]):
+            assert np.isnan(tl[k]), k
+        else:
+            np.testing.assert_allclose(tl[k], jl[k], rtol=LOSS_RTOL)
+    for k in ("omega_A", "omega_B", "omega_M"):
+        if k in jl:
+            want = np.asarray(jl[k])
+            np.testing.assert_allclose(tl[k], want, atol=OMEGA_ATOL)
+            assert (np.sum(tl[k]) == 0) == (np.sum(want) == 0)
+
+
+def server_moments(srv):
+    """A server optimizer's state as it is compared: m, the step t, and
+    adam's v as sqrt(v). m is a weighted sum of the rounds' blended
+    deltas (weights summing to 1 - beta1^t), sqrt(v) a weighted L2 norm
+    of them (weights summing to 1 - beta2^t), so each moves by at most
+    the deltas' difference times (1 - 0.9^t) or sqrt(1 - 0.99^t), both
+    below 1/2 for t <= 6: they are held to the tolerance of the deltas.
+    v itself, about (1 - beta2) * delta^2, lies below any atol that suits
+    the deltas."""
+    out = {"m": srv["m"], "t": srv["t"]}
+    if "v" in srv:
+        out["sqrt_v"] = jax.tree.map(np.sqrt, srv["v"])
+    return out
+
+
+def assert_federations_close(jf, tf, lossy=False, param_tol=None,
+                             control_tol=None, server_tol=None):
+    """The state two federations hold after the same rounds: global
+    params and the server head within ``param_tol`` (default PARAM_TOL;
+    under a lossy codec the run-level tolerance of ROADMAP fault (a)),
+    ``last_round`` and ``part_count`` equal, ``omega_ema`` within
+    OMEGA_ATOL, SCAFFOLD's control variates within ``control_tol`` and
+    the server optimizer's moments (``server_moments``) within
+    ``server_tol`` (both default PARAM_TOL)."""
+    from repro_torch.convert import params_to_numpy
+
+    def close(want, got, tol):
+        if lossy:
+            lossy_close(want, got)
+        else:
+            assert_trees_close(want, got, **tol)
+
+    close(jax.tree.map(np.asarray, jf.global_models),
+          params_to_numpy(tf.global_models), param_tol or PARAM_TOL)
+    close(jax.tree.map(np.asarray, jf.server_gmv),
+          params_to_numpy(tf.server_gmv), param_tol or PARAM_TOL)
+    np.testing.assert_array_equal(tf.last_round, jf.last_round)
+    np.testing.assert_array_equal(tf.part_count, jf.part_count)
+    np.testing.assert_allclose(tf.omega_ema, jf.omega_ema, atol=OMEGA_ATOL)
+    assert tf.round_no == jf.round_no
+    if jf.strat_state is None:
+        assert tf.strat_state is None
+        return
+    want = jax.tree.map(np.asarray, jf.strat_state)
+    got = jax.tree.map(lambda x: x.numpy(), tf.strat_state)
+    assert jax.tree.structure(want) == jax.tree.structure(got)
+    control = [k for k in ("c_global", "c_local") if k in want]
+    close({k: want[k] for k in control}, {k: got[k] for k in control},
+          control_tol or PARAM_TOL)
+    if "srv" in want:
+        close(server_moments(want["srv"]), server_moments(got["srv"]),
+              server_tol or PARAM_TOL)
+
+
+def lossy_close(want, got):
+    """ROADMAP fault (a): all within 2e-2, at least 99% within 1e-5."""
+    d = np.concatenate([np.abs(np.asarray(a) - b).ravel() for a, b in zip(
+        jax.tree.leaves(want), jax.tree.leaves(got))])
+    assert d.max() <= 2e-2 and (d <= 1e-5).mean() >= 0.99, (d.max(), (d <= 1e-5).mean())

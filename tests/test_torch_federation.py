@@ -17,34 +17,28 @@ near 0 could flip a mask between frameworks: the data seed is chosen so
 that every candidate's delta in these runs is at least 1e-3 away from
 0, and the test asserts that margin on the reference's scores.
 """
-import importlib
-
 import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxKeyPerms, assert_trees_close
-from repro.core import encoders as jenc
-from repro.core import partitioner as jpart
-from repro.core.federation import FedConfig as JFedConfig
-from repro.core.federation import Federation as JFederation
+from _torch_parity import (
+    DELTA_MARGIN,
+    LOSS_RTOL,
+    OMEGA_ATOL,
+    PARAM_TOL,
+    assert_trees_close,
+    federation_pair,
+    lossy_close,
+)
 from repro.core.federation import evaluate_global as jevaluate
-from repro.data import synthetic as jsyn
 from repro_torch.convert import params_to_numpy
 from repro_torch.core import encoders as tenc
 from repro_torch.core import partitioner as tpart
 from repro_torch.core.federation import FedConfig, Federation, evaluate_global
 from repro_torch.data import synthetic as tsyn
 
-# the module, not the ``federation`` names that ``repro.core`` exports
-jfed_mod = importlib.import_module("repro.core.federation")
-
-LOSS_RTOL = 1e-4
-OMEGA_ATOL = 1e-3
-PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 EVAL_ATOL = 1e-3
-DELTA_MARGIN = 1e-3
 SEED = 0
 
 
@@ -52,30 +46,10 @@ def _run(monkeypatch, rounds, n_train=500, n_val=300, n_test=300, **kw):
     """Both federations side by side for ``rounds`` rounds. Returns
     (per-round (jax logs, port logs), the two federations, the two test
     sets, every (scores, global score) pair the reference blended on)."""
-    seen = []
-
-    def recording(scores, global_score, **k):
-        seen.append((np.asarray(scores, np.float64), float(global_score)))
-        return weights(scores, global_score, **k)
-
-    weights = jfed_mod.blendavg_weights
-    monkeypatch.setattr(jfed_mod, "blendavg_weights", recording)
-    cfg = dict(n_clients=3, rounds=rounds, lr=1e-2, batch_size=64, **kw)
-    split = dict(frac_paired=0.4, frac_fragmented=0.3, frac_partial=0.3)
-    jtr, jva, jte = jsyn.train_val_test(jsyn.make_task("smnist"), n_train, n_val,
-                                        n_test, seed=SEED)
-    spec = tsyn.make_task("smnist")
-    ttr, tva, tte = tsyn.train_val_test(spec, n_train, n_val, n_test, seed=SEED)
-    jf = JFederation.init(jax.random.PRNGKey(0), JFedConfig(**cfg), spec,
-                          jenc.EncoderConfig(d_hidden=48, n_layers=2),
-                          jpart.partition(jtr, 3, **split), jva)
-    tf = Federation.init(torch.Generator(), FedConfig(**cfg), spec,
-                         tenc.EncoderConfig(d_hidden=48, n_layers=2),
-                         tpart.partition(ttr, 3, **split), tva, device="cpu",
-                         base=jax.tree.map(np.asarray, jf.global_models),
-                         perms=JaxKeyPerms(0))
-    logs = [(jf.round(), tf.round()) for _ in range(rounds)]
-    return logs, (jf, tf), (jte, tte), seen
+    logs, feds, seen, _, tests = federation_pair(
+        monkeypatch, rounds, data_seed=SEED, n_clients=3, n_train=n_train,
+        n_val=n_val, n_test=n_test, d_hidden=48, n_layers=2, **kw)
+    return logs, feds, tests, seen
 
 
 def _check_round(jl, tl):
@@ -117,12 +91,6 @@ def test_two_blendavg_rounds_track_jax(monkeypatch):
     assert (tf.server_gmv["out"]["w"].data_ptr()
             != tf.global_models["g_M"]["out"]["w"].data_ptr())
 
-def _lossy_close(want, got):
-    """ROADMAP fault (a): all within 2e-2, at least 99% within 1e-5."""
-    d = np.concatenate([np.abs(np.asarray(a) - b).ravel() for a, b in zip(
-        jax.tree.leaves(want), jax.tree.leaves(got))])
-    assert d.max() <= 2e-2 and (d <= 1e-5).mean() >= 0.99, (d.max(), (d <= 1e-5).mean())
-
 
 @pytest.mark.parametrize("kw", [
     dict(strategy="fedavg"),
@@ -138,27 +106,25 @@ def test_one_round_variant_tracks_jax(monkeypatch, kw):
     _check_round(*logs[0])
     jg, tg = _globals(jf, tf)
     if kw.get("codec"):
-        _lossy_close(jg, tg)
+        lossy_close(jg, tg)
         assert tf.resid_up is not None and tf.resid_down is not None
-        _lossy_close(jax.tree.map(np.asarray, jf.resid_down),
+        lossy_close(jax.tree.map(np.asarray, jf.resid_down),
                      params_to_numpy(tf.resid_down))
     else:
         assert_trees_close(jg, tg, **PARAM_TOL)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(strategy="scaffold"), dict(strategy="krum", n_clients=4),
-    dict(strategy="fedprox", fedprox_mu=0.1), dict(server_opt="adam"),
-    dict(n_sampled=2), dict(n_sampled=2, async_mode=True),
-    dict(n_sampled=2, policy="round_robin")])
-def test_unported_options_raise(kw):
-    """What the port does not run yet (sampled and async rounds, their
-    policies, the other strategies and server optimizers) raises and
-    names the ROADMAP item, instead of running something else."""
+@pytest.mark.parametrize("enc_type", ["recurrent", "transformer"])
+@pytest.mark.parametrize("kw", [dict(), dict(strategy="scaffold", n_sampled=2)],
+                         ids=["full", "sampled_scaffold"])
+def test_training_encoder_variants_raises(enc_type, kw):
+    """Training the recurrent and transformer encoders is not ported
+    (ROADMAP item 17): ``Federation`` refuses it, whatever the round's
+    strategy or sampling, and names the item."""
     spec = tsyn.make_task("smnist")
     tr, va, _ = tsyn.train_val_test(spec, 40, 20, 1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cfg = FedConfig(**kw)
-        Federation.init(torch.Generator(), cfg, spec,
-                        tenc.EncoderConfig(d_hidden=8, n_layers=1),
-                        tpart.partition(tr, cfg.n_clients), va, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        Federation.init(torch.Generator(), FedConfig(**kw), spec,
+                        tenc.EncoderConfig(d_hidden=8, n_layers=1,
+                                           enc_type=enc_type),
+                        tpart.partition(tr, 3), va, device="cpu")
