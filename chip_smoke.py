@@ -105,7 +105,31 @@ outside a checkout. Phases, each fatal on failure:
    fedprox, scaffold, fedavg with adam and with momentum, median and
    trimmed_mean launching no blend, krum one a leaf) with its peak
    device memory, and a sampled async ``int8_topk`` round (one codec
-   launch a leaf each way).
+   launch a leaf each way);
+18. full-width sharded rounds: ``federation_sharded.make_blendfl_round``
+   at the reference's widest BlendFL entry (16 clients, d_hidden 1024, 4
+   layers, 512 rows a client and phase, a 2048-row validation set scored
+   on 512, AdamW) fed by ``FederatedBatcher`` over phase 7's partition:
+   3 full rounds through the prefetching stream (round wall, the wait
+   for the batch, the batcher's build and stall seconds, peak memory)
+   and a profiled one, 3 K = 4 async rounds under ``omega_ema`` (ids and
+   ``last_round`` moving only at the participants) and a K = 4
+   ``int8_topk`` round; finite losses, one blend launch a leaf every
+   round, one codec launch a leaf each way, no other kernel;
+19. the training CLI on the card, in a child process that sets
+   ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts: ``--selftest-resume``
+   on the Makefile's eight resume lanes under deterministic algorithms
+   (bit for bit, the same launches every round of every leg), a
+   full-width checkpointed run of 4 rounds resumed to 6 by a second
+   invocation, ``import`` and a store-backed run, and
+   ``serve_federated --selftest`` on the checkpoint the port wrote;
+20. sharded rounds card against CPU: the Makefile's sampled
+   ``omega_ema`` and ``int8_topk`` lanes, 3 rounds on both from the same
+   state, within phase 8's tolerances (the SGD codec lane's params at
+   the lossy run-level tolerance; the CLI's AdamW codec lane, whose
+   top-k picks tie, on what a tie cannot move and each uplink message
+   through the codec kernel against its plain version), the CPU run's
+   BlendAvg deltas 1e-3 from a tie.
 
 Phase 4's streams are fixed (``MIX_SALT`` stands in for the per-process
 ``hash(mix)``), so every run serves the same requests; its check accepts
@@ -1809,9 +1833,396 @@ def lm_card_vs_cpu(torch, params) -> dict:
     return worst
 
 
+# Phase 18: the reference's widest BlendFL entry (src/repro/launch/
+# specs.py, make_blendfl_entry) with AdamW, over phase 7's partition.
+SHARDED_SPEC = dict(n_clients=16, d_hidden=1024, n_layers=4, seq_a=64,
+                    feat_a=128, seq_b=64, feat_b=128, out_dim=25,
+                    kind="multilabel", n_partial=512, n_frag=512,
+                    n_paired=512, n_val=2048, n_val_score=512,
+                    optimizer="adamw")
+SHARDED_K = 4
+
+
+def sharded_training(torch, spec, counted) -> dict:
+    """Phase 18: the sharded round (``federation_sharded.make_blendfl_
+    round``) at full width on the card, fed by ``FederatedBatcher`` over
+    phase 7's partition (its validation and test rows as the 2048-row
+    validation set): 3 full-participation rounds through the prefetching
+    stream (then one more under the profiler), 3 K = 4 async rounds
+    under ``omega_ema`` (the synchronous path) and one K = 4 ``int8_topk``
+    round. Every count is set to 0 just before each round and read just
+    after it."""
+    import dataclasses
+    import gc
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.federation_sharded import (ShardedFedSpec,
+                                                     batch_specs,
+                                                     init_round_state,
+                                                     make_blendfl_round)
+    from repro_torch.core.schedule import telemetry_from_state
+    from repro_torch.data.pipeline import FederatedBatcher
+    from repro_torch.launch.train_federated import client_arrays
+
+    t0 = time.perf_counter()
+    clients, va, te = training_data(spec)
+    arrays = [client_arrays(c) for c in clients]
+    val = {"val_a": np.concatenate([va.x_a, te.x_a]),
+           "val_b": np.concatenate([va.x_b, te.x_b]),
+           "val_y": np.concatenate([va.y, te.y])}
+    base = ShardedFedSpec(**SHARDED_SPEC)
+    host_gb = sum(np.prod(shape) * dtype.itemsize for key, (shape, dtype)
+                  in batch_specs(base, ragged=True).items()
+                  if not key.startswith("val_")) / 1e9
+    print(f"data {time.perf_counter() - t0:.2f} s; a full round's host batch "
+          f"{host_gb:.2f} GB")
+    out = {"runs": {}, "host_batch_gb": host_gb}
+    totals = {name: 0 for name in counted}
+
+    def drive(label, sspec, rounds, profile=False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batcher = FederatedBatcher(arrays, sspec, val, seed=0, prefetch=1,
+                                   device="cuda")
+        round_fn = make_blendfl_round(sspec)
+        holder = {"state": init_round_state(torch.Generator().manual_seed(0),
+                                            sspec, "cuda")}
+        n_leaves = len(tree_leaves(holder["state"]["global_models"]))
+        torch.cuda.synchronize()
+        stream = batcher.rounds(0, rounds, telemetry_fn=lambda: telemetry_from_state(
+            holder["state"]))
+        rec = {"rounds": []}
+        t_end = time.perf_counter()
+        for r, batch in stream:
+            t_batch = time.perf_counter()  # waited for, built, copied
+            before = holder["state"]["last_round"].cpu().numpy()
+            for m in counted.values():
+                m.launches = 0
+            holder["state"], metrics = round_fn(holder["state"], batch)
+            torch.cuda.synchronize()
+            t_round = time.perf_counter()
+            got = {name: m.launches for name, m in counted.items()}
+            for name, n in got.items():
+                totals[name] += n
+            losses = {k: float(metrics[k]) for k in
+                      ("loss_uni", "loss_vfl", "loss_paired")}
+            want = {name: 0 for name in counted}
+            want["blend_params"] = n_leaves  # every group blends, a leaf a launch
+            if sspec.codec != "none":
+                want["wire_codec"] = 2 * n_leaves
+            after = holder["state"]["last_round"].cpu().numpy()
+            row = {"wall_s": t_round - t_end, "round_s": t_round - t_batch,
+                   "batch_s": t_batch - t_end, "launches": got,
+                   "losses": losses}
+            msg = ""
+            if sspec.n_sampled:
+                ids = batch["sampled"].cpu().numpy()
+                changed = np.flatnonzero(after != before)
+                check(len(np.unique(ids)) == SHARDED_K, f"{label}: sampled {ids}")
+                check(np.array_equal(changed, np.sort(ids)) and (after[ids] == r).all(),
+                      f"{label} round {r}: last_round moved at {changed}, sampled {ids}")
+                row["ids"] = ids.tolist()
+                msg = f"; ids {ids.tolist()}"
+            else:
+                check((after == r).all(), f"{label}: last_round {after}")
+            print(f"{label} round {r}: {row['wall_s']:.3f} s wall ({row['batch_s']:.3f} s "
+                  f"waiting for and copying the batch, {row['round_s']:.3f} s the round)"
+                  f"{msg}; losses { {k: round(v, 5) for k, v in losses.items()} }; "
+                  f"omegas M {np.round(metrics['omega_M'].cpu().numpy(), 3).tolist()}; "
+                  f"launches {got}")
+            check(all(np.isfinite(v) for v in losses.values()), f"{label}: losses {losses}")
+            check(got == want, f"{label} round {r}: launches {got}, want {want}")
+            rec["rounds"].append(row)
+            t_end = time.perf_counter()
+        rec["build_s"] = batcher.build_seconds
+        rec["stall_s"] = batcher.stall_seconds
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{label}: batcher build {batcher.build_seconds:.3f} s over "
+              f"{batcher.rounds_built} builds, stalled {batcher.stall_seconds:.3f} s; "
+              f"peak device memory {rec['peak_gb']:.2f} GB")
+        if profile:
+            batch = batcher.put(batcher.build(rounds))
+            torch.cuda.synchronize()
+            walls = [r["round_s"] for r in rec["rounds"]]
+            rec["breakdown"] = device_breakdown(
+                lambda: round_fn(holder["state"], batch), float(np.median(walls)),
+                top=8, match=("blend_kernel", "wire_codec"))
+            print_breakdown(f"{label}, a profiled round", rec["breakdown"])
+        out["runs"][label] = rec
+        del holder, batcher, stream
+
+    drive("full", base, 3, profile=True)
+    drive("K=4 omega_ema", dataclasses.replace(base, n_sampled=SHARDED_K,
+                                               policy="omega_ema"), 3)
+    drive("K=4 int8_topk", dataclasses.replace(base, n_sampled=SHARDED_K,
+                                               codec="int8_topk"), 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = totals
+    return out
+
+
+def cli_child(workdir: str) -> int:
+    """Phase 19's child process (``chip_smoke.py --cli-child DIR``, started
+    with ``CUBLAS_WORKSPACE_CONFIG`` set, so that the selftests' deterministic
+    algorithms hold from its first cuBLAS call): the CLI's resume selftest
+    on the Makefile's eight lanes, a full-width checkpointed run resumed by
+    a second invocation, ``import`` and a store-backed run, then
+    ``serve_federated --selftest`` on the checkpoint the port just wrote."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import os
+
+    from repro_torch.launch import serve_federated as sf
+    from repro_torch.launch import train_federated as tf
+
+    dev = ["--device", "cuda", "--log-every", "0"]
+    small = ["--n-train", "384", "--rows-cap", "16", "--d-hidden", "16",
+             "--n-val", "64"]
+    k3 = ["--rounds", "4", "--clients", "6", "--n-sampled", "3"] + small
+    lanes = [["--rounds", "2", "--clients", "4"] + small,
+             k3 + ["--policy", "omega_ema"], k3 + ["--codec", "int8_topk"],
+             k3 + ["--strategy", "scaffold"],
+             k3 + ["--scenario", "examples/scenarios/ci_join.yaml"],
+             k3 + ["--scenario", "examples/scenarios/ci_join.yaml",
+                   "--codec", "int8_topk"],
+             k3 + ["--scenario", "examples/scenarios/ci_join.yaml",
+                   "--strategy", "scaffold"],
+             k3 + ["--scenario", "examples/scenarios/ci_attack.yaml",
+                   "--strategy", "trimmed_mean"]]
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG"), "CUBLAS_WORKSPACE_CONFIG unset")
+    for lane in lanes:
+        t0 = time.perf_counter()
+        tf.main(["--selftest-resume"] + lane + dev)
+        print(f"    lane {' '.join(lane)}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    full = ["--task", "conditions", "--clients", "16", "--d-hidden", "1024",
+            "--n-layers", "4", "--rows-cap", "512", "--n-train", "16384"] + dev
+    ckpt = os.path.join(workdir, "ckpt")
+    t0 = time.perf_counter()
+    first = tf.main(full + ["--rounds", "4", "--ckpt-dir", ckpt, "--ckpt-every", "2"])
+    second = tf.main(full + ["--rounds", "6", "--ckpt-dir", ckpt, "--ckpt-every", "2"])
+    print(f"    checkpointed run: rounds {[r['round'] for r in first]} then, "
+          f"resumed, {[r['round'] for r in second]} in "
+          f"{time.perf_counter() - t0:.2f} s; launches a round "
+          f"{[r['launches'] for r in first + second]}", flush=True)
+    check([r["round"] for r in first] == [0, 1, 2, 3]
+          and [r["round"] for r in second] == [4, 5], "checkpointed run rounds")
+    check(all(r["launches"] == {"blend_params": 30, "wire_codec": 0}
+              for r in first + second), "checkpointed run launches")
+    check(all(np.isfinite(r["loss_uni"]) for r in first + second), "losses")
+    store = os.path.join(workdir, "store")
+    tf.main(["import", "--store-dir", store, "--task", "conditions",
+             "--clients", "16", "--n-train", "16384"])
+    hist = tf.main(["--store-dir", store, "--rounds", "2"] + full[2:])
+    check([r["round"] for r in hist] == [0, 1], "store-backed run rounds")
+    sf.main(["--selftest", "--ckpt-dir", ckpt, "--task", "conditions",
+             "--d-hidden", "1024", "--n-layers", "4", "--device", "cuda",
+             "--requests", "32", "--rows", "8"])
+    print("    served the port's checkpoint: serve_federated --selftest passed",
+          flush=True)
+    return 0
+
+
+def cli_on_card() -> None:
+    """Phase 19: ``cli_child`` in a child process with deterministic
+    cuBLAS set before CUDA starts; its output is printed here."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--cli-child", workdir], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    keep = [ln for ln in lines if "resume parity OK" in ln or ln.startswith("    ")
+            or "restored" in ln or "imported" in ln or "done (" in ln]
+    print("\n".join(keep))
+    check(proc.returncode == 0, f"the CLI child failed ({proc.returncode}):\n"
+          + "\n".join(lines[-30:]) + proc.stderr[-3000:])
+    check(sum("resume parity OK" in ln for ln in lines) == 8,
+          "not every resume lane passed")
+
+
+# Phase 20: the Makefile's sampled lanes, each with the data seed whose
+# BlendAvg deltas (and compared omega EMAs) on the CPU lie at least
+# DELTA_MARGIN from a tie (ROADMAP fault (d)): 5 for omega_ema, 4 for
+# int8_topk. Each lane is "strict" (test_torch_federation.py's
+# tolerances), "lossy" (params at the lossy run-level tolerance) or
+# "ties". The int8_topk lane runs twice. With SGD at lr 0.1 it is held
+# at the lossy tolerance. With the CLI's AdamW, the first step moves
+# every entry by about +-lr, so most |deltas| lie within a few ulps of
+# the top-k threshold and the card's and the CPU's last ulps keep
+# different entries: omegas and params part from round 0 on. That lane
+# holds what a tie cannot move (ids, round 0's losses, the counters, every
+# uplink message through the codec kernel against its plain version on
+# the card) and prints the rest, with the CPU's share of near-ties.
+DELTA_MARGIN = 1e-3
+CARD_CPU_LANES = (
+    ("omega_ema", "strict", ["--policy", "omega_ema", "--data-seed", "5"]),
+    ("int8_topk", "lossy", ["--codec", "int8_topk", "--optimizer", "sgd",
+                            "--lr", "0.1", "--data-seed", "4"]),
+    ("int8_topk_adamw", "ties", ["--codec", "int8_topk", "--data-seed", "4"]),
+)
+
+
+def near_tie_share(torch, msg, frac) -> float:
+    """The share of a stacked message's top-k picks that lie within 1e-6
+    (about 8 ulps) of their row's nonzero threshold: picks a last-ulp
+    difference can swap."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.codec import topk_k
+
+    near = kept = 0
+    for x in tree_leaves(msg):
+        a = x.reshape(x.shape[0], -1).abs()
+        k = topk_k(a.shape[1], frac)
+        thr = torch.topk(a, k, dim=1).values[:, -1:]
+        near += int((((a - thr).abs() <= 1e-6 * thr) & (thr > 0)).sum())
+        kept += a.shape[0] * k
+    return near / kept
+
+
+def sharded_card_vs_cpu(torch) -> dict:
+    """Phase 20: the lanes of ``CARD_CPU_LANES`` (6 clients, K = 3) for 3
+    rounds on the card and on the CPU from the same state (one seeded CPU
+    generator draws it for both), each side selecting from its own
+    telemetry. Every lane: ids equal, ``sched``'s counters and
+    ``last_round`` equal, the CPU run's BlendAvg deltas and compared
+    omega EMAs DELTA_MARGIN from a tie. "strict" and "lossy": losses rtol
+    LOSS_RTOL, omegas and the omega EMA atol OMEGA_ATOL, global params
+    rtol PARAM_RTOL / atol PARAM_ATOL ("lossy": at the lossy run-level
+    tolerance). "ties": round 0's losses rtol LOSS_RTOL, and each card
+    uplink message through the codec kernel against its plain version."""
+    import repro_torch.core.federation_sharded as fs
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.convert import round_state_to_numpy
+    from repro_torch.core.codec import topk_k
+    from repro_torch.kernels.wire_codec import ops, ref
+    from repro_torch.kernels.wire_codec import wire_codec as launcher
+    from repro_torch.launch import train_federated as tf
+
+    make_fns = fs.make_phase_fns
+    margins, ties, held = [], [], []
+
+    def recording(cfg):  # the CPU run: BlendAvg deltas, uplink near-ties
+        fns = make_fns(cfg)
+        update, uplink = fns.blendavg_update, fns.codec_uplink
+
+        def blendavg_update(glob, cands, scores, gscore, **kw):
+            margins.append(float((scores - gscore).abs().min()))
+            return update(glob, cands, scores, gscore, **kw)
+
+        def codec_uplink(trained, base, resid):
+            msg = tree_map(lambda t, b, e: t - b + e, trained, base, resid)
+            ties.append(near_tie_share(torch, msg, cfg.codec.topk_frac))
+            return uplink(trained, base, resid)
+
+        fns.blendavg_update, fns.codec_uplink = blendavg_update, codec_uplink
+        return fns
+
+    def checking(cfg):  # the card run: each uplink message kernel vs plain
+        fns = make_fns(cfg)
+        uplink = fns.codec_uplink
+
+        def codec_uplink(trained, base, resid):
+            msg = tree_map(lambda t, b, e: t - b + e, trained, base, resid)
+            for x in tree_leaves(msg):
+                flat = x.reshape(x.shape[0], -1)
+                held.append(check_kernel(torch, ops, launcher, ref, flat,
+                                         topk_k(flat.shape[1], cfg.codec.topk_frac),
+                                         cfg.codec.quantize))
+            return uplink(trained, base, resid)
+
+        fns.codec_uplink = codec_uplink
+        return fns
+
+    worst = {}
+    for label, mode, flags in CARD_CPU_LANES:
+        runs, emas = {}, []
+        margins.clear(), ties.clear(), held.clear()
+        for dev in ("cuda", "cpu"):
+            fs.make_phase_fns = {"cpu": recording, "cuda": checking if mode == "ties"
+                                 else make_fns}[dev]
+            args = tf.parse_args(["--rounds", "3", "--clients", "6", "--n-sampled",
+                                  "3", "--n-train", "384", "--rows-cap", "16",
+                                  "--d-hidden", "16", "--n-val", "64",
+                                  "--log-every", "0", "--device", dev] + flags)
+            spec, batcher, round_fn, device = tf.build_federation(args)
+            _, state = tf.init_or_restore(args, spec, device)
+            rows = []
+            for r in range(3):
+                sched = (tf.telemetry_from_state(state)
+                         if batcher.policy.needs_state else None)
+                if sched is not None and dev == "cpu":
+                    emas.append(sched["omega_ema"])
+                batch = batcher.put(batcher.build(r, sched))
+                state, m = round_fn(state, batch)
+                rows.append(({k: v.cpu().numpy() for k, v in m.items()},
+                             batch["sampled"].cpu().numpy()))
+            runs[dev] = (rows, round_state_to_numpy(state))
+        fs.make_phase_fns = make_fns
+        w = {"loss": 0.0, "omega": 0.0, "smallest delta": min(margins)}
+        check(min(margins) >= DELTA_MARGIN,
+              f"{label}: a CPU BlendAvg delta {min(margins)} lies within "
+              f"{DELTA_MARGIN} of a tie")
+        for ema in emas:
+            gaps = np.abs(ema[:, None] - ema[None, :])
+            check(bool(np.all((gaps == 0) | (gaps >= DELTA_MARGIN))),
+                  f"{label}: compared omega EMAs within {DELTA_MARGIN}: {ema}")
+        for r, ((card, ids_c), (cpu, ids_h)) in enumerate(zip(runs["cuda"][0],
+                                                              runs["cpu"][0])):
+            check(np.array_equal(ids_c, ids_h), f"{label}: ids {ids_c} vs {ids_h}")
+            for k in ("loss_uni", "loss_vfl", "loss_paired"):
+                check(np.isfinite(float(card[k])), f"{label} {k}: card {card[k]}")
+                rel = abs(float(card[k]) - float(cpu[k])) / abs(float(cpu[k]))
+                w["loss"] = max(w["loss"], rel)
+                if mode != "ties" or r == 0:
+                    check(rel <= LOSS_RTOL, f"{label} round {r} {k}: card "
+                          f"{card[k]} cpu {cpu[k]}")
+            for k in ("omega_A", "omega_B", "omega_M"):
+                d = float(np.abs(card[k] - cpu[k]).max())
+                w["omega"] = max(w["omega"], d)
+                if mode != "ties":
+                    check(d <= OMEGA_ATOL, f"{label} {k}: card {card[k]} cpu {cpu[k]}")
+        (_, sc), (_, sh) = runs["cuda"], runs["cpu"]
+        a, b = tree_leaves(sc["global_models"]), tree_leaves(sh["global_models"])
+        check(all(np.isfinite(x).all() for x in a), f"{label}: card params not finite")
+        d = np.concatenate([np.abs(x - y).ravel() for x, y in zip(a, b)])
+        w["params"] = float(d.max())
+        if mode != "strict":
+            w["params share within atol"] = float((d <= PARAM_ATOL).mean())
+        if mode == "lossy":
+            check(d.max() <= LOSSY_MAX_ABS and (d <= PARAM_ATOL).mean() >= LOSSY_SHARE,
+                  f"{label}: params card vs CPU max {d.max()}")
+        elif mode == "strict":
+            check(all(np.allclose(x, y, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                      for x, y in zip(a, b)), f"{label}: params card vs CPU")
+        for k in ("part_count", "last_round"):
+            check(np.array_equal(sc["sched"][k], sh["sched"][k]), f"{label}: sched {k}")
+        check(np.array_equal(sc["last_round"], sh["last_round"]), f"{label}: last_round")
+        w["omega_ema"] = float(np.abs(sc["sched"]["omega_ema"]
+                                      - sh["sched"]["omega_ema"]).max())
+        if mode != "ties":
+            check(w["omega_ema"] <= OMEGA_ATOL, f"{label}: omega_ema")
+        if ties:
+            w["uplink near-tie share by round"] = [float(f"{t:.4g}") for t in ties]
+        if held:
+            w["uplink messages kernel vs plain"] = len(held)
+            w["uplink kernel max abs err"] = max(held)
+        print(f"card vs CPU, sharded round, {label} lane ({mode}), 3 rounds: "
+              f"{ {k: v if isinstance(v, (list, int)) else float(f'{v:.4g}') for k, v in w.items()} }"
+              f"; ids {[ids.tolist() for _, ids in runs['cuda'][0]]}")
+        worst[label] = w
+    return worst
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--cli-child":
+        return cli_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
@@ -1995,6 +2406,15 @@ def main() -> int:
     phase("17 full-width sampled and strategy rounds")
     sampled = sampled_training(torch, spec, ecfg, train.pop("data"), counted,
                                train["round_wall_s"])
+
+    phase("18 full-width sharded rounds through the batcher")
+    sharded = sharded_training(torch, spec, counted)
+
+    phase("19 the training CLI on the card")
+    cli_on_card()
+
+    phase("20 sharded rounds, card against CPU")
+    sharded_card_vs_cpu(torch)
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -2011,6 +2431,7 @@ def main() -> int:
         "shape": main_t["shape"], "per_shape": timings,
         "train_codec_launches": train["codec_launches"],
         "train_codec_launches_sampled": sampled["launches"]["wire_codec"],
+        "train_codec_launches_sharded": sharded["launches"]["wire_codec"],
         "train_shapes": train["codec_times"], "launch_floor": floor,
         "max_abs_err_train_shapes": train_errs,
     }
@@ -2025,6 +2446,7 @@ def main() -> int:
         "library_ms": main_b["library_ms"],  # omega @ stacked (cuBLAS)
         "shape": main_b["shape"], "per_shape": blend_times,
         "launches_sampled_rounds": sampled["launches"]["blend_params"],
+        "launches_sharded_rounds": sharded["launches"]["blend_params"],
     }
     main_s = slstm_times[-1]  # (64, 4, 64, 256): a full capacity batch
     slstm_record = {
@@ -2067,6 +2489,9 @@ def main() -> int:
         "shape": mlstm_time["shape"], "timing": mlstm_time,
         "max_abs_err_full_width": mlstm_main_errs,
     }
+    print("sharded rounds: " + json.dumps(
+        {label: {k: v for k, v in rec.items() if k != "breakdown"}
+         for label, rec in sharded["runs"].items()}))
     print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
                                   flash_record, mlstm_record]}))
     print(smi)

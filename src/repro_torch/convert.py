@@ -11,7 +11,11 @@ arrays: stacked client models, global models, wire-codec residuals.
 
 ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry an optimizer
 state (``{"step", "mu"/"nu"/"mom": {group: tree}}``) and hold its
-shared ``step`` to an int32 scalar.
+shared ``step`` to an int32 scalar; ``round_state_from_numpy`` /
+``round_state_to_numpy`` carry a whole round state of the sharded round
+(``federation_sharded.init_round_state``, every block) and hold its
+counters (``ROUND_INT_LEAVES``) to int32, as both packages' checkpoints
+keep them.
 """
 from __future__ import annotations
 
@@ -91,4 +95,33 @@ def opt_state_from_numpy(state: dict, device) -> dict:
 def opt_state_to_numpy(state: dict) -> dict:
     """The port's optimizer state -> the same tree of numpy arrays."""
     _check_step(state["step"])
+    return params_to_numpy(state)
+
+
+# The round state's integer leaves: int32 in both packages.
+ROUND_INT_LEAVES = ("round", "last_round", "sched/last_round",
+                    "sched/part_count", "opt/step", "srv_opt/step")
+
+
+def _check_round_ints(state: dict) -> None:
+    for path in ROUND_INT_LEAVES:
+        node = state
+        for part in path.split("/"):
+            node = node[part]
+        if str(node.dtype).split(".")[-1] != "int32":
+            raise ValueError(f"round-state leaf {path!r} must be int32, got "
+                             f"{node.dtype}")
+
+
+def round_state_from_numpy(state: dict, device) -> dict:
+    """A numpy round state (``jax.tree.map(np.asarray, state)`` of the
+    reference's) -> the port's, on ``device``."""
+    out = params_from_numpy(state, device)
+    _check_round_ints(out)
+    return out
+
+
+def round_state_to_numpy(state: dict) -> dict:
+    """The port's round state -> the same tree of numpy arrays."""
+    _check_round_ints(state)
     return params_to_numpy(state)

@@ -11,13 +11,16 @@ once:
                                  encoders + server head, alignment as a
                                  gather over the flattened (C*N) latent rows
     phase 3  ``paired_step``     masked per-client multimodal SGD/AdamW
-    phase 4  ``blend_stacked``   Eq. 11 over the stacked candidates with
-             / ``fedavg_update`` omegas the caller computed (Eq. 9-10 run
-             / ``robust_update`` on the host, ``core.blendavg``), through
-                                 the CUDA blend kernel
-                                 (``repro_torch.kernels.blendavg``; its
-                                 plain version on the CPU); the robust
-                                 reducers' order statistics in plain ops
+    phase 4  ``blend_stacked``   Eq. 11 over the stacked candidates,
+             / ``fedavg_update`` through the CUDA blend kernel
+             / ``robust_update`` (``repro_torch.kernels.blendavg``; its
+             / ``blendavg_update`` plain version on the CPU), with omegas
+                                 the caller computed (``Federation``: Eq.
+                                 9-10 from host AUROC, ``core.blendavg``)
+                                 or Eq. 9-10 on the device from scores
+                                 (``omega_from_scores``, the sharded
+                                 round's -val-loss); the robust reducers'
+                                 order statistics in plain ops
 
 Where the reference maps one client's function over the C axis with
 ``jax.vmap``, the port writes the batch out: every dense layer of a
@@ -66,6 +69,7 @@ from repro_torch.common.tree import (
     tree_unflatten,
 )
 from repro_torch.core import aggregate
+from repro_torch.core.blendavg import STALENESS_EXP
 from repro_torch.core import codec as wire
 from repro_torch.core.encoders import (
     EncoderConfig,
@@ -394,11 +398,42 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
 
     # ---- phase 4: BlendAvg aggregation + broadcast (lines 30-32) ----
 
+    def omega_from_scores(scores, global_score, staleness=None):
+        """Eq. 9-10 on the device: masked, normalized improvement weights
+        and whether any candidate improved (a 0-dim bool tensor, never
+        read on the host). ``staleness`` (rounds since a candidate's base
+        was current) damps an improvement by (1 + s)^-``STALENESS_EXP``
+        before the normalization, as ``blendavg.blendavg_weights`` does
+        on the host."""
+        delta = scores - global_score
+        delta = torch.where(torch.isnan(delta),
+                            torch.full_like(delta, float("-inf")), delta)
+        w = torch.where(delta > 0, delta, torch.zeros_like(delta))
+        if staleness is not None:
+            s = torch.clamp_min(staleness.to(torch.float32), 0.0)
+            w = w * (1.0 + s) ** (-STALENESS_EXP)
+        tot = torch.sum(w)
+        omega = torch.where(tot > 0, w / torch.clamp_min(tot, 1e-12),
+                            torch.zeros_like(w))
+        return omega, tot > 0
+
     def blend_stacked(stacked_tree, omega):
         """Eq. 11: sum_k omega_k W_k over the leading candidate axis, one
         blend-kernel launch per leaf. omega is cast to f32 first."""
         return blend_params(stacked_tree,
                             _f32(omega, tree_leaves(stacked_tree)[0].device))
+
+    def blendavg_update(global_tree, stacked_cands, scores, global_score,
+                        staleness=None):
+        """The BlendAvg step on the device: returns (new_global, omega,
+        any_improved). The blend always launches (one kernel a leaf), and
+        the previous global is kept where no candidate improved, so no
+        value is read on the host."""
+        omega, any_up = omega_from_scores(scores, global_score, staleness)
+        blended = blend_stacked(stacked_cands, omega)
+        new = tree_map(lambda b, g: torch.where(any_up, b, g.to(b.dtype)),
+                       blended, global_tree)
+        return new, omega, any_up
 
     def fedavg_update(global_tree, stacked_cands, weights):
         """Volume-weighted FedAvg over the stacked candidates. Zero total
@@ -486,7 +521,8 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
         opt=opt, srv_opt=srv_opt, unimodal_loss=unimodal_loss,
         paired_loss=paired_loss,
         unimodal_step=unimodal_step, vfl_step=vfl_step, paired_step=paired_step,
-        blend_stacked=blend_stacked, fedavg_update=fedavg_update,
+        omega_from_scores=omega_from_scores, blend_stacked=blend_stacked,
+        blendavg_update=blendavg_update, fedavg_update=fedavg_update,
         robust_update=robust_update,
         broadcast=broadcast, codec_uplink=codec_uplink,
         codec_downlink=codec_downlink, scaffold_round=scaffold_round,

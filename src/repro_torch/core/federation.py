@@ -64,6 +64,7 @@ from repro_torch.core import codec as wire
 from repro_torch.core import schedule, vfl
 from repro_torch.core import state as rstate
 from repro_torch.core.blendavg import blendavg_weights
+from repro_torch.core.schedule import EMA_BETA
 from repro_torch.core.encoders import (
     EncoderConfig,
     encoder_apply,
@@ -82,11 +83,6 @@ from repro_torch.core.partitioner import ClientData, ModalView, fragmented_overl
 from repro_torch.data.synthetic import SyntheticMultimodal, TaskSpec
 from repro_torch.metrics import auprc, auroc
 from repro_torch.models.common import dense
-
-
-# Decay of the per-client omega EMA that the participation policies read
-# (the reference's default).
-EMA_BETA = 0.9
 
 
 @dataclasses.dataclass(frozen=True)

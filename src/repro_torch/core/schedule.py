@@ -6,12 +6,11 @@ A policy is a host-side function
     select(rng, telemetry) -> sorted (K,) int64 client ids
 
 of a ``np.random.Generator`` and a **telemetry** dict. Given the same
-rng state and the same telemetry, ``select`` returns the same ids. The
-policies are numpy only and copied from the reference, less what serves
-only a cohort that grows or shrinks (the ``active`` membership mask), so
-the port and the reference, fed the same ``np.random.default_rng``
-stream and the same telemetry, pick the same ids and consume the
-generator identically.
+rng state and the same telemetry, ``select`` returns the same ids: the
+property a bit-exact resume rests on. The policies are numpy only and
+copied from the reference, so the port and the reference, fed the same
+``np.random.default_rng`` stream and the same telemetry, pick the same
+ids and consume the generator identically.
 
 Telemetry keys (callers fill what they have; policies read what they
 need):
@@ -21,6 +20,16 @@ need):
     omega_ema   (C,)   EMA of each client's BlendAvg omega
     part_count  (C,)   how many rounds each client has participated in
     rows        (C,)   per-client training-row counts (static data volume)
+    active      (C,)   bool membership mask under a churn scenario
+                       (``repro_torch.data.scenario``): inactive slots are
+                       never selected. Absent = everyone is active, and
+                       every policy consumes the generator as without it.
+
+``last_round`` / ``omega_ema`` / ``part_count`` live in the sharded
+round's state as the ``sched`` block (``sched_state``), so they
+checkpoint and restore with the rest of the round state; ``round`` and
+``rows`` are the caller's. A policy with ``needs_state`` reads that
+block, so its batch for round r can be built only after round r-1.
 
 Policies (``make_policy``):
 
@@ -38,6 +47,7 @@ Policies (``make_policy``):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 POLICIES = ("uniform", "round_robin", "staleness", "omega_ema", "data_volume")
 
@@ -45,12 +55,61 @@ POLICIES = ("uniform", "round_robin", "staleness", "omega_ema", "data_volume")
 POOL_FACTOR = 2
 
 
+# ----------------------------------------------------- telemetry helpers --
+
+def sched_state(n_clients: int, device=None) -> dict:
+    """The ``sched`` telemetry block of a round state: omega EMA (f32),
+    participation counts and a ``last_round`` mirror (int32)."""
+    return {
+        "omega_ema": torch.zeros((n_clients,), dtype=torch.float32,
+                                 device=device),
+        "part_count": torch.zeros((n_clients,), dtype=torch.int32,
+                                  device=device),
+        "last_round": torch.full((n_clients,), -1, dtype=torch.int32,
+                                 device=device),
+    }
+
+
+def telemetry_from_state(state: dict) -> dict:
+    """A round state's ``sched`` block as host numpy: the telemetry a
+    state-reading policy selects from. Waits for the round that produced
+    the state to finish."""
+    return {k: v.detach().cpu().numpy() for k, v in state["sched"].items()}
+
+
+# Decay of the per-client omega EMA that the participation policies read
+# (the reference's default).
+EMA_BETA = 0.9
+
+
+def ema_update(ema, omega, beta, idx=None):
+    """One step of the per-client omega EMA,
+    ``ema' = beta * ema + (1 - beta) * omega``, in f32. With ``idx`` (K,)
+    only the participants' slots move (a new tensor; ``ema`` is not
+    written)."""
+    ema = ema.to(torch.float32)
+    b = torch.tensor(beta, dtype=torch.float32, device=ema.device)
+    if idx is not None:
+        idx = torch.as_tensor(idx, device=ema.device).long()
+    new = b * (ema if idx is None else ema.index_select(0, idx))
+    new = new + (1.0 - b) * omega.to(torch.float32)
+    if idx is None:
+        return new
+    return ema.index_copy(0, idx, new)
+
+
 # ------------------------------------------------------------- policies ----
 
 class Policy:
-    """Base participation policy: picks the K ids of one sampled round."""
+    """Base participation policy: picks the K ids of one sampled round.
+
+    ``needs_state`` marks the policies that read round-state telemetry
+    (``last_round`` / ``omega_ema``): their selection for round r depends
+    on round r-1's outcome, so a loader cannot build their batches ahead
+    (``FederatedBatcher.rounds`` takes its synchronous path)."""
 
     name = ""
+    needs_state = False
 
     def __init__(self, n_clients: int, k: int):
         if not 0 < k <= n_clients:
@@ -60,6 +119,19 @@ class Policy:
 
     def select(self, rng: np.random.Generator, telemetry: dict) -> np.ndarray:
         raise NotImplementedError
+
+    def _active_ids(self, telemetry: dict) -> np.ndarray | None:
+        """Ids the scenario's membership mask allows this round, or None
+        when no mask is present."""
+        act = telemetry.get("active")
+        if act is None:
+            return None
+        ids = np.flatnonzero(np.asarray(act, bool)[: self.n_clients])
+        if self.k > len(ids):
+            raise ValueError(
+                f"policy {self.name!r} needs k={self.k} participants but "
+                f"only {len(ids)} clients are active this round")
+        return ids
 
     def _top_k(self, keys: np.ndarray, jitter: np.ndarray) -> np.ndarray:
         """Sorted ids of the K largest keys, ties broken by jitter."""
@@ -74,7 +146,11 @@ class Uniform(Policy):
     name = "uniform"
 
     def select(self, rng, telemetry):
-        return np.sort(rng.choice(self.n_clients, size=self.k, replace=False))
+        ids = self._active_ids(telemetry)
+        if ids is None:
+            return np.sort(rng.choice(self.n_clients, size=self.k,
+                                      replace=False))
+        return np.sort(rng.choice(ids, size=self.k, replace=False))
 
 
 class RoundRobin(Policy):
@@ -87,8 +163,13 @@ class RoundRobin(Policy):
 
     def select(self, rng, telemetry):
         r = int(telemetry["round"])
-        return np.sort((r * self.k + np.arange(self.k)) % self.n_clients
-                       ).astype(np.int64)
+        ids = self._active_ids(telemetry)
+        if ids is None:
+            return np.sort((r * self.k + np.arange(self.k)) % self.n_clients
+                           ).astype(np.int64)
+        # rotate within the active cohort
+        pos = (r * self.k + np.arange(self.k)) % len(ids)
+        return np.sort(ids[pos]).astype(np.int64)
 
 
 class Staleness(Policy):
@@ -97,11 +178,17 @@ class Staleness(Policy):
     break by rng jitter, keeping the policy unbiased at equal staleness."""
 
     name = "staleness"
+    needs_state = True
 
     def select(self, rng, telemetry):
         last = np.asarray(telemetry["last_round"], np.int64)
         stale = np.maximum(int(telemetry["round"]) - 1 - last, 0
                            ).astype(np.float64)
+        ids = self._active_ids(telemetry)
+        if ids is not None:
+            mask = np.zeros(self.n_clients, bool)
+            mask[ids] = True
+            stale = np.where(mask, stale, -np.inf)
         return self._top_k(stale, rng.random(self.n_clients))
 
 
@@ -114,13 +201,19 @@ class OmegaEMA(Policy):
     the global model."""
 
     name = "omega_ema"
+    needs_state = True
 
     def __init__(self, n_clients: int, k: int, pool_factor: int = POOL_FACTOR):
         super().__init__(n_clients, k)
         self.pool = min(n_clients, max(k, int(pool_factor) * k))
 
     def select(self, rng, telemetry):
-        pool = rng.choice(self.n_clients, size=self.pool, replace=False)
+        ids = self._active_ids(telemetry)
+        if ids is None:
+            pool = rng.choice(self.n_clients, size=self.pool, replace=False)
+        else:
+            pool = rng.choice(ids, size=min(len(ids), self.pool),
+                              replace=False)
         ema = np.asarray(telemetry["omega_ema"], np.float64)[pool]
         order = np.lexsort((rng.random(len(pool)), -ema))
         return np.sort(pool[order[: self.k]]).astype(np.int64)
@@ -137,10 +230,17 @@ class DataVolume(Policy):
     def select(self, rng, telemetry):
         w = np.maximum(np.asarray(telemetry["rows"], np.float64), 0.0)
         u = rng.random(self.n_clients)
-        if not (w > 0).any():  # degenerate: nobody holds rows -> uniform
-            return self._top_k(np.zeros(self.n_clients), u)
+        ids = self._active_ids(telemetry)
+        if ids is None:
+            if not (w > 0).any():  # degenerate: nobody holds rows -> uniform
+                return self._top_k(np.zeros(self.n_clients), u)
+            keys = np.where(w > 0, u ** (1.0 / np.maximum(w, 1e-300)), -1.0)
+            return self._top_k(keys, u)
+        # active zero-row clients rank at -1, inactive slots at -inf
         keys = np.where(w > 0, u ** (1.0 / np.maximum(w, 1e-300)), -1.0)
-        return self._top_k(keys, u)
+        mask = np.zeros(self.n_clients, bool)
+        mask[ids] = True
+        return self._top_k(np.where(mask, keys, -np.inf), u)
 
 
 _POLICY_CLASSES = {p.name: p for p in

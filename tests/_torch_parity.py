@@ -321,3 +321,192 @@ def lossy_close(want, got):
     d = np.concatenate([np.abs(np.asarray(a) - b).ravel() for a, b in zip(
         jax.tree.leaves(want), jax.tree.leaves(got))])
     assert d.max() <= 2e-2 and (d <= 1e-5).mean() >= 0.99, (d.max(), (d <= 1e-5).mean())
+
+
+# ------------------------------------------------------ the sharded round --
+
+# The resume lanes' federation (Makefile ci-smoke): smnist, 6 clients,
+# 16 rows a phase, d_hidden 16, AdamW at lr 1e-2.
+SHARDED_CLI = ["--clients", "6", "--n-train", "384", "--rows-cap", "16",
+               "--d-hidden", "16", "--n-val", "64", "--log-every", "0",
+               "--device", "cpu"]
+
+
+def sharded_args(*extra):
+    """The port CLI's parsed arguments for the resume lanes' federation
+    plus ``extra`` flags."""
+    from repro_torch.launch.train_federated import parse_args
+
+    return parse_args(SHARDED_CLI + list(extra))
+
+
+def reference_federation(args):
+    """The reference's spec, batcher and jitted round for CLI ``args``,
+    built as its ``train_federated.build_federation`` builds them but
+    with no mesh: its ``run`` cannot train a round under jax 0.9 (ROADMAP
+    fault (a)), so parity is held against its round function on plain
+    unsharded arrays. Returns (spec, batcher, scenario)."""
+    from repro.core import state as jrstate
+    from repro.core.federation_sharded import ShardedFedSpec
+    from repro.core.partitioner import partition
+    from repro.data.pipeline import FederatedBatcher
+    from repro.data.scenario import load_scenario
+    from repro.data.synthetic import make_task, train_val_test
+    from repro.launch.train_federated import client_arrays
+
+    task = make_task(args.task)
+    tr, va, _ = train_val_test(task, args.n_train, args.n_val, 64,
+                               seed=args.data_seed)
+    scenario = load_scenario(args.scenario) if args.scenario else None
+    n_part = n_cap = args.clients
+    if scenario is not None:
+        n_part = args.clients + scenario.total_joins()
+        n_cap = jrstate.capacity_for(scenario.n_clients_at(-1, args.clients))
+    clients = partition(tr, n_part, seed=args.data_seed,
+                        dirichlet_alpha=args.dirichlet_alpha)
+    rows = max(args.rows_cap, 1)
+    spec = ShardedFedSpec(
+        n_clients=n_cap, d_hidden=args.d_hidden, n_layers=args.n_layers,
+        seq_a=task.seq_a, feat_a=task.feat_a, seq_b=task.seq_b,
+        feat_b=task.feat_b, out_dim=task.out_dim, kind=task.kind,
+        n_partial=rows, n_frag=rows, n_paired=rows, n_val=args.n_val,
+        lr=args.lr, optimizer=args.optimizer, n_sampled=args.n_sampled,
+        policy=args.policy, codec=args.codec, topk_frac=args.topk_frac,
+        strategy=args.strategy, fedprox_mu=args.fedprox_mu,
+        server_opt=args.server_opt, server_lr=args.server_lr,
+        n_malicious=args.n_malicious,
+        attacks=scenario.has_uplink_attacks() if scenario else False)
+    batcher = FederatedBatcher(
+        [client_arrays(cd) for cd in clients], spec,
+        {"val_a": va.x_a, "val_b": va.x_b, "val_y": va.y}, seed=args.seed,
+        prefetch=0, scenario=scenario, n_initial=args.clients)
+    return spec, batcher, scenario
+
+
+def sharded_pair(monkeypatch, args, rounds: int):
+    """The reference's and the port's round side by side for ``rounds``
+    rounds of the federation CLI ``args`` describe: the port starts from
+    the reference's initial round state (``convert``), each side builds
+    its batches with its own batcher from its own telemetry (the host
+    batches must be bit-identical), and a scenario's joins grow both
+    states alike. Returns (per-round (reference metrics, port metrics) as
+    numpy, (reference state, port state) as numpy trees, every
+    (scores, global score) the port's BlendAvg scored, the omega EMA each
+    state-reading selection saw)."""
+    import dataclasses
+
+    import torch
+
+    from repro.core import federation_sharded as jfs
+    from repro.core import state as jrstate
+    from repro.core.schedule import telemetry_from_state as jtelemetry
+    from repro_torch.convert import round_state_from_numpy, round_state_to_numpy
+    from repro_torch.core import federation_sharded as tfs
+    from repro_torch.core import state as trstate
+    from repro_torch.core.blendavg import STALENESS_EXP
+    from repro_torch.core.schedule import EMA_BETA
+    from repro_torch.core.schedule import telemetry_from_state as ttelemetry
+    from repro_torch.launch import train_federated as ttf
+
+    seen = []
+    make_fns = tfs.make_phase_fns
+
+    def recording_fns(cfg):
+        fns = make_fns(cfg)
+        update = fns.blendavg_update
+
+        def blendavg_update(glob, cands, scores, gscore, **kw):
+            seen.append((scores.numpy().astype(np.float64), float(gscore)))
+            return update(glob, cands, scores, gscore, **kw)
+
+        fns.blendavg_update = blendavg_update
+        return fns
+
+    monkeypatch.setattr(tfs, "make_phase_fns", recording_fns)
+    jspec, jb, scenario = reference_federation(args)
+    tspec, tb, tround, device = ttf.build_federation(args)
+    # the port's spec has no blend field; it reads the Eq. 9-10 exponent
+    # and the omega-EMA decay from module constants, and takes the
+    # engine's constant lr and zero decay
+    left_out = {"blend": None, "staleness_exp": STALENESS_EXP,
+                "ema_beta": EMA_BETA, "schedule": "constant",
+                "total_steps": 0, "server_total_steps": 0, "weight_decay": 0.0}
+    jd = dataclasses.asdict(jspec)
+    assert dataclasses.asdict(tspec) == {k: v for k, v in jd.items()
+                                         if k not in left_out}
+    assert all(jd[k] == v for k, v in left_out.items() if k != "blend"), jd
+    jround = jax.jit(jfs.make_blendfl_round(jspec))
+    jstate = jfs.init_round_state(jax.random.PRNGKey(args.seed), jspec)
+    tstate = round_state_from_numpy(jax.tree.map(np.asarray, jstate), device)
+    needs_state = tb.policy is not None and tb.policy.needs_state
+    logs, emas = [], []
+    for r in range(rounds):
+        if scenario is not None:
+            cap = trstate.capacity_for(scenario.n_clients_at(r, args.clients))
+            if cap > tspec.n_clients:
+                jstate = jrstate.grow(jstate, cap)
+                tstate = trstate.grow(tstate, cap)
+                jspec = dataclasses.replace(jspec, n_clients=cap)
+                tspec = dataclasses.replace(tspec, n_clients=cap)
+                jb.set_spec(jspec)
+                tb.set_spec(tspec)
+                jround = jax.jit(jfs.make_blendfl_round(jspec))
+                tround = tfs.make_blendfl_round(tspec)
+            ev = scenario.events_at(r)
+            if ev is not None and ev.leave:
+                jstate = jrstate.retire_clients(jstate, ev.leave)
+                tstate = trstate.retire_clients(tstate, ev.leave)
+        jsched = jtelemetry(jstate) if needs_state else None
+        tsched = ttelemetry(tstate) if needs_state else None
+        if needs_state:
+            emas.append(np.array(jsched["omega_ema"]))
+        jhost, thost = jb.build(r, jsched), tb.build(r, tsched)
+        assert jhost.keys() == thost.keys()
+        for k in jhost:
+            np.testing.assert_array_equal(thost[k], jhost[k], err_msg=k)
+            assert thost[k].dtype == jhost[k].dtype, k
+        jstate, jm = jround(jstate, jb.put(jhost))
+        with torch.no_grad():
+            tstate, tm = tround(tstate, tb.put(thost))
+        logs.append(({k: np.asarray(v) for k, v in jm.items()},
+                     {k: v.numpy() for k, v in tm.items()}))
+    return (logs, (jax.tree.map(np.asarray, jstate),
+                   round_state_to_numpy(tstate)), seen, emas)
+
+
+def assert_sharded_round_close(jm, tm):
+    """One round's metrics: losses within LOSS_RTOL, omegas within
+    OMEGA_ATOL with the same keep-global outcome."""
+    assert jm.keys() == tm.keys()
+    for k in ("loss_uni", "loss_vfl", "loss_paired"):
+        np.testing.assert_allclose(tm[k], jm[k], rtol=LOSS_RTOL, err_msg=k)
+    for k in ("omega_A", "omega_B", "omega_M"):
+        np.testing.assert_allclose(tm[k], jm[k], atol=OMEGA_ATOL, err_msg=k)
+        assert (np.sum(tm[k]) == 0) == (np.sum(jm[k]) == 0), k
+
+
+def assert_sharded_states_close(want, got, lossy=False):
+    """Two round states after the same rounds: the same keys, shapes and
+    dtypes; the integer leaves (round, last_round, sched's part_count and
+    last_round, the optimizer steps) equal; the omega EMA within
+    OMEGA_ATOL; every float leaf within PARAM_TOL, or the lossy run-level
+    tolerance (ROADMAP fault (a)) under a lossy codec."""
+    wl = jax.tree_util.tree_flatten_with_path(want)[0]
+    gl = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in wl] == \
+        [jax.tree_util.keystr(p) for p, _ in gl]
+    floats_w, floats_g = [], []
+    for (path, a), (_, b) in zip(wl, gl):
+        key = jax.tree_util.keystr(path)
+        assert a.shape == b.shape and a.dtype == b.dtype, key
+        if a.dtype.kind != "f":
+            np.testing.assert_array_equal(b, a, err_msg=key)
+        elif "omega_ema" in key:
+            np.testing.assert_allclose(b, a, atol=OMEGA_ATOL, err_msg=key)
+        elif lossy:
+            floats_w.append(a)
+            floats_g.append(b)
+        else:
+            np.testing.assert_allclose(b, a, err_msg=key, **PARAM_TOL)
+    if lossy:
+        lossy_close(floats_w, floats_g)

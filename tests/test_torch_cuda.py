@@ -539,3 +539,73 @@ def test_serve_lm_on_card_launches_its_kernels():
                              toks, gen=3, max_len=64)
     torch.testing.assert_close(res["logits"].cpu(), want["logits"], atol=1e-3,
                                rtol=1e-3)
+
+
+def _federation(*flags):
+    from repro_torch.launch import train_federated as ttf
+
+    return ttf.parse_args(["--clients", "6", "--n-train", "384", "--rows-cap",
+                           "16", "--d-hidden", "16", "--n-val", "64",
+                           "--log-every", "0", *flags])
+
+
+@pytest.mark.cuda
+def test_batcher_put_on_card_gives_the_host_batch():
+    _skip_without_card()
+    from repro_torch.launch import train_federated as ttf
+
+    _, batcher, _, _ = ttf.build_federation(_federation("--n-sampled", "3",
+                                                        "--device", "cuda"))
+    host = batcher.build(0)
+    dev = batcher.put(host)
+    torch.cuda.synchronize()
+    for k, v in host.items():
+        assert dev[k].is_cuda and dev[k].dtype == torch.from_numpy(v).dtype
+        np.testing.assert_array_equal(dev[k].cpu().numpy(), v)
+    np.testing.assert_array_equal(dev["val_a"].cpu().numpy(),
+                                  batcher._val_host["val_a"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], ["--n-sampled", "3", "--codec", "int8_topk",
+                                        "--optimizer", "sgd", "--lr", "0.1"]])
+def test_sharded_round_on_card_matches_cpu(flags):
+    """Two rounds of the sharded round on the card and on the CPU from the
+    same state: losses rtol 1e-4, omegas atol 1e-3, params rtol 1e-4 /
+    atol 1e-5 (the codec run's at the lossy run-level tolerance: all
+    within 2e-2, 99% within 1e-5); one blend launch a leaf of each group
+    and, under the codec, one codec launch a leaf each way."""
+    _skip_without_card()
+    from repro_torch.convert import round_state_to_numpy
+    from repro_torch.launch import train_federated as ttf
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = _federation(*flags, "--device", dev)
+        spec, batcher, round_fn, device = ttf.build_federation(args)
+        _, state = ttf.init_or_restore(args, spec, device)
+        rows = []
+        for r in range(2):
+            b0, c0 = blend_launcher.launches, launcher.launches
+            state, m = round_fn(state, batcher.put(batcher.build(r)))
+            rows.append(({k: v.cpu().numpy() for k, v in m.items()},
+                         blend_launcher.launches - b0, launcher.launches - c0))
+        runs[dev] = (rows, round_state_to_numpy(state))
+    n_leaves = len(tree_leaves(runs["cpu"][1]["global_models"]))
+    for (card, nb, nc), (cpu, _, _) in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert nb == n_leaves and nc == (2 * n_leaves if flags else 0)
+        for k in ("loss_uni", "loss_vfl", "loss_paired"):
+            np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4)
+        for k in ("omega_A", "omega_B", "omega_M"):
+            np.testing.assert_allclose(card[k], cpu[k], atol=1e-3)
+    a = tree_leaves(runs["cuda"][1]["global_models"])
+    b = tree_leaves(runs["cpu"][1]["global_models"])
+    if flags:
+        d = np.concatenate([np.abs(x - y).ravel() for x, y in zip(a, b)])
+        assert d.max() <= 2e-2 and (d <= 1e-5).mean() >= 0.99
+    else:
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5)
+    for k in ("part_count", "last_round"):
+        np.testing.assert_array_equal(runs["cuda"][1]["sched"][k],
+                                      runs["cpu"][1]["sched"][k])

@@ -31,7 +31,12 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.mlstm_scan.ops",
               "repro_torch.models.recurrent", "repro_torch.models.backbone",
-              "repro_torch.configs.xlstm_350m", "repro_torch.launch.serve_lm"):
+              "repro_torch.configs.xlstm_350m", "repro_torch.launch.serve_lm",
+              "repro_torch.checkpoint.store", "repro_torch.core.state",
+              "repro_torch.core.schedule", "repro_torch.core.engine",
+              "repro_torch.core.federation_sharded",
+              "repro_torch.data.pipeline", "repro_torch.data.scenario",
+              "repro_torch.data.store", "repro_torch.launch.train_federated"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -111,6 +116,22 @@ def test_entry_points_need_cuda_without_device():
         backbone.init_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):  # the LM driver's default
         serve_lm.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    from repro_torch.core.federation_sharded import ShardedFedSpec, init_round_state
+    from repro_torch.launch import train_federated
+
+    small = ["--clients", "3", "--n-train", "60", "--rows-cap", "4",
+             "--d-hidden", "8", "--n-val", "8", "--rounds", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):  # the training CLI's default
+        train_federated.main(small)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_federated.main(small + ["--selftest-resume", "--rounds", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_round_state(torch.Generator(), ShardedFedSpec(n_clients=2, d_hidden=4))
+    args = train_federated.parse_args(small + ["--device", "cpu"])
+    _, batcher, _, _ = train_federated.build_federation(args)
+    batcher.device = None  # the batcher's own default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batcher.put(batcher.build(0))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

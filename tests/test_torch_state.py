@@ -2,8 +2,9 @@
 (``repro_torch.core.state``) against the reference's, on the CPU.
 
 Every registered block (stacked models, optimizer moments, codec
-residuals, control variates) is gathered by sampled ids and scattered
-back on both sides, and declared as the reference declares it.
+residuals, control variates, the global blocks, the async counters and
+the ``sched`` telemetry) is gathered by sampled ids and scattered back
+on both sides, and declared as the reference declares it.
 Gathers and scatters move values without arithmetic, so the two agree
 bit for bit. A scatter returns new tensors: the state it was given is
 left as it was, and no scattered leaf shares storage with it (torch
@@ -43,6 +44,14 @@ def _state(seed=0) -> dict:
         "codec": {"resid_up": _groups(rng, (C,)), "resid_down": _groups(rng)},
         "strat": {"c_global": _groups(rng), "c_local": _groups(rng, (C,)),
                   "srv": {"m": _groups(rng), "t": np.asarray(2, np.int32)}},
+        "server_gmv": _tree(rng),
+        "global_models": _groups(rng),
+        "srv_opt": {"step": np.asarray(3, np.int32), "mu": _tree(rng)},
+        "last_round": rng.integers(-1, 4, C).astype(np.int32),
+        "round": np.asarray(4, np.int32),
+        "sched": {"omega_ema": rng.random(C).astype(np.float32),
+                  "part_count": rng.integers(0, 4, C).astype(np.int32),
+                  "last_round": rng.integers(-1, 4, C).astype(np.int32)},
     }
 
 
@@ -69,7 +78,7 @@ def test_registry_matches_reference():
     with pytest.raises(KeyError, match="unregistered"):
         tstate.block("bogus")
     with pytest.raises(KeyError, match="unregistered"):
-        tstate.sample_block("global_models", {}, [0])
+        tstate.sample_block("bogus", {}, [0])
 
 
 @pytest.mark.parametrize("name", [b.name for b in tstate.REGISTRY])
@@ -92,11 +101,10 @@ def test_block_sample_and_scatter_match_reference(name):
     _equal(want, _np(out))
     _equal(before, _np(tval))  # the state given is not written
     spec = tstate.block(name)
-    stacked = (list(value) if spec.stacked == "all" else
-               [k for k in spec.stacked if k in value])
-    if spec.stacked == "all":
+    if spec.stacked in ("all", "none"):  # "none" replaces wholesale
         pairs = zip(jax.tree.leaves(tval), jax.tree.leaves(out))
     else:
+        stacked = [k for k in spec.stacked if k in value]
         pairs = [(a, b) for k in stacked for a, b in
                  zip(jax.tree.leaves(tval[k]), jax.tree.leaves(out[k]))]
     for a, b in pairs:
