@@ -129,7 +129,21 @@ outside a checkout. Phases, each fatal on failure:
    the lossy run-level tolerance; the CLI's AdamW codec lane, whose
    top-k picks tie, on what a tie cannot move and each uplink message
    through the codec kernel against its plain version), the CPU run's
-   BlendAvg deltas 1e-3 from a tie.
+   BlendAvg deltas 1e-3 from a tie;
+21. full-width baselines: the paper's eight (``core/baselines.py``:
+   FedAvg, FedProx, FedNova, FedMA, HFCL, SplitNN, One-Shot VFL,
+   centralized) once each on phase 7's data and model (1 round of 1
+   local epoch): wall seconds, blend launches equal to the analytic count
+   (30 a round for the HFL five, 26 for One-Shot VFL, none for SplitNN
+   and centralized), peak memory, the six metrics each NaN or in [0, 1];
+   FedAvg and SplitNN timed again and profiled (busy, idle share, the
+   kernels that take most); FedAvg's blends against the plain version, FedMA's matching seconds
+   and one (1024, 1024) matching against a numpy copy of the reference's
+   loop, and a matched member with its hidden units shuffled through
+   ``_match_encoder`` on the card against the loop's permutation; then FedAvg,
+   FedNova, SplitNN and One-Shot VFL at phase 8's width, card against CPU
+   from the same weights (params at phase 8's tolerance, metrics within
+   EVAL_ATOL).
 
 Phase 4's streams are fixed (``MIX_SALT`` stands in for the per-process
 ``hash(mix)``), so every run serves the same requests; its check accepts
@@ -694,7 +708,7 @@ def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
     return {"launches": launches, "round_wall_s": walls, "breakdown": bd,
             "codec_launches": codec_launches, "codec_round_s": codec_wall,
             "codec_times": codec_times, "evaluate_global": ev,
-            "data": (clients, va)}
+            "data": (clients, va), "test": te}
 
 
 def server_moments(srv) -> dict:
@@ -2218,6 +2232,241 @@ def sharded_card_vs_cpu(torch) -> dict:
     return worst
 
 
+# Phase 21: the paper's baselines (core/baselines.py) at full width, then
+# four of them card against CPU at phase 8's width.
+BASELINE_ORDER = ("fedavg", "fedprox", "fednova", "fedma", "hfcl", "splitnn",
+                  "oneshot_vfl", "centralized")
+BASELINE_KEYS = ("multimodal_auroc", "uni_a_auroc", "uni_b_auroc",
+                 "multimodal_auprc", "uni_a_auprc", "uni_b_auprc")
+BASELINES_CARD_CPU = ("fedavg", "fednova", "splitnn", "oneshot_vfl")
+
+
+def greedy_match_numpy(ref, cand):
+    """A numpy copy of the reference's FedMA matcher
+    (``src/repro/core/baselines.py:270-283``), which this script may not
+    import: n argmax passes over the masked similarity matrix."""
+    n = ref.shape[0]
+    sim = (ref / (np.linalg.norm(ref, axis=1, keepdims=True) + 1e-9)) @ (
+        cand / (np.linalg.norm(cand, axis=1, keepdims=True) + 1e-9)).T
+    perm = np.full(n, -1)
+    used = np.zeros(n, bool)
+    for _ in range(n):
+        i, j = np.unravel_index(np.argmax(np.where(used[None, :], -np.inf,
+                                                   np.where(perm[:, None] >= 0, -np.inf, sim))),
+                                sim.shape)
+        perm[i] = j
+        used[j] = True
+    return perm
+
+
+def baseline_blends(name, clients, leaves, rounds) -> int:
+    """Blend launches a baseline makes: one a leaf of each model group
+    with members (f_A + g_A, f_B + g_B, g_M) every round of the HFL
+    baselines (HFCL's pooled client holds a modality iff a data-sharing
+    client does, so its groups are those of all clients); One-Shot VFL
+    blends f + g of A and B once; SplitNN and centralized none."""
+    has = {"A": any(c.has_a for c in clients), "B": any(c.has_b for c in clients),
+           "M": any(c.has_paired for c in clients)}
+    if name in ("splitnn", "centralized"):
+        return 0
+    if name == "oneshot_vfl":
+        return sum(leaves[m] for m in "AB" if has[m])
+    return rounds * sum(leaves[m] for m in "ABM" if has[m])
+
+
+def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
+    """Phase 21: each of the eight baselines once at full width on phase
+    7's data (16 clients, 1 round of 1 local epoch, lr 1e-2, batch 64):
+    wall s, blend launches (set to 0 just before each run, read just
+    after, against ``baseline_blends``), peak memory and the six metrics
+    (each NaN or in [0, 1]); FedAvg's blends held against the plain
+    version within ``blend_error_bound``; FedMA's matching seconds and one
+    (1024, 1024) hidden-layer matching against ``greedy_match_numpy``;
+    the first matched member with every hidden layer's units shuffled,
+    through ``_match_encoder`` on the card, against the numpy loop's
+    ``w[:, perm]`` / ``b[perm]``; FedAvg and SplitNN
+    timed again and profiled. Then FedAvg, FedNova, SplitNN and One-Shot VFL at phase 8's width on
+    the card and on the CPU from the same weights: final models at
+    PARAM_RTOL / PARAM_ATOL, metrics within EVAL_ATOL."""
+    import repro_torch.core.baselines as bl
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.encoders import EncoderConfig, init_client_models
+    from repro_torch.core.federation import FedConfig
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import make_task, train_val_test
+
+    t_phase = time.perf_counter()
+    clients, va, te = data
+    cfg = FedConfig(n_clients=16, rounds=1, local_epochs=1, lr=1e-2, batch_size=64)
+    leaves = group_leaves(tree_leaves, init_client_models(
+        torch.Generator().manual_seed(0), spec, ecfg, device="cpu"))
+    check(leaves == {"A": 13, "B": 13, "M": 4}, f"leaves per group {leaves}")
+    blend_trees, greedy, match_encoder = bl.blend_trees, bl._greedy_match, bl._match_encoder
+    captured, matches = [], {"n": 0, "s": 0.0, "first": None, "member": None}
+
+    def capture(trees, omega):  # FedAvg's blends, held against plain below
+        out = blend_trees(trees, omega)
+        captured.append(([tree_leaves(t) for t in trees], omega, tree_leaves(out)))
+        return out
+
+    def timed_match(ref, cand, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perm = greedy(ref, cand, device=device)
+        torch.cuda.synchronize()
+        matches["s"] += time.perf_counter() - t0
+        matches["n"] += 1
+        if matches["first"] is None:  # host copies FedMA made for this call
+            matches["first"] = (ref, cand, perm.cpu().numpy())
+        return perm
+
+    def kept_match(ref_ws, f):  # the first member FedMA matches, as given
+        if matches["member"] is None:
+            matches["member"] = (ref_ws, f)
+        return match_encoder(ref_ws, f)
+
+    runs = {}
+    for name in BASELINE_ORDER:
+        bl.blend_trees = capture if name == "fedavg" else blend_trees
+        bl._greedy_match = timed_match if name == "fedma" else greedy
+        bl._match_encoder = kept_match if name == "fedma" else match_encoder
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        blaunch.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res, _ = bl.BASELINES[name](torch.Generator().manual_seed(0), spec,
+                                        ecfg, clients, va, te, cfg, device="cuda")
+        finally:
+            bl.blend_trees, bl._greedy_match = blend_trees, greedy
+            bl._match_encoder = match_encoder
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want = blaunch.launches, baseline_blends(name, clients, leaves, cfg.rounds)
+        runs[name] = {"wall_s": wall, "blend_launches": got,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "metrics": res}
+        print(f"{name}: {wall:.3f} s wall; {got} blend launches (want {want}); "
+              f"peak memory {runs[name]['peak_gb']:.2f} GB; "
+              f"{ {k: round(v, 4) for k, v in res.items()} }")
+        check(sorted(res) == sorted(BASELINE_KEYS), f"{name}: metric keys {sorted(res)}")
+        check(all(np.isnan(v) or 0.0 <= v <= 1.0 for v in res.values()),
+              f"{name}: metrics {res}")
+        check(got == want, f"{name}: {got} blend launches, want {want}")
+
+    err = 0.0
+    for trees, omega, out in captured:
+        om = torch.as_tensor(np.asarray(omega, np.float32), device=out[0].device)
+        for i, g in enumerate(out):
+            flat = torch.stack([t[i] for t in trees]).reshape(len(trees), -1)
+            want = bref.blend_params_ref(flat, om)
+            e = (g.reshape(-1) - want).abs()
+            check(bool((e <= bref.blend_error_bound(flat, om, want, g.reshape(-1))).all()),
+                  "FedAvg's blend beyond its bound against the plain version")
+            err = max(err, float(e.max()))
+    check(len(captured) == 5, f"FedAvg blended {len(captured)} trees, want 5")
+    print(f"FedAvg's {sum(len(o) for _, _, o in captured)} blended leaves match "
+          f"the plain version on the card; max abs err {err:.3g}")
+    del captured
+
+    ref, cand, perm = matches["first"]
+    t0 = time.perf_counter()
+    want = greedy_match_numpy(ref, cand)
+    numpy_s = time.perf_counter() - t0
+    n = ecfg.d_hidden
+    check(ref.shape == (n, n), f"first FedMA matching at {ref.shape}")
+    check(np.array_equal(perm, want), "FedMA's permutation on the card differs "
+          "from the reference loop's")
+    # the first matched member with every hidden layer's units shuffled
+    # (its members start from one global, so as run each matching is the
+    # identity): _match_encoder must move every unit back on the card
+    ref_ws, member = matches["member"]
+    rng = np.random.default_rng(21)
+    shuffled = dict(member, hidden=[])
+    for layer in member["hidden"]:
+        shuf = torch.as_tensor(rng.permutation(n), device=layer["w"].device)
+        shuffled["hidden"].append({"w": layer["w"][:, shuf], "b": layer["b"][shuf]})
+    out = bl._match_encoder(ref_ws, shuffled)
+    moved = 0
+    for ref_w, src, got in zip(ref_ws, shuffled["hidden"], out["hidden"]):
+        w, b = src["w"].cpu().numpy(), src["b"].cpu().numpy()
+        want_p = greedy_match_numpy(ref_w.T, w.T)
+        moved += int((want_p != np.arange(n)).sum())
+        check(got["w"].is_cuda and np.array_equal(got["w"].cpu().numpy(), w[:, want_p])
+              and np.array_equal(got["b"].cpu().numpy(), b[want_p]),
+              "FedMA's _match_encoder of a shuffled member on the card differs "
+              "from the reference loop's permutation")
+    print(f"FedMA: {matches['n']} matchings in {matches['s']:.3f} s on the card "
+          f"({matches['s'] / max(matches['n'], 1) * 1e3:.2f} ms each); the first "
+          f"({n} x {n}) equals the numpy reference loop's permutation "
+          f"({numpy_s:.2f} s on the host; {int((perm != np.arange(n)).sum())} "
+          f"units moved); a member with its {len(ref_ws)} hidden layers shuffled, "
+          f"matched by _match_encoder on the card, equals the loop's "
+          f"w[:, perm] / b[perm] ({moved} units moved)")
+
+    # where the time goes: an HFL baseline and SplitNN again (a first run
+    # pays one-time costs, such as the import autograd makes for the
+    # first grad_outputs), then under the profiler
+    for name in ("fedavg", "splitnn"):
+        def again(name=name):
+            return bl.BASELINES[name](torch.Generator().manual_seed(0), spec, ecfg,
+                                      clients, va, te, cfg, device="cuda")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again()
+        torch.cuda.synchronize()
+        runs[name]["warm_wall_s"] = time.perf_counter() - t0
+        bd = device_breakdown(again, runs[name]["warm_wall_s"])
+        runs[name]["breakdown"] = bd
+        print(f"{name} again: {bd['wall_ms']:.2f} ms wall; profiled: device busy "
+              f"{bd['busy_ms']:.2f} ms, idle share {bd['idle_share']:.3f}")
+        for k in bd["top"]:
+            print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x {k['kernel']}")
+
+    # card against CPU at phase 8's width
+    small = make_task("smnist")
+    tr, va8, te8 = train_val_test(small, 500, 300, 300, seed=0)
+    cl8 = partition(tr, 3, frac_paired=0.4, frac_fragmented=0.3, frac_partial=0.3)
+    cfg8 = FedConfig(n_clients=3, rounds=2, lr=1e-2, batch_size=64)
+    ecfg8 = EncoderConfig(d_hidden=48, n_layers=2)
+    evaluate = bl._evaluate
+    worst = {}
+    for name in BASELINES_CARD_CPU:
+        side = {}
+        for dev in ("cuda", "cpu"):
+            seen = []
+
+            def recording(models, *a, **k):
+                seen.append(params_to_numpy(models))
+                return evaluate(models, *a, **k)
+
+            bl._evaluate = recording
+            try:
+                res, _ = bl.BASELINES[name](torch.Generator().manual_seed(0), small,
+                                            ecfg8, cl8, va8, te8, cfg8, device=dev)
+            finally:
+                bl._evaluate = evaluate
+            side[dev] = (res, seen[-1])
+        (rc, mc), (rp, mp) = side["cuda"], side["cpu"]
+        pairs = list(zip(tree_leaves(mc), tree_leaves(mp)))
+        d_par = max(float(np.abs(a - b).max()) for a, b in pairs)
+        d_met = max(abs(rc[k] - rp[k]) for k in rp)
+        worst[name] = {"params": d_par, "metrics": d_met}
+        print(f"{name} card vs CPU: params max abs {d_par:.3g}, metrics max abs "
+              f"{d_met:.3g}")
+        check(all(np.allclose(a, b, rtol=PARAM_RTOL, atol=PARAM_ATOL) for a, b in pairs),
+              f"{name}: card vs CPU params beyond tolerance")
+        check(d_met <= EVAL_ATOL, f"{name}: card {rc} cpu {rp}")
+    secs = time.perf_counter() - t_phase
+    print(f"baselines phase: {secs:.1f} s")
+    return {"runs": runs, "fedma_match_s": matches["s"],
+            "fedma_matches": matches["n"], "blend_err": err,
+            "card_vs_cpu": worst, "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -2404,7 +2653,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("17 full-width sampled and strategy rounds")
-    sampled = sampled_training(torch, spec, ecfg, train.pop("data"), counted,
+    data = train.pop("data")
+    sampled = sampled_training(torch, spec, ecfg, data, counted,
                                train["round_wall_s"])
 
     phase("18 full-width sharded rounds through the batcher")
@@ -2415,6 +2665,11 @@ def main() -> int:
 
     phase("20 sharded rounds, card against CPU")
     sharded_card_vs_cpu(torch)
+
+    phase("21 full-width baselines")
+    baselines = baselines_phase(torch, spec, ecfg, data + (train.pop("test"),),
+                                blaunch, bref)
+    del data
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -2447,6 +2702,8 @@ def main() -> int:
         "shape": main_b["shape"], "per_shape": blend_times,
         "launches_sampled_rounds": sampled["launches"]["blend_params"],
         "launches_sharded_rounds": sharded["launches"]["blend_params"],
+        "launches_baselines": {k: v["blend_launches"]
+                               for k, v in baselines["runs"].items()},
     }
     main_s = slstm_times[-1]  # (64, 4, 64, 256): a full capacity batch
     slstm_record = {
@@ -2489,6 +2746,10 @@ def main() -> int:
         "shape": mlstm_time["shape"], "timing": mlstm_time,
         "max_abs_err_full_width": mlstm_main_errs,
     }
+    print("baselines: " + json.dumps(
+        {k: v for k, v in baselines.items() if k != "runs"}
+        | {"runs": {name: {k: v for k, v in run.items() if k != "breakdown"}
+                    for name, run in baselines["runs"].items()}}))
     print("sharded rounds: " + json.dumps(
         {label: {k: v for k, v in rec.items() if k != "breakdown"}
          for label, rec in sharded["runs"].items()}))

@@ -8,6 +8,8 @@ checkpoint's ``arrays.npz`` (``hidden/0/w``, ...), and returns the
 port's nested dict of tensors on ``device``. ``params_to_numpy`` is its
 inverse, giving back the nested numpy tree. Both carry any tree of
 arrays: stacked client models, global models, wire-codec residuals.
+``params_to_device`` also takes tensor leaves (initial weights given as
+``base=``).
 
 ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry an optimizer
 state (``{"step", "mu"/"nu"/"mom": {group: tree}}``) and hold its
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.common.tree import tree_map
 
 
 def _unflatten(flat: dict):
@@ -68,6 +72,14 @@ def params_from_numpy(tree_or_flat, device):
         return torch.from_numpy(np.array(node, copy=True)).to(device)
 
     return conv(tree)
+
+
+def params_to_device(tree, device):
+    """``params_from_numpy`` for trees whose leaves may also be tensors
+    (on any device): copies of the leaves on ``device``."""
+    return params_from_numpy(tree_map(
+        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
+        tree), device)
 
 
 def params_to_numpy(tree):

@@ -190,7 +190,7 @@ def fusion_apply_stacked(p, h_a, h_b):
     return _sdense(p["out"], h)
 
 
-def _value_and_grad(loss_fn, params):
+def value_and_grad(loss_fn, params):
     """``loss_fn(params) -> (total, aux)``; returns (aux, grads), with the
     gradient of ``total`` for every leaf of ``params``."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
@@ -316,7 +316,7 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
                                    batch["yb"], batch["mb"])
             return torch.sum(la) + torch.sum(lb), (la, na, lb, nb)
 
-        (la, na, lb, nb), grads = _value_and_grad(total, params)
+        (la, na, lb, nb), grads = value_and_grad(total, params)
         grads = _strat_grads(grads, params, strat)
         flags = {"f_A": na > 0, "g_A": na > 0, "f_B": nb > 0, "g_B": nb > 0}
         sub = _state_subset(opt_state, UNIMODAL_GROUPS)
@@ -353,7 +353,7 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
                 loss = masked_mean(rows, batch["w"])[0]
             return loss, loss
 
-        loss, g = _value_and_grad(joint, {"c": params, "srv": server_gmv})
+        loss, g = value_and_grad(joint, {"c": params, "srv": server_gmv})
         # strategy terms correct the CLIENT encoders only: the server's
         # g_M^v head never leaves the server
         grads = _strat_grads(g["c"], params, strat)
@@ -388,7 +388,7 @@ def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
                                batch["xb"], batch["y"], batch["m"])
             return torch.sum(l), (l, n)
 
-        (l, n), grads = _value_and_grad(total, params)
+        (l, n), grads = value_and_grad(total, params)
         grads = _strat_grads(grads, params, strat)
         flags = {k: n > 0 for k in PAIRED_GROUPS}
         sub = _state_subset(opt_state, PAIRED_GROUPS)

@@ -58,7 +58,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_map, tree_unstack
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import params_to_device
 from repro_torch.core import aggregate as strategies
 from repro_torch.core import codec as wire
 from repro_torch.core import schedule, vfl
@@ -363,9 +363,7 @@ class Federation:
         if base is None:
             base = init_client_models(gen, spec, ecfg, device=device)
         else:
-            base = params_from_numpy(tree_map(
-                lambda x: x.detach().cpu().numpy()
-                if isinstance(x, torch.Tensor) else x, base), device)
+            base = params_to_device(base, device)
         vfl_batch, vfl_host = _build_vfl_data(clients, spec, device)
         data = {
             "uni": _build_unimodal_data(clients, cfg, spec, device),

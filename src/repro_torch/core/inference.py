@@ -18,11 +18,14 @@ the wire codec when one is given.
 the forward on ``device`` and returns a ``PredictResult`` with the
 scores, the ``Route`` and the network cost. The batched many-request
 engine over the same forward is ``repro_torch.core.serving``.
+``local_predict`` and ``vfl_server_inference`` are deprecated wrappers
+over ``predict``.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 
 import numpy as np
 import torch
@@ -228,3 +231,30 @@ def communication_cost(batch: int, d_hidden: int, mode: str, out_dim: int,
                                                      dtype_bytes)
     score_bytes = batch * wire.leaf_payload_bytes(out_dim, codec, dtype_bytes)
     return {"messages": 3, "bytes": feat_bytes + score_bytes}
+
+
+# ------------------------------------------------- deprecated wrappers -----
+
+def local_predict(models: dict, req: InferenceRequest, ecfg: EncoderConfig,
+                  kind: str, *, device=None):
+    """Deprecated: use ``predict`` (returns a typed ``PredictResult``)."""
+    warnings.warn(
+        "local_predict is deprecated: use repro_torch.core.inference.predict, "
+        "which returns a PredictResult (scores / Route / messages / bytes)",
+        DeprecationWarning, stacklevel=2)
+    res = predict(models, dataclasses.replace(req, vfl=False), ecfg, kind,
+                  device=device)
+    return res.scores, res.route.value
+
+
+def vfl_server_inference(client_models: dict, server_gmv: dict, req: InferenceRequest,
+                         ecfg: EncoderConfig, kind: str, *, device=None):
+    """Deprecated: use ``predict(..., server_gmv=...)`` on a request with
+    ``vfl=True``."""
+    warnings.warn(
+        "vfl_server_inference is deprecated: use repro_torch.core.inference."
+        "predict with InferenceRequest(vfl=True) and server_gmv=",
+        DeprecationWarning, stacklevel=2)
+    res = predict(client_models, dataclasses.replace(req, vfl=True), ecfg,
+                  kind, server_gmv=server_gmv, device=device)
+    return res.scores, res.messages

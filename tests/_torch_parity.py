@@ -510,3 +510,90 @@ def assert_sharded_states_close(want, got, lossy=False):
             np.testing.assert_allclose(b, a, err_msg=key, **PARAM_TOL)
     if lossy:
         lossy_close(floats_w, floats_g)
+
+
+# ----------------------------------------------------------- baselines --
+
+# The baselines' parity runs: the setup of tests/test_baselines.py
+# (smnist, 300/200/200 rows, 3 clients, d_hidden=32, 2 layers, 2 rounds,
+# lr 1e-2, batch 64), both sides from the reference's initial weights.
+BASELINE_PARAM_ATOL = 1e-5
+BASELINE_METRIC_ATOL = 1e-3
+
+
+def baseline_setup(jax_side: bool):
+    """(spec, clients, val, test, ecfg, cfg) of one package."""
+    if jax_side:
+        from repro.core.encoders import EncoderConfig
+        from repro.core.federation import FedConfig
+        from repro.core.partitioner import partition
+        from repro.data.synthetic import make_task, train_val_test
+    else:
+        from repro_torch.core.encoders import EncoderConfig
+        from repro_torch.core.federation import FedConfig
+        from repro_torch.core.partitioner import partition
+        from repro_torch.data.synthetic import make_task, train_val_test
+    spec = make_task("smnist")
+    tr, va, te = train_val_test(spec, 300, 200, 200, seed=0)
+    return (spec, partition(tr, 3, seed=1), va, te,
+            EncoderConfig(d_hidden=32, n_layers=2, enc_type="mlp"),
+            FedConfig(n_clients=3, rounds=2, lr=1e-2, batch_size=64, seed=0))
+
+
+def baseline_pair(monkeypatch, name, history: bool = False):
+    """One baseline run by both packages from the reference's
+    ``init_client_models(PRNGKey(0), ...)`` weights. Returns ((metrics,
+    history, final models) of the reference, the same of the port); the
+    final models are the ones each side passed to its last ``_evaluate``
+    (numpy trees)."""
+    import importlib
+
+    import torch
+
+    from repro.core.encoders import init_client_models
+    from repro_torch.convert import params_to_numpy
+
+    out = []
+    for jax_side, mod_name in ((True, "repro.core.baselines"),
+                               (False, "repro_torch.core.baselines")):
+        # the module, not a function ``repro.core`` exports under its name
+        mod = importlib.import_module(mod_name)
+        seen = []
+        evaluate = mod._evaluate
+
+        def recording(models, *a, _evaluate=evaluate, _np=jax_side, **k):
+            seen.append(jax.tree.map(np.asarray, models) if _np
+                        else params_to_numpy(models))
+            return _evaluate(models, *a, **k)
+
+        monkeypatch.setattr(mod, "_evaluate", recording)
+        spec, clients, va, te, ecfg, cfg = baseline_setup(jax_side)
+        kw = {"history_test": te} if history else {}
+        if jax_side:
+            base = jax.tree.map(np.asarray, init_client_models(
+                jax.random.PRNGKey(0), spec, ecfg))
+            res, hist = mod.BASELINES[name](jax.random.PRNGKey(0), spec, ecfg,
+                                            clients, va, te, cfg, **kw)
+        else:
+            res, hist = mod.BASELINES[name](torch.Generator(), spec, ecfg,
+                                            clients, va, te, cfg, **kw,
+                                            base=base, device="cpu")
+        out.append((res, hist, seen[-1]))
+    return out
+
+
+def assert_baseline_close(want, got):
+    """Metric dicts and histories within BASELINE_METRIC_ATOL, final
+    models within BASELINE_PARAM_ATOL (absolute)."""
+    (jres, jhist, jm), (tres, thist, tm) = want, got
+    assert sorted(tres) == sorted(jres)
+    for k in jres:
+        np.testing.assert_allclose(tres[k], jres[k], rtol=0,
+                                   atol=BASELINE_METRIC_ATOL, err_msg=k)
+    assert len(thist) == len(jhist)
+    for jh, th in zip(jhist, thist):
+        assert sorted(th) == sorted(jh) and th["round"] == jh["round"]
+        for k in jh:
+            np.testing.assert_allclose(th[k], jh[k], rtol=0,
+                                       atol=BASELINE_METRIC_ATOL, err_msg=k)
+    assert_trees_close(jm, tm, rtol=0, atol=BASELINE_PARAM_ATOL)

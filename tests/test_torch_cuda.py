@@ -609,3 +609,55 @@ def test_sharded_round_on_card_matches_cpu(flags):
     for k in ("part_count", "last_round"):
         np.testing.assert_array_equal(runs["cuda"][1]["sched"][k],
                                       runs["cpu"][1]["sched"][k])
+
+
+# ----------------------------------------------------------- baselines --
+
+@pytest.mark.cuda
+def test_fedma_matcher_on_card_equals_cpu():
+    """FedMA's greedy matcher at a full-width hidden layer (n = 1024):
+    the picks on the card (argmax over a masked copy of sim) equal the
+    CPU's exactly, on a random pair and on one laden with ties."""
+    _skip_without_card()
+    from repro_torch.core.baselines import _greedy_match
+
+    rng = np.random.default_rng(11)
+    ref = rng.standard_normal((1024, 1024)).astype(np.float32)
+    cand = (ref[rng.permutation(1024)]
+            + 0.5 * rng.standard_normal((1024, 1024))).astype(np.float32)
+    tied = cand.copy()
+    tied[1::2] = tied[::2]
+    tied[:128] = 0
+    for c in (cand, tied):
+        got = _greedy_match(ref.T, c.T, device="cuda")
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      _greedy_match(ref.T, c.T, device="cpu").numpy())
+
+
+@pytest.mark.cuda
+def test_fedavg_round_launches_its_blends_on_card():
+    """One FedAvg round on the card blends through the kernel: one launch
+    a leaf of each model group that has members (f_A + g_A, f_B + g_B,
+    g_M)."""
+    _skip_without_card()
+    from repro_torch.core.baselines import run_fedavg
+    from repro_torch.core.encoders import EncoderConfig
+    from repro_torch.core.federation import FedConfig
+    from repro_torch.core.partitioner import partition
+    from repro_torch.data.synthetic import make_task, train_val_test
+
+    spec = make_task("smnist")
+    tr, va, te = train_val_test(spec, 300, 200, 200, seed=0)
+    clients = partition(tr, 3, seed=1)
+    ecfg = EncoderConfig(d_hidden=32, n_layers=2)
+    cfg = FedConfig(n_clients=3, rounds=1, lr=1e-2, batch_size=64)
+    leaves = {"A": 2 + 2 * 2 + 1 + 2, "B": 2 + 2 * 2 + 1 + 2, "M": 4}
+    want = sum(leaves[m] for m, has in (("A", "has_a"), ("B", "has_b"),
+                                        ("M", "has_paired"))
+               if any(getattr(c, has) for c in clients))
+    before = blend_launcher.launches
+    res, _ = run_fedavg(torch.Generator().manual_seed(0), spec, ecfg, clients,
+                        va, te, cfg, device="cuda")
+    assert blend_launcher.launches - before == want == 22
+    assert all(np.isnan(v) or 0.0 <= v <= 1.0 for v in res.values())

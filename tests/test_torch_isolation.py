@@ -36,7 +36,8 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.core.schedule", "repro_torch.core.engine",
               "repro_torch.core.federation_sharded",
               "repro_torch.data.pipeline", "repro_torch.data.scenario",
-              "repro_torch.data.store", "repro_torch.launch.train_federated"):
+              "repro_torch.data.store", "repro_torch.launch.train_federated",
+              "repro_torch.core.baselines", "repro_torch.launch.serve"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -132,6 +133,15 @@ def test_entry_points_need_cuda_without_device():
     batcher.device = None  # the batcher's own default
     with pytest.raises(RuntimeError, match="CUDA"):
         batcher.put(batcher.build(0))
+    from repro_torch.core import baselines
+
+    eye = np.eye(4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):  # FedMA's matcher
+        baselines._greedy_match(eye, eye)
+    for name, run in baselines.BASELINES.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(torch.Generator(), spec, ecfg, partition(tr, 3), va, va,
+                FedConfig(rounds=1))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
