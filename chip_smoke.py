@@ -10,15 +10,18 @@ outside a checkout. Phases, each fatal on failure:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled from the checkout, one
    nvcc per source, all at once;
-3. wire codec against plain: the kernel's wrapper on tensors on the card,
-   held against its plain PyTorch version (serving shapes, ragged N, an
-   all-zero row, ties at the threshold, bf16, every codec, the features
-   the full-width encoders produce, and the message shapes of a full
-   and of a K = 4 sampled training round, whose rows span more blocks
-   than the kernel's capped grid),
-   then timed with CUDA events beside the plain version and the HBM
-   bound, and at its least work, one row of 32 entries (the launch
-   floor);
+3. wire codec against plain: the fused op (each row's scale and top-k
+   threshold selected on the card, then the pass) and the pass alone
+   given the library top-k's [scale, thresh], on tensors on the card,
+   held against the plain PyTorch version bit for bit (serving shapes,
+   ragged N, an all-zero row, ties at the threshold, bf16, every codec,
+   the features the full-width encoders produce, and the message shapes
+   of a full and of a K = 4 sampled training round, which take the
+   multi-CTA select), then timed with CUDA events beside the top-k
+   composition (library top-k, then the pass), the pass alone, the plain
+   version and the HBM bound, the kernels each call puts on the card
+   held to the launcher's count, and at its least work, one row of 32
+   entries (the launch floor);
 4. full-width serving: the ``ServingEngine`` (int8_topk codec) over three
    request mixes on the widest BlendFL model the repository supports
    (MLP encoders, d_hidden=1024, 4 layers, 64x128 features per modality,
@@ -34,11 +37,15 @@ outside a checkout. Phases, each fatal on failure:
    and a K = 4 sampled round's ((4, 1,048,576), (5, 2,097,152),
    (4, 2,097,152), (5, 262,144)), a zero omega and bf16, then timed
    beside the plain version, the library call ``omega @ stacked`` and
-   the HBM bound;
+   the HBM bound; then one full-width round's three group trees (A and B
+   at 16 rows, M at 17) blended in one launch each, held bit for bit
+   against one-leaf launches, timed beside the 30 one-leaf launches, the
+   30 per-leaf ``omega @ stacked`` and the bound, and the host time of
+   entering ``torch.cuda.device``;
 7. full-width training: BlendFL rounds (Algorithm 1 with BlendAvg, SGD)
    of 16 clients on the same model width, 8192 training rows: phase
    seconds, finite losses, omegas, blend launches of exactly one per
-   leaf of each group that blended, one round's blend held against the
+   group that blended (A, B, M), one round's blend held against the
    plain version, ``evaluate_global``, a profiled round, then one round
    under the ``int8_topk`` wire codec (one codec launch per leaf each
    way) and the codec's times at the round's message shapes;
@@ -99,11 +106,11 @@ outside a checkout. Phases, each fatal on failure:
 17. full-width sampled and strategy rounds: phase 7's federation at K = 4
    of its 16 clients: 3 async BlendAvg rounds (uniform policy; wall time
    beside phase 7's full round, ids, staleness, ``last_round`` moving
-   only at the participants, finite losses, one blend launch a leaf of
-   each group that blended) and a profiled one, a round under each other
+   only at the participants, finite losses, one blend launch a group
+   that blended) and a profiled one, a round under each other
    policy, a round of each strategy and server optimizer (fedavg,
    fedprox, scaffold, fedavg with adam and with momentum, median and
-   trimmed_mean launching no blend, krum one a leaf) with its peak
+   trimmed_mean launching no blend, krum one a group) with its peak
    device memory, and a sampled async ``int8_topk`` round (one codec
    launch a leaf each way);
 18. full-width sharded rounds: ``federation_sharded.make_blendfl_round``
@@ -114,7 +121,7 @@ outside a checkout. Phases, each fatal on failure:
    for the batch, the batcher's build and stall seconds, peak memory)
    and a profiled one, 3 K = 4 async rounds under ``omega_ema`` (ids and
    ``last_round`` moving only at the participants) and a K = 4
-   ``int8_topk`` round; finite losses, one blend launch a leaf every
+   ``int8_topk`` round; finite losses, one blend launch a group every
    round, one codec launch a leaf each way, no other kernel;
 19. the training CLI on the card, in a child process that sets
    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts: ``--selftest-resume``
@@ -134,8 +141,8 @@ outside a checkout. Phases, each fatal on failure:
    FedAvg, FedProx, FedNova, FedMA, HFCL, SplitNN, One-Shot VFL,
    centralized) once each on phase 7's data and model (1 round of 1
    local epoch): wall seconds, blend launches equal to the analytic count
-   (30 a round for the HFL five, 26 for One-Shot VFL, none for SplitNN
-   and centralized), peak memory, the six metrics each NaN or in [0, 1];
+   (one launch a model tree blended: 5 a round for the HFL five, 4 for
+   One-Shot VFL, none for SplitNN and centralized), peak memory, the six metrics each NaN or in [0, 1];
    FedAvg and SplitNN timed again and profiled (busy, idle share, the
    kernels that take most); FedAvg's blends against the plain version, FedMA's matching seconds
    and one (1024, 1024) matching against a numpy copy of the reference's
@@ -375,9 +382,9 @@ def kernel_cases(torch, feats):
         for codec, (kk, q) in codecs.items():
             cases.append((f"{label}/{codec}", x, k if kk else None, q))
     # the training round's messages: uplink (C=16 or K=4, leaf) and
-    # downlink (1, leaf) at k = a quarter of the row, in f32 and bf16; a 1M-wide row
-    # needs 4096 blocks of 256 threads, so the kernel's grid (capped at 256
-    # blocks a row) loops over each row 16 times
+    # downlink (1, leaf) at k = a quarter of the row, in f32 and bf16;
+    # rows this wide take the multi-CTA select (a histogram kernel a digit
+    # pass, merged across the row's CTAs in a workspace)
     for l, n in TRAIN_CODEC_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = rows(l, n).to(dtype)
@@ -387,15 +394,34 @@ def kernel_cases(torch, feats):
     return cases
 
 
+def nan_equal(torch, a, b) -> bool:
+    """Bit for bit, NaN as equal."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(bits), b[~nan].view(bits)))
+
+
 def check_kernel(torch, ops, launcher, ref, x, k, quantize):
+    """The codec on one message x (L, N): the fused op (selection and
+    pass on the card) and the top-k composition (library top-k, then the
+    pass kernel), each against the plain version. The fused op's
+    [scale, thresh] and output must equal the plain version's bit for
+    bit (NaN as equal); so must the pass's output. Returns the largest
+    absolute difference seen."""
     st = ops.scale_thresh(x, k)
-    got = launcher.wire_codec_cuda(x.contiguous(), st, quantize=quantize)
+    xc = x.contiguous()
+    got = launcher.wire_codec_cuda(xc, st, quantize=quantize)
+    fused, fused_st = launcher.wire_codec_fused(xc, k=k, quantize=quantize)
     want = ref.wire_codec_ref(x, st, quantize=quantize)
     torch.cuda.synchronize()
+    check(nan_equal(torch, fused_st, st), "the fused op's [scale, thresh] "
+          "differ from the library top-k's")
+    check(nan_equal(torch, fused, want), "the fused op differs from the plain version")
     g, w = got.float(), want.float()
     check(torch.equal(g != 0, w != 0), "keep-masks differ")
     scale = st[:, :1]
-    err = float((g - w).abs().max())
+    err = float(max((g - w).abs().max(), (fused.float() - w).abs().max()))
     if quantize:
         check(torch.equal(torch.round(g * 127 / scale),
                           torch.round(w * 127 / scale)), "int8 codes differ")
@@ -410,27 +436,81 @@ def check_kernel(torch, ops, launcher, ref, x, k, quantize):
     return err
 
 
+def codec_kernels_a_call(torch, launcher, x, k, calls=10, attempts=3) -> dict:
+    """{kernel or copy name: launches a call} that the fused codec puts on
+    the card, and their device microseconds a call, from profiles of
+    ``calls`` calls; the launches are held to what ``wire_codec.py``
+    states: one ``narrow_kernel`` for N <= NARROW_MAX; else a memset,
+    ``hist_kernel`` once a digit pass (3 sparse f32, 2 sparse bf16, 1
+    dense) and one ``pass_kernel``. A name the statement lacks, or more
+    launches than it states, fails. The profiler can lose launches (a
+    profile of this script has recorded none): a profile short of the
+    statement is taken again, and after ``attempts`` short ones the
+    launches read None, with a ``profiler dropped events`` line."""
+    rows, n = x.shape
+    if n <= launcher.NARROW_MAX:
+        want = {"narrow_kernel": 1}
+    else:
+        sparse = k is not None and k < n
+        want = {"memset": 1, "hist_kernel": (3 if x.dtype == torch.float32 else 2)
+                if sparse else 1, "pass_kernel": 1}
+    for _ in range(attempts):
+        got, us = {}, {}
+        for t, c, name in device_kernels(lambda: [launcher.wire_codec_fused(
+                x, k=k, quantize=True) for _ in range(calls)]):
+            key = next((kn for kn in ("narrow_kernel", "hist_kernel", "pass_kernel")
+                        if kn in name), "memset" if "emset" in name else name[:60])
+            got[key] = got.get(key, 0) + c
+            us[key] = us.get(key, 0.0) + t / calls
+        check(set(got) <= set(want) and all(got[key] <= calls * want[key] for key in got),
+              f"{calls} fused codec calls at {tuple(x.shape)} put {got} on the card, "
+              f"want {calls} x {want}")
+        if got == {key: calls * c for key, c in want.items()}:
+            return {"calls": want, "device_us": us}
+    print(f"profiler dropped events (fused codec at {tuple(x.shape)}): launches "
+          f"recorded / expected {got} / {calls} x {want}")
+    return {"calls": None, "device_us": None}
+
+
 def time_codec(torch, ops, launcher, ref, x, k, mem_rate):
+    """The codec at one message shape (quantize on, k as given): the fused
+    op (what the main path calls), the top-k composition it replaced
+    (``scale_thresh``'s library top-k, then the pass kernel), the pass
+    alone given [scale, thresh], and the plain version, each per call;
+    device times from the profiler; the HBM bound."""
     st = ops.scale_thresh(x, k)
     xc = x.contiguous()
-    ms = cuda_time_ms(lambda: launcher.wire_codec_cuda(xc, st, quantize=True))
-    plain_ms = cuda_time_ms(lambda: ref.wire_codec_ref(xc, st, quantize=True))
-    roundtrip_ms = cuda_time_ms(
-        lambda: ops.wire_codec_roundtrip(xc, k=k, quantize=True))
-    kernel_device_ms = device_ms(
-        lambda: launcher.wire_codec_cuda(xc, st, quantize=True))
-    plain_device_ms = device_ms(
-        lambda: ref.wire_codec_ref(xc, st, quantize=True))
+    fused = lambda: launcher.wire_codec_fused(xc, k=k, quantize=True)  # noqa: E731
+    composition = lambda: launcher.wire_codec_cuda(  # noqa: E731
+        xc, ops.scale_thresh(xc, k), quantize=True)
+    ms = cuda_time_ms(fused)
+    pass_ms = cuda_time_ms(lambda: launcher.wire_codec_cuda(xc, st, quantize=True))
+    composition_ms = cuda_time_ms(composition)
+    plain_ms = cuda_time_ms(lambda: ref.wire_codec_ref(
+        xc, ops.scale_thresh(xc, k), quantize=True))
     rows, n = x.shape
     nbytes = rows * n * 2 * x.element_size() + rows * 8
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = CODEC_OPS_PER_ELEM * rows * n / FP32_OPS_PER_S * 1e3
     return {"shape": [rows, n], "dtype": str(x.dtype).replace("torch.", ""),
-            "k": k, "ms": ms, "plain_ms": plain_ms,
-            "roundtrip_ms": roundtrip_ms, "device_ms": kernel_device_ms,
-            "plain_device_ms": plain_device_ms,
+            "k": k, "ms": ms, "pass_ms": pass_ms, "composition_ms": composition_ms,
+            "plain_ms": plain_ms, "device_ms": device_ms(fused, label="fused codec"),
+            "pass_device_ms": device_ms(lambda: launcher.wire_codec_cuda(
+                xc, st, quantize=True), label="codec pass"),
+            "composition_device_ms": device_ms(composition, label="composition"),
+            "kernels_a_call": codec_kernels_a_call(torch, launcher, xc, k),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def print_codec_time(t):
+    print(f"wire_codec {t['shape']} {t['dtype']} k={t['k']}: fused op "
+          f"{t['ms']:.5f} ms a call (device {t['device_ms']} ms; kernels a "
+          f"call {t['kernels_a_call']}); top-k composition (library top-k + "
+          f"pass) {t['composition_ms']:.5f} ms (device "
+          f"{t['composition_device_ms']} ms); pass alone {t['pass_ms']:.5f} ms "
+          f"(device {t['pass_device_ms']} ms); plain {t['plain_ms']:.5f} ms; "
+          f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
 
 
 def rotation(make, nbytes):
@@ -508,10 +588,105 @@ def time_blend(torch, blaunch, bref, l, n, mem_rate):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def round_blend(torch, blaunch, bref, spec, ecfg, mem_rate) -> dict:
+    """Phase 6's full-width round: the three group trees a round blends
+    (f_A + g_A and f_B + g_B at 16 rows, g_M at 17: 13, 13 and 4 leaves,
+    normal values from a seed), each blended in one launch through
+    ``blend_params``, held bit for bit against one-leaf launches of the
+    same kernel and within ``blend_error_bound`` of the plain version;
+    then timed per round (three calls) beside the 30 one-leaf launches
+    (one launch a leaf), the 30 per-leaf ``omega @ stacked`` and the
+    bound, with device times; and the host time of entering
+    ``torch.cuda.device`` around a launch, which the launchers now skip
+    where the device is already current."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.encoders import init_client_models
+    from repro_torch.kernels import on_device
+    from repro_torch.kernels.blendavg.ops import blend_params
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    one = init_client_models(torch.Generator().manual_seed(0), spec, ecfg,
+                             device="cpu")
+    groups, omegas = {}, {}
+    for m, keys, rows in (("A", ("f_A", "g_A"), 16), ("B", ("f_B", "g_B"), 16),
+                          ("M", ("g_M",), 17)):
+        groups[m] = {k: [torch.randn((rows,) + tuple(x.shape), generator=gen,
+                                     device="cuda") for x in tree_leaves(one[k])]
+                     for k in keys}
+        w = torch.rand(rows, generator=gen, device="cuda")
+        omegas[m] = w / w.sum()
+    del one
+    flat = [(x, omegas[m]) for m in groups for x in tree_leaves(groups[m])]
+    blaunch.launches = 0
+    trees = {m: blend_params(groups[m], omegas[m]) for m in groups}
+    launches = blaunch.launches
+    check(launches == 3, f"a round's three group trees took {launches} launches")
+    err = 0.0
+    for m in groups:
+        for x, g in zip(tree_leaves(groups[m]), tree_leaves(trees[m])):
+            x2 = x.reshape(x.shape[0], -1)
+            single = blaunch.blend_params_cuda(x2, omegas[m])
+            check(torch.equal(g.reshape(-1), single),
+                  f"group {m}: the tree launch differs from a one-leaf launch")
+            want = bref.blend_params_ref(x2, omegas[m])
+            e = (single - want).abs()
+            check(bool((e <= bref.blend_error_bound(x2, omegas[m], want, single)).all()),
+                  f"group {m}: tree blend beyond its bound")
+            err = max(err, float(e.max()))
+    del trees
+
+    def tree_round():
+        return [blend_params(groups[m], omegas[m]) for m in groups]
+
+    def leaf_round():
+        return [blaunch.blend_params_cuda(x.reshape(x.shape[0], -1), w) for x, w in flat]
+
+    def cublas_round():
+        return [w @ x.reshape(x.shape[0], -1) for x, w in flat]
+
+    def plain_round():
+        return [bref.blend_params_ref(x.reshape(x.shape[0], -1), w) for x, w in flat]
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    host = {}
+    for label, ctx in (("torch.cuda.device", lambda: torch.cuda.device(dev)),
+                       ("on_device (current)", lambda: on_device(dev))):
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            with ctx():
+                pass
+        host[label] = (time.perf_counter() - t0) / 20000 * 1e6
+    nbytes = sum(x.numel() * 4 + x[0].numel() * 4 + x.shape[0] * 4 for x, _ in flat)
+    out = {"launches": launches, "leaves": len(flat), "max_abs_err": err,
+           "ms": cuda_time_ms(tree_round, iters=50, warmup=3),
+           "one_leaf_launches_ms": cuda_time_ms(leaf_round, iters=50, warmup=3),
+           "library_ms": cuda_time_ms(cublas_round, iters=50, warmup=3),
+           "plain_ms": cuda_time_ms(plain_round, iters=10, warmup=1),
+           "device_ms": device_ms(tree_round, iters=10, label="tree blend"),
+           "one_leaf_device_ms": device_ms(leaf_round, iters=10, label="one-leaf blends"),
+           "library_device_ms": device_ms(cublas_round, iters=10, label="omega @ stacked"),
+           "host_us_entering": host,
+           "bound_ms": nbytes / mem_rate * 1e3, "bound_by": "bytes"}
+    print(f"full round's blends (A, B, M trees of 13, 13, 4 leaves): {launches} "
+          f"launches, equal to one-leaf launches bit for bit, max abs err vs "
+          f"plain {err:.3g}; {out['ms']:.5f} ms a round (device {out['device_ms']} "
+          f"ms) against 30 one-leaf launches {out['one_leaf_launches_ms']:.5f} ms "
+          f"(device {out['one_leaf_device_ms']} ms), 30 x omega @ stacked "
+          f"{out['library_ms']:.5f} ms (device {out['library_device_ms']} ms), "
+          f"plain {out['plain_ms']:.5f} ms; bound {out['bound_ms']:.6f} ms (bytes); "
+          f"host us entering a device context: "
+          f"{ {k: round(v, 3) for k, v in host.items()} }")
+    del groups, flat
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_train_codec(torch, ops, wlaunch, wref, rows, n, mem_rate):
     """The wire codec at one training message shape (k = a quarter of
-    the row, the codec's default topk_frac): kernel and plain version
-    given [scale, thresh], and the whole round-trip with its top-k."""
+    the row, the codec's default topk_frac), inputs rotated over
+    ROTATE_BYTES: the fused op, the top-k composition (library top-k,
+    then the pass kernel), the pass alone given [scale, thresh] and the
+    plain version, each per call; device times; the bound."""
     from repro_torch.core.codec import topk_k
 
     k = topk_k(n, 0.25)
@@ -523,19 +698,32 @@ def time_train_codec(torch, ops, wlaunch, wref, rows, n, mem_rate):
         return x, ops.scale_thresh(x, k)
 
     nxt = rotation(make, nbytes)
-    ms = cuda_time_ms(lambda: wlaunch.wire_codec_cuda(*nxt(), quantize=True),
-                      iters=50, warmup=3)
-    plain_ms = cuda_time_ms(lambda: wref.wire_codec_ref(*nxt(), quantize=True),
-                            iters=50, warmup=3)
-    roundtrip_ms = cuda_time_ms(lambda: ops.wire_codec_roundtrip(
-        nxt()[0], k=k, quantize=True), iters=20, warmup=2)
-    kernel_device_ms = device_ms(
-        lambda: wlaunch.wire_codec_cuda(*nxt(), quantize=True), iters=20)
+
+    def fused():
+        return wlaunch.wire_codec_fused(nxt()[0], k=k, quantize=True)
+
+    def composition():
+        x = nxt()[0]
+        return wlaunch.wire_codec_cuda(x, ops.scale_thresh(x, k), quantize=True)
+
+    ms = cuda_time_ms(fused, iters=50, warmup=3)
+    pass_ms = cuda_time_ms(lambda: wlaunch.wire_codec_cuda(*nxt(), quantize=True),
+                           iters=50, warmup=3)
+    composition_ms = cuda_time_ms(composition, iters=20, warmup=2)
+    plain_ms = cuda_time_ms(lambda: (lambda x: wref.wire_codec_ref(
+        x, ops.scale_thresh(x, k), quantize=True))(nxt()[0]), iters=20, warmup=2)
     bytes_ms = (nbytes * 2 + rows * 8) / mem_rate * 1e3
     ops_ms = CODEC_OPS_PER_ELEM * rows * n / FP32_OPS_PER_S * 1e3
     return {"shape": [rows, n], "dtype": "float32", "k": k, "ms": ms,
-            "plain_ms": plain_ms, "roundtrip_ms": roundtrip_ms,
-            "device_ms": kernel_device_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "pass_ms": pass_ms, "composition_ms": composition_ms,
+            "plain_ms": plain_ms,
+            "device_ms": device_ms(fused, iters=20, label="fused codec"),
+            "pass_device_ms": device_ms(lambda: wlaunch.wire_codec_cuda(
+                *nxt(), quantize=True), iters=20, label="codec pass"),
+            "composition_device_ms": device_ms(composition, iters=20,
+                                               label="composition"),
+            "kernels_a_call": codec_kernels_a_call(torch, wlaunch, nxt()[0], k),
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
@@ -628,7 +816,7 @@ def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
         groups = blended(logs)
         if r == 0:
             groups0 = groups
-        want = sum(leaves[m] for m in groups)
+        want = sum(blaunch.launches_for(leaves[m]) for m in groups)
         losses = {k: logs[k] for k in ("loss_partial", "loss_vfl", "loss_paired")}
         print(f"round {r}: {walls[-1]:.3f} s wall; phases "
               f"{ {k: round(v, 4) for k, v in secs.items()} } s; losses "
@@ -686,7 +874,7 @@ def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
     torch.cuda.synchronize()
     codec_wall = time.perf_counter() - t0
     codec_launches = wlaunch.launches
-    want = sum(leaves[m] for m in blended(logs))
+    want = sum(blaunch.launches_for(leaves[m]) for m in blended(logs))
     print(f"int8_topk round: {codec_wall:.3f} s wall; losses "
           f"{[round(logs[k], 5) for k in ('loss_partial', 'loss_vfl', 'loss_paired')]}; "
           f"{codec_launches} wire_codec launches (want 2 x {n_msg}); "
@@ -701,10 +889,7 @@ def full_width_training(torch, spec, ecfg, blaunch, bref, wlaunch, ops, wref,
     codec_times = [time_train_codec(torch, ops, wlaunch, wref, rows, n, mem_rate)
                    for rows, n in ((16, 1048576), (1, 2097152))]
     for t in codec_times:
-        print(f"wire_codec {t['shape']} k={t['k']}: kernel {t['ms']:.5f} ms "
-              f"(device {t['device_ms']} ms), plain {t['plain_ms']:.5f} ms, "
-              f"roundtrip with top-k {t['roundtrip_ms']:.5f} ms; bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+        print_codec_time(t)
     return {"launches": launches, "round_wall_s": walls, "breakdown": bd,
             "codec_launches": codec_launches, "codec_round_s": codec_wall,
             "codec_times": codec_times, "evaluate_global": ev,
@@ -869,17 +1054,20 @@ def vfl_live(fed, ids) -> bool:
 
 
 def expected_blends(fed, logs, leaves) -> int:
-    """Blend launches a round should make: one a leaf of each group that
-    blended. BlendAvg blends a group where some omega is positive; the
-    weighted strategies and krum blend every group that ran (fedavg's
-    path blends, then keeps the global where no weight is positive);
-    median and trimmed_mean reduce by order statistics and blend none."""
+    """Blend launches a round should make: one a group tree that blended
+    (``launches_for`` its leaves: one up to 64). BlendAvg blends a group
+    where some omega is positive; the weighted strategies and krum blend
+    every group that ran (fedavg's path blends, then keeps the global
+    where no weight is positive); median and trimmed_mean reduce by order
+    statistics and blend none."""
+    from repro_torch.kernels.blendavg.blendavg import launches_for
+
     scfg = fed.engine.cfg.strategy
     if scfg.name in ("median", "trimmed_mean"):
         return 0
     if scfg.score_based:
-        return sum(leaves[m] for m in blended(logs))
-    return sum(leaves[m] for m in "ABM" if f"omega_{m}" in logs)
+        return sum(launches_for(leaves[m]) for m in blended(logs))
+    return sum(launches_for(leaves[m]) for m in "ABM" if f"omega_{m}" in logs)
 
 
 def sampled_training(torch, spec, ecfg, data, counted, full_round_s) -> dict:
@@ -1876,6 +2064,7 @@ def sharded_training(torch, spec, counted) -> dict:
                                                      make_blendfl_round)
     from repro_torch.core.schedule import telemetry_from_state
     from repro_torch.data.pipeline import FederatedBatcher
+    from repro_torch.kernels.blendavg.blendavg import launches_for
     from repro_torch.launch.train_federated import client_arrays
 
     t0 = time.perf_counter()
@@ -1903,6 +2092,8 @@ def sharded_training(torch, spec, counted) -> dict:
         holder = {"state": init_round_state(torch.Generator().manual_seed(0),
                                             sspec, "cuda")}
         n_leaves = len(tree_leaves(holder["state"]["global_models"]))
+        n_blends = sum(launches_for(n) for n in group_leaves(
+            tree_leaves, holder["state"]["global_models"]).values())
         torch.cuda.synchronize()
         stream = batcher.rounds(0, rounds, telemetry_fn=lambda: telemetry_from_state(
             holder["state"]))
@@ -1922,7 +2113,7 @@ def sharded_training(torch, spec, counted) -> dict:
             losses = {k: float(metrics[k]) for k in
                       ("loss_uni", "loss_vfl", "loss_paired")}
             want = {name: 0 for name in counted}
-            want["blend_params"] = n_leaves  # every group blends, a leaf a launch
+            want["blend_params"] = n_blends  # every group blends, a tree a launch
             if sspec.codec != "none":
                 want["wire_codec"] = 2 * n_leaves
             after = holder["state"]["last_round"].cpu().numpy()
@@ -1961,7 +2152,8 @@ def sharded_training(torch, spec, counted) -> dict:
             walls = [r["round_s"] for r in rec["rounds"]]
             rec["breakdown"] = device_breakdown(
                 lambda: round_fn(holder["state"], batch), float(np.median(walls)),
-                top=8, match=("blend_kernel", "wire_codec"))
+                top=8, match=("blend_kernel", "narrow_kernel", "hist_kernel",
+                              "pass_kernel"))
             print_breakdown(f"{label}, a profiled round", rec["breakdown"])
         out["runs"][label] = rec
         del holder, batcher, stream
@@ -2022,7 +2214,7 @@ def cli_child(workdir: str) -> int:
           f"{[r['launches'] for r in first + second]}", flush=True)
     check([r["round"] for r in first] == [0, 1, 2, 3]
           and [r["round"] for r in second] == [4, 5], "checkpointed run rounds")
-    check(all(r["launches"] == {"blend_params": 30, "wire_codec": 0}
+    check(all(r["launches"] == {"blend_params": 3, "wire_codec": 0}
               for r in first + second), "checkpointed run launches")
     check(all(np.isfinite(r["loss_uni"]) for r in first + second), "losses")
     store = os.path.join(workdir, "store")
@@ -2259,19 +2451,28 @@ def greedy_match_numpy(ref, cand):
     return perm
 
 
-def baseline_blends(name, clients, leaves, rounds) -> int:
-    """Blend launches a baseline makes: one a leaf of each model group
-    with members (f_A + g_A, f_B + g_B, g_M) every round of the HFL
+def baseline_blends(name, clients, tree_leaves_by_key, rounds) -> int:
+    """Blend launches a baseline makes: one a model tree it blends
+    (``launches_for`` its leaves: one up to 64), f_A and g_A, f_B and
+    g_B, g_M, of each group with members, every round of the HFL
     baselines (HFCL's pooled client holds a modality iff a data-sharing
     client does, so its groups are those of all clients); One-Shot VFL
-    blends f + g of A and B once; SplitNN and centralized none."""
+    blends f and g of A and B once; SplitNN and centralized none."""
+    from repro_torch.kernels.blendavg.blendavg import launches_for
+
     has = {"A": any(c.has_a for c in clients), "B": any(c.has_b for c in clients),
            "M": any(c.has_paired for c in clients)}
+    trees = {"A": ("f_A", "g_A"), "B": ("f_B", "g_B"), "M": ("g_M",)}
+
+    def per(groups):
+        return sum(launches_for(tree_leaves_by_key[k]) for m in groups if has[m]
+                   for k in trees[m])
+
     if name in ("splitnn", "centralized"):
         return 0
     if name == "oneshot_vfl":
-        return sum(leaves[m] for m in "AB" if has[m])
-    return rounds * sum(leaves[m] for m in "ABM" if has[m])
+        return per("AB")
+    return rounds * per("ABM")
 
 
 def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
@@ -2299,9 +2500,12 @@ def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
     t_phase = time.perf_counter()
     clients, va, te = data
     cfg = FedConfig(n_clients=16, rounds=1, local_epochs=1, lr=1e-2, batch_size=64)
-    leaves = group_leaves(tree_leaves, init_client_models(
-        torch.Generator().manual_seed(0), spec, ecfg, device="cpu"))
+    models = init_client_models(torch.Generator().manual_seed(0), spec, ecfg,
+                                device="cpu")
+    leaves = group_leaves(tree_leaves, models)
     check(leaves == {"A": 13, "B": 13, "M": 4}, f"leaves per group {leaves}")
+    key_leaves = {k: len(tree_leaves(v)) for k, v in models.items()}
+    del models
     blend_trees, greedy, match_encoder = bl.blend_trees, bl._greedy_match, bl._match_encoder
     captured, matches = [], {"n": 0, "s": 0.0, "first": None, "member": None}
 
@@ -2344,7 +2548,8 @@ def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
             bl._match_encoder = match_encoder
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got, want = blaunch.launches, baseline_blends(name, clients, leaves, cfg.rounds)
+        got, want = blaunch.launches, baseline_blends(name, clients, key_leaves,
+                                                      cfg.rounds)
         runs[name] = {"wall_s": wall, "blend_launches": got,
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "metrics": res}
@@ -2548,11 +2753,7 @@ def main() -> int:
     floor = time_codec(torch, ops, launcher, ref,
                        torch.rand(1, 32, device="cuda"), 8, mem_rate)
     for t in timings + [floor]:
-        print(f"wire_codec {t['shape']} k={t['k']}: kernel {t['ms']:.5f} ms, "
-              f"plain {t['plain_ms']:.5f} ms, roundtrip {t['roundtrip_ms']:.5f} "
-              f"ms; device {t['device_ms']} ms, plain device "
-              f"{t['plain_device_ms']} ms; bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']})")
+        print_codec_time(t)
     print(f"wire_codec launch floor: {floor['ms']:.5f} ms a call, device "
           f"{floor['device_ms']} ms at (1, 32); (64, 1024): {timings[2]['ms']:.5f} "
           f"ms, device {timings[2]['device_ms']} ms")
@@ -2607,6 +2808,8 @@ def main() -> int:
               f"{t['plain_device_ms']} ms), omega @ stacked {t['library_ms']:.5f} "
               f"ms (device {t['library_device_ms']} ms); bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+
+    round_blends = round_blend(torch, blaunch, bref, spec, ecfg, mem_rate)
 
     phase("7 full-width training")
     del engine, models, gmv, feats, serve4
@@ -2682,7 +2885,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes the fused pass
+        "library_ms": None,  # no single PyTorch call computes the round trip
+        "composition_ms": main_t["composition_ms"],  # library top-k, then the pass
         "shape": main_t["shape"], "per_shape": timings,
         "train_codec_launches": train["codec_launches"],
         "train_codec_launches_sampled": sampled["launches"]["wire_codec"],
@@ -2704,6 +2908,7 @@ def main() -> int:
         "launches_sharded_rounds": sharded["launches"]["blend_params"],
         "launches_baselines": {k: v["blend_launches"]
                                for k, v in baselines["runs"].items()},
+        "full_round": round_blends,
     }
     main_s = slstm_times[-1]  # (64, 4, 64, 256): a full capacity batch
     slstm_record = {

@@ -13,6 +13,8 @@ the CUDA toolchain when a module is imported.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -23,3 +25,14 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     _, e = torch.frexp(big)  # big = m * 2^e, 0.5 <= m < 1
     ulp = torch.ldexp(torch.ones_like(big), e - 8)  # 8 significand bits
     return torch.where(big > 0, ulp, torch.zeros_like(ulp))
+
+
+def on_device(dev: torch.device):
+    """A context that makes CUDA device ``dev`` current for a launch,
+    entered only where another device is current: ``torch.cuda.device``
+    costs host time on every call (chip_smoke.py phase 6 times it)."""
+    # torch.cuda.current_device() would run its lazy-init check each call;
+    # a caller holds a CUDA tensor, so CUDA is initialised already
+    if dev.index is None or dev.index == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -8,7 +8,11 @@ kernel has no CPU mode; the CPU paths are covered against JAX in
 ``tests/test_torch_wire_codec.py`` and ``tests/test_torch_blendavg.py``).
 Tolerances: the wire codec's kernel and plain version do the same IEEE
 f32 operations in the same order (``rintf`` and ``torch.round`` both
-round half to even), so outputs agree bit for bit. The blend kernel sums
+round half to even), so outputs agree bit for bit; the codec's on-card
+selection of [scale, thresh] is exact, so the fused op's [scale, thresh]
+and output equal ``scale_thresh`` + the plain version bit for bit (NaN
+as equal). A tree blend equals one-leaf blends of the same kernel bit
+for bit (each column is summed the same way). The blend kernel sums
 its L products in l order and the plain version in PyTorch's order, so
 they agree within ``blend_error_bound``: 2 * L * eps32 * sum |omega x|,
 plus one bf16 ulp for bf16. The sLSTM kernel's recurrent products sum in
@@ -88,6 +92,99 @@ def test_roundtrip_on_card_launches_kernel():
     assert torch.equal(got.cpu(), want)
 
 
+# the phase-3 serving shapes (features, scores, ragged) and the five
+# training message shapes (chip_smoke.TRAIN_CODEC_SHAPES), k a quarter
+CODEC_OP_SHAPES = [((2, 1024), 256), ((16, 1024), 256), ((64, 1024), 256),
+                   ((64, 25), 7), ((5, 4097), 1025), ((3, 8192), 2048),
+                   ((2, 8193), 2049), ((16, 1048576), 262144),
+                   ((1, 2097152), 524288), ((16, 131072), 32768),
+                   ((4, 1048576), 262144), ((4, 131072), 32768)]
+CODECS = {"int8": (False, True), "topk": (True, False),
+          "int8_topk": (True, True), "identity": (False, False)}
+
+
+def _nan_equal(a, b):
+    """Bit for bit, NaN as equal."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(bits), b[~nan].view(bits)))
+
+
+def _check_fused(x, k, quantize):
+    before = launcher.launches
+    got, st = launcher.wire_codec_fused(x, k=k, quantize=quantize)
+    want_st = scale_thresh(x, k)
+    want = wire_codec_ref(x, want_st, quantize=quantize)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 1
+    assert _nan_equal(st, want_st), (st[:4], want_st[:4])
+    assert _nan_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", list(CODECS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,k", CODEC_OP_SHAPES)
+def test_codec_op_selects_and_matches_plain_on_card(shape, k, dtype, codec):
+    """The fused op's output and [scale, thresh] against the library
+    top-k and the plain version, on narrow and wide rows (an all-zero row
+    and ties at the threshold of both signs among them)."""
+    _skip_without_card()
+    sparse, quantize = CODECS[codec]
+    x = torch.from_numpy(_rows(*shape, seed=3)).cuda().to(getattr(torch, dtype))
+    if shape[0] > 1:
+        x[-1, 1::2] = -x[-1, 1::2]
+    _check_fused(x, k if sparse else None, quantize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1024, 131072])
+def test_codec_op_special_values_on_card(dtype, n):
+    """NaN, +-inf, subnormals, -0.0, k = 1, k = N - 1 and N = 1."""
+    _skip_without_card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((6, n)).astype(np.float32))
+    x[0, [3, 99, 500]] = float("nan")
+    x[1, [7, 8]] = torch.tensor([float("inf"), float("-inf")])
+    x[2] = x[2] * 1e-41  # subnormal
+    x[3] = torch.where(x[3] > 0, torch.tensor(0.0), torch.tensor(-0.0))
+    x[4] = torch.round(x[4])
+    x = x.cuda().to(getattr(torch, dtype))
+    for k in (1, 2, n // 4, n - 1, n, None):
+        for quantize in (True, False):
+            _check_fused(x, k, quantize)
+    for k in (1, None):
+        _check_fused(x[:, :1].contiguous(), k, True)
+
+
+@pytest.mark.cuda
+def test_codec_op_runs_no_library_topk_and_reads_nothing_on_card(monkeypatch):
+    """On the card the round trip selects in its own kernels: torch.topk
+    is never called, and no value is read on the host (the sync debug
+    mode raises on a synchronizing call)."""
+    _skip_without_card()
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.topk called on the CUDA path")
+
+    xs = [torch.from_numpy(_rows(*shape, seed=4)).cuda() for shape, _ in
+          (((64, 1024), 0), ((16, 131072), 0))]
+    for x in xs:  # build and load first: the build itself may synchronize
+        wire_codec_roundtrip(x, k=x.shape[1] // 4, quantize=True)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch, "topk", refuse)
+    monkeypatch.setattr(torch.Tensor, "topk", refuse)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x in xs:
+            wire_codec_roundtrip(x, k=x.shape[1] // 4, quantize=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def _skip_without_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -131,6 +228,8 @@ def test_blend_kernel_zero_omega_on_card():
 
 @pytest.mark.cuda
 def test_blend_params_launches_once_per_leaf_on_card():
+    """A stacked model tree blends in one launch of the tree kernel (a
+    group of at most 64 leaves a launch), each leaf within its bound."""
     _skip_without_card()
     from repro_torch.core.encoders import EncoderConfig, init_client_models
     from repro_torch.data.synthetic import make_task
@@ -142,13 +241,52 @@ def test_blend_params_launches_once_per_leaf_on_card():
     omega = torch.tensor([0.2, 0.3, 0.5], device="cuda")
     before = blend_launcher.launches
     got = blend_params(tree, omega)
-    assert blend_launcher.launches - before == len(tree_leaves(tree))
+    n_leaves = len(tree_leaves(tree))
+    assert blend_launcher.launches - before == blend_launcher.launches_for(n_leaves) == 1
     for x, g in zip(tree_leaves(tree), tree_leaves(got)):
         flat = x.reshape(x.shape[0], -1)
         want = blend_params_ref(flat, omega)
         err = (g.reshape(-1) - want).abs()
         assert g.shape == x.shape[1:]
         assert bool((err <= blend_error_bound(flat, omega, want, g.reshape(-1))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l", [1, 4, 5, 16, 17])
+def test_tree_blend_equals_one_leaf_blends_on_card(l, dtype):
+    """One launch over leaves of every path (16-byte, a 25-wide head,
+    ragged, a leaf whose storage starts off a 16-byte boundary) equals
+    one-leaf launches bit for bit and keeps each leaf in storage of its
+    own; 130 leaves split into 3 launches."""
+    _skip_without_card()
+    rng = np.random.default_rng(l)
+    dt = getattr(torch, dtype)
+    cols = [1024, 25, 4097, 131072, 1, 8, 1000, 25 * 1024]
+    leaves = [torch.from_numpy(rng.standard_normal((l, n)).astype(np.float32))
+              .cuda().to(dt) for n in cols]
+    buf = torch.from_numpy(rng.standard_normal(l * 512 + 1).astype(np.float32)).cuda().to(dt)
+    leaves.append(buf[1:].reshape(l, 512))  # contiguous, misaligned
+    omega = rng.random(l).astype(np.float32)
+    omega = torch.from_numpy(omega / omega.sum()).cuda()
+    before = blend_launcher.launches
+    got = blend_launcher.blend_tree_cuda(leaves, omega)
+    assert blend_launcher.launches - before == 1
+    assert len({g.data_ptr() for g in got}) == len(got)
+    for x, g in zip(leaves, got):
+        one = blend_launcher.blend_params_cuda(x, omega)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == "bfloat16" else torch.int32
+        assert torch.equal(g.view(bits), one.view(bits))
+        want = blend_params_ref(x, omega)
+        err = (g.float() - want.float()).abs()
+        assert bool((err <= blend_error_bound(x, omega, want, g)).all())
+    many = [leaves[i % len(leaves)][:, :77].contiguous() for i in range(130)]
+    before = blend_launcher.launches
+    out = blend_launcher.blend_tree_cuda(many, omega)
+    assert blend_launcher.launches - before == 3 == blend_launcher.launches_for(130)
+    for x, g in zip(many, out):
+        assert torch.equal(g, blend_launcher.blend_params_cuda(x, omega))
 
 
 # ---------------------------------------------------------- sLSTM cell --
@@ -573,7 +711,7 @@ def test_sharded_round_on_card_matches_cpu(flags):
     """Two rounds of the sharded round on the card and on the CPU from the
     same state: losses rtol 1e-4, omegas atol 1e-3, params rtol 1e-4 /
     atol 1e-5 (the codec run's at the lossy run-level tolerance: all
-    within 2e-2, 99% within 1e-5); one blend launch a leaf of each group
+    within 2e-2, 99% within 1e-5); one blend launch a group (A, B, M)
     and, under the codec, one codec launch a leaf each way."""
     _skip_without_card()
     from repro_torch.convert import round_state_to_numpy
@@ -593,7 +731,7 @@ def test_sharded_round_on_card_matches_cpu(flags):
         runs[dev] = (rows, round_state_to_numpy(state))
     n_leaves = len(tree_leaves(runs["cpu"][1]["global_models"]))
     for (card, nb, nc), (cpu, _, _) in zip(runs["cuda"][0], runs["cpu"][0]):
-        assert nb == n_leaves and nc == (2 * n_leaves if flags else 0)
+        assert nb == 3 and nc == (2 * n_leaves if flags else 0)
         for k in ("loss_uni", "loss_vfl", "loss_paired"):
             np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4)
         for k in ("omega_A", "omega_B", "omega_M"):
@@ -638,8 +776,8 @@ def test_fedma_matcher_on_card_equals_cpu():
 @pytest.mark.cuda
 def test_fedavg_round_launches_its_blends_on_card():
     """One FedAvg round on the card blends through the kernel: one launch
-    a leaf of each model group that has members (f_A + g_A, f_B + g_B,
-    g_M)."""
+    a model tree it blends (f_A, g_A, f_B, g_B and g_M, each of a group
+    that has members)."""
     _skip_without_card()
     from repro_torch.core.baselines import run_fedavg
     from repro_torch.core.encoders import EncoderConfig
@@ -652,12 +790,12 @@ def test_fedavg_round_launches_its_blends_on_card():
     clients = partition(tr, 3, seed=1)
     ecfg = EncoderConfig(d_hidden=32, n_layers=2)
     cfg = FedConfig(n_clients=3, rounds=1, lr=1e-2, batch_size=64)
-    leaves = {"A": 2 + 2 * 2 + 1 + 2, "B": 2 + 2 * 2 + 1 + 2, "M": 4}
-    want = sum(leaves[m] for m, has in (("A", "has_a"), ("B", "has_b"),
-                                        ("M", "has_paired"))
+    trees = {"A": 2, "B": 2, "M": 1}  # f_A and g_A; f_B and g_B; g_M
+    want = sum(trees[m] for m, has in (("A", "has_a"), ("B", "has_b"),
+                                       ("M", "has_paired"))
                if any(getattr(c, has) for c in clients))
     before = blend_launcher.launches
     res, _ = run_fedavg(torch.Generator().manual_seed(0), spec, ecfg, clients,
                         va, te, cfg, device="cuda")
-    assert blend_launcher.launches - before == want == 22
+    assert blend_launcher.launches - before == want == 5
     assert all(np.isnan(v) or 0.0 <= v <= 1.0 for v in res.values())
