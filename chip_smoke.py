@@ -85,7 +85,8 @@ outside a checkout. Phases, each fatal on failure:
    on the fixed streams' VFL rows (input layer, the sLSTM's input
    projection, its h sequence, the feature, the kernel alone);
 12. the CLI: ``serve_federated --selftest --train-rounds 0`` with each of
-   the two encoders, on the card;
+   the two encoders, then ``--train-rounds 2`` (trained inline through the
+   backward kernels), on the card;
 13. mLSTM scan against plain: the kernel's plan at full width (cluster
    size from the card's cluster capacities, waves, shared memory) and
    its ptxas registers and spills; the kernel's h and final (C, n)
@@ -150,7 +151,22 @@ outside a checkout. Phases, each fatal on failure:
    ``_match_encoder`` on the card against the loop's permutation; then FedAvg,
    FedNova, SplitNN and One-Shot VFL at phase 8's width, card against CPU
    from the same weights (params at phase 8's tolerance, metrics within
-   EVAL_ATOL).
+   EVAL_ATOL);
+22. training the recurrent and transformer encoders: each backward
+   kernel (sLSTM BPTT, flash attention's dq / dk, dv) against its plain
+   backward on the same saved inputs at full width, on one client's slice
+   (64 rows, 4 heads of 256, S = 64) and at a round's 16 stacked clients
+   (1024 rows), within ``slstm_grad_error_bound`` /
+   ``flash_grad_error_bound``, then timed at 1024 rows beside the plain
+   backward and the bound; one full-width BlendAvg round on each encoder
+   (phase 7's 16 clients and data, d_hidden 1024, 4 heads of 256): wall,
+   peak memory, finite losses, launches (one forward launch a stacked
+   application in training, one an application in scoring; one sLSTM
+   backward or two flash backward launches a stacked application; phase
+   7's blends; no other kernel), a profiled round, ``evaluate_global``;
+   then 2 rounds card against CPU on each at phase 8's width and
+   tolerances (4 heads of 12, data seed 2), the CPU run's BlendAvg
+   deltas 1e-3 from a tie.
 
 Phase 4's streams are fixed (``MIX_SALT`` stands in for the per-process
 ``hash(mix)``), so every run serves the same requests; its check accepts
@@ -255,22 +271,30 @@ def cuda_time_ms(fn, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+# The warm-up kernel of every profile (ATen's ``spin_kernel``, launched by
+# ``torch.cuda._sleep``), whose events ``device_kernels`` drops.
+WARMUP_KERNEL = "spin_kernel"
+
+
 def device_kernels(run) -> list:
     """Profile one call of ``run``: [(device us, calls, name)] of every
     kernel and copy it put on the card, largest first. Once this script
     has run its first phases, a profile can lose the first launch or two
     it sees (a profile of one flash launch recorded none, one of 50
     recorded 49), so each profile starts with a warm-up step of small
-    kernels whose events the profiler's schedule discards."""
+    kernels whose events the profiler's schedule should discard. It does
+    not always: a profile of ten codec calls once held 15 of the 16
+    warm-up launches. So the warm-up launches a kernel that nothing else
+    in the port or this script launches (``torch.cuda._sleep``'s
+    ``spin_kernel``), and its events are dropped by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    scratch = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for _ in range(16):
-            scratch.add_(1.0)
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         prof.step()  # the warm-up step ends: record from here
         run()
@@ -278,7 +302,8 @@ def device_kernels(run) -> list:
         prof.step()
     return sorted(((ev.self_device_time_total, ev.count, ev.key)
                    for ev in prof.key_averages()
-                   if ev.self_device_time_total > 0), reverse=True)
+                   if ev.self_device_time_total > 0 and WARMUP_KERNEL not in ev.key),
+                  reverse=True)
 
 
 def per_call_device_ms(one_call, many, iters):
@@ -909,15 +934,37 @@ def server_moments(srv) -> dict:
     return out
 
 
-def card_vs_cpu(torch, rounds=2, data_seed=0, **kw) -> dict:
+def pair_flips(y, card, cpu) -> tuple:
+    """(positive, negative) pairs of each label of ``y`` (N, L) that two
+    runs' score arrays (lists of (N, L) arrays, one a scoring call) order
+    differently, ties counting as an order of their own, summed over the
+    calls; and the largest |score gap| of such a pair in the second run."""
+    n, gap = 0, 0.0
+    for a, b in zip(card, cpu):
+        for c in range(y.shape[1]):
+            pos, neg = y[:, c] == 1, y[:, c] == 0
+            da = a[pos, c][:, None] - a[neg, c][None, :]
+            db = b[pos, c][:, None] - b[neg, c][None, :]
+            flip = np.sign(da) != np.sign(db)
+            n += int(flip.sum())
+            gap = max(gap, float(np.abs(db[flip]).max(initial=0.0)))
+    return n, gap
+
+
+def card_vs_cpu(torch, rounds=2, data_seed=0, enc_type="mlp", **kw) -> dict:
     """Phase 8: the quickstart-shaped federation on the card and on the
     CPU, from the same weights and shuffles (both draw them from
     CPU generators seeded alike), held to the CPU parity tolerances;
     ``kw`` goes to ``FedConfig`` (3 clients unless it says otherwise),
-    ``data_seed`` to the data.
+    ``data_seed`` to the data, ``enc_type`` to the encoders (4 heads of
+    12 for the recurrent and transformer ones: phase 22).
     A sampled round's ids must be equal on both. The smallest BlendAvg
     delta of the CPU run is printed: a delta within the card's rounding
-    of 0 could flip an omega mask (ROADMAP fault (d)). After an adam
+    of 0 could flip an omega mask (ROADMAP fault (d)). So are the
+    validation AUROC's (positive, negative) pairs that the card and the
+    CPU order differently, over every scoring call, and the widest score
+    gap of such a pair on the CPU: each pair moves that label's AUROC by
+    1 / (n_pos n_neg), and through Eq. 9-10 the omegas. After an adam
     server step the params' atol is scaled by server_lr / SERVER_EPS, the
     step's largest gain on a small delta. SCAFFOLD's control variates are
     held to rtol 1e-4, atol 1e-3, since SCAFFOLD divides the trained
@@ -945,25 +992,36 @@ def card_vs_cpu(torch, rounds=2, data_seed=0, **kw) -> dict:
     atol = PARAM_ATOL
     if cfg.server_opt == "adam":
         atol *= cfg.server_lr / SERVER_EPS
-    ecfg = EncoderConfig(d_hidden=48, n_layers=2)
+    ecfg = EncoderConfig(d_hidden=48, n_layers=2, enc_type=enc_type)
     feds = [Federation.init(torch.Generator().manual_seed(0), cfg, spec, ecfg,
                             clients, va, device=dev) for dev in ("cuda", "cpu")]
     weights, margins = fed_mod.blendavg_weights, []
+    auroc, scored = fed_mod.auroc, ([], [])  # each run's validation scores
 
     def recording(scores, global_score, **k):  # the CPU run's deltas
         d = np.asarray(scores, np.float64) - global_score
         margins.append(float(np.abs(d[np.isfinite(d)]).min(initial=np.inf)))
         return weights(scores, global_score, **k)
 
+    def scoring(calls):
+        def rec(y, s):
+            calls.append(np.array(s, np.float64))
+            return auroc(y, s)
+        return rec
+
     worst = {"loss": 0.0, "omega": 0.0}
     sampled = []
     for r in range(cfg.rounds):
-        card = feds[0].round()
-        fed_mod.blendavg_weights = recording
+        fed_mod.auroc = scoring(scored[0])
+        try:
+            card = feds[0].round()
+        finally:
+            fed_mod.auroc = auroc
+        fed_mod.blendavg_weights, fed_mod.auroc = recording, scoring(scored[1])
         try:
             cpu = feds[1].round()
         finally:
-            fed_mod.blendavg_weights = weights
+            fed_mod.blendavg_weights, fed_mod.auroc = weights, auroc
         if "sampled" in cpu:
             check(np.array_equal(card["sampled"], cpu["sampled"]),
                   f"round {r}: card sampled {card['sampled']}, cpu "
@@ -1018,10 +1076,14 @@ def card_vs_cpu(torch, rounds=2, data_seed=0, **kw) -> dict:
     worst["eval"] = max(abs(ea[k] - eb[k]) for k in ea)
     if not lossy:
         check(worst["eval"] <= EVAL_ATOL, f"evaluate_global: card {ea} cpu {eb}")
-    print(f"card vs CPU, {cfg.rounds} round(s), {kw or 'blendavg'}: "
+    worst["smallest_delta"] = min(margins, default=float("nan"))
+    check(len(scored[0]) == len(scored[1]),
+          f"{len(scored[0])} scoring calls on the card, {len(scored[1])} on the CPU")
+    worst["auroc_pair_flips"], worst["widest_flip_gap"] = pair_flips(
+        np.asarray(va.y), scored[0], scored[1])
+    print(f"card vs CPU, {enc_type}, {cfg.rounds} round(s), {kw or 'blendavg'}: "
           f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} }; "
-          f"multimodal AUROC {ea['multimodal_auroc']:.4f}; smallest BlendAvg "
-          f"delta {min(margins, default=float('nan')):.3g}"
+          f"multimodal AUROC {ea['multimodal_auroc']:.4f}"
           + (f"; sampled {sampled}" if sampled else ""))
     return worst
 
@@ -1677,15 +1739,27 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
     return variants
 
 
-def variant_cli(sf, slaunch, flaunch):
+def variant_cli(sf, slaunch, flaunch, sbwd, fbwd):
     """Phase 12: the CLI selftest on seeded recurrent and transformer
-    models, on the card."""
-    for enc_type, mod in (("recurrent", slaunch), ("transformer", flaunch)):
-        mod.launches = 0
+    models, then on models it trains inline (2 rounds, 3 clients; their
+    gradients through the backward kernels), on the card."""
+    for enc_type, mod, bwd in (("recurrent", slaunch, sbwd),
+                               ("transformer", flaunch, fbwd)):
+        mod.launches = bwd.launches = 0
         sf.main(["--selftest", "--enc-type", enc_type, "--train-rounds", "0",
                  "--codec", "int8_topk", "--device", "cuda"])
-        check(mod.launches > 0, f"CLI selftest ({enc_type}) launched no kernel")
+        check(mod.launches > 0 and bwd.launches == 0,
+              f"CLI selftest ({enc_type}): {mod.launches} forward, "
+              f"{bwd.launches} backward launches")
         print(f"CLI selftest ({enc_type}): {mod.launches} launches")
+        mod.launches = 0
+        sf.main(["--selftest", "--enc-type", enc_type, "--train-rounds", "2",
+                 "--device", "cuda"])
+        check(mod.launches > 0 and bwd.launches > 0,
+              f"CLI selftest ({enc_type}, trained inline): {mod.launches} "
+              f"forward, {bwd.launches} backward launches")
+        print(f"CLI selftest ({enc_type}, 2 rounds trained inline): "
+              f"{mod.launches} forward, {bwd.launches} backward launches")
 
 
 # ------------------------------------------------- mLSTM and xlstm-350m --
@@ -2672,6 +2746,281 @@ def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
             "card_vs_cpu": worst, "seconds": secs}
 
 
+# Phase 22: the recurrent and transformer encoders trained at full width.
+# Per encoder type: its forward kernel's module name, its backward's, and
+# the backward's launches for one stacked encoder application.
+VARIANT_KERNELS = {"recurrent": ("slstm_cell", "slstm_cell_bwd", 1),
+                   "transformer": ("flash_attention", "flash_attention_bwd", 2)}
+# Kernel names (as the profiler reports them) of each encoder type's
+# forward and backward kernels.
+VARIANT_SYMBOLS = {"recurrent": ("slstm_kernel", "slstm_bwd_kernel"),
+                   "transformer": ("flash_kernel", "dq_kernel", "dkv_kernel")}
+
+
+def count_applications(targets):
+    """Count the calls of each (module, function name, key) in
+    ``targets`` by wrapping it where the round looks it up. Returns
+    (counts by key, a function that undoes the wrapping)."""
+    counts = {key: 0 for _, _, key in targets}
+    undo = []
+    for mod, name, key in targets:
+        orig = getattr(mod, name)
+
+        def wrapped(*a, _orig=orig, _key=key, **k):
+            counts[_key] += 1
+            return _orig(*a, **k)
+
+        setattr(mod, name, wrapped)
+        undo.append((mod, name, orig))
+
+    def restore():
+        for mod, name, orig in undo:
+            setattr(mod, name, orig)
+
+    return counts, restore
+
+
+def slstm_bwd_inputs(torch, slaunch, sref, rows, clients, seed):
+    """The backward's inputs at the encoder's width (4 heads of 256, 64
+    steps): the saving forward kernel's gate sums and states for random
+    pre-activations and C clients' recurrent weights, stacked as training
+    stacks them, and a random output gradient. The forward's output and
+    saved tensors are first held against the plain forward's on the same
+    inputs within ``slstm_error_bound``. Returns (saved, r, dhs, the
+    forward's max abs error)."""
+    h, s, hd = 4, 64, 256
+    gen = np.random.default_rng(seed)
+    pre = torch.from_numpy(gen.standard_normal((rows, h, s, 4, hd), np.float32)
+                           * 0.5).cuda()
+    r = torch.from_numpy(gen.standard_normal((clients, h, hd, 4 * hd), np.float32)
+                         / np.float32(np.sqrt(hd))).cuda()
+    out, saved = slaunch.slstm_cell_cuda(pre, r, save=True)
+    err = 0.0
+    for name, got, want in zip(("output", "saved"), (out, saved),
+                               sref.slstm_cell_ref(pre, r, save=True)):
+        e = (got - want).abs()
+        check(bool((e <= sref.slstm_error_bound(want, got)).all()),
+              f"slstm_cell saving forward's {name} at {rows} rows of {clients} "
+              f"clients beyond its bound: max err {float(e.max())}")
+        err = max(err, float(e.max()))
+    del pre, out
+    dhs = torch.from_numpy(gen.standard_normal((rows, h, s, hd), np.float32)).cuda()
+    return saved, r, dhs, err
+
+
+def slstm_bwd_bound_ms(rows, clients, h, s, hd, mem_rate):
+    """The larger of: the saved gate sums and state (7 floats) and the
+    output gradient read once, the pre-activations' gradient (4 floats)
+    written once, r read once, over the memory rate; and the recurrent
+    products' 2*hd*4hd f32 operations a step and (row, head), as in the
+    forward, over the f32 peak."""
+    nbytes = rows * h * s * hd * 12 * 4 + clients * h * hd * 4 * hd * 4
+    ops = rows * h * s * 2 * hd * 4 * hd
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def flash_bwd_bound_ms(bh, s, d, mem_rate):
+    """The larger of: q, k, v, out, dout and the row log-sum-exp read once
+    and dq, dk, dv written once, over the memory rate; and the five
+    products' 2 * S^2 * d operations each a (batch, head) over the f32
+    peak (the kernels run on SIMT f32)."""
+    nbytes = bh * s * (8 * d + 1) * 4
+    ops = bh * 10 * s * s * d
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def backward_kernels(torch, mem_rate) -> dict:
+    """Each backward kernel against its plain backward on the same inputs,
+    on one client's slice at full width (64 rows, 4 heads of 256, S = 64)
+    and at a round's stacked shape (16 clients, 1024 rows), within
+    ``slstm_grad_error_bound`` / ``flash_grad_error_bound``; then timed at
+    the stacked shape beside the plain backward, the bound and, for
+    attention, the library's backward (SDPA's memory-efficient kernel).
+    The forwards that training runs, the saving sLSTM and flash with the
+    log-sum-exp, are held against their plain versions at both shapes
+    first, since both backwards read what they give."""
+    from repro_torch.kernels.flash_attention import flash_attention as flaunch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.slstm_cell import ref as sref
+    from repro_torch.kernels.slstm_cell import slstm_cell as slaunch
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as sbwd
+
+    out = {}
+    errs, fwd_errs = [], {}
+    for rows, clients in ((64, 1), (1024, 16)):
+        saved, r, dhs, fwd_errs[f"slstm_cell {rows}"] = slstm_bwd_inputs(
+            torch, slaunch, sref, rows, clients, seed=rows)
+        got = sbwd.slstm_cell_bwd_cuda(saved, r, dhs)
+        want = sref.slstm_cell_bwd_ref(saved, r, dhs)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all())
+              and bool((err <= sref.slstm_grad_error_bound(want)).all()),
+              f"slstm_cell_bwd at {rows} rows beyond its bound: max err "
+              f"{float(err.max())}")
+        errs.append(float(err.max()))
+        del got, want, err
+    ms = cuda_time_ms(lambda: sbwd.slstm_cell_bwd_cuda(saved, r, dhs), iters=10,
+                      warmup=2)
+    plain_ms = cuda_time_ms(lambda: sref.slstm_cell_bwd_ref(saved, r, dhs),
+                            iters=3, warmup=1)
+    bound, by = slstm_bwd_bound_ms(1024, 16, 4, 64, 256, mem_rate)
+    out["slstm_cell_bwd"] = {
+        "shape": [1024, 4, 64, 256], "clients": 16, "ms": ms, "plain_ms": plain_ms,
+        "device_ms": device_ms(lambda: sbwd.slstm_cell_bwd_cuda(saved, r, dhs),
+                               iters=5, label="slstm_cell_bwd"),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs),
+        "max_abs_err_by_rows": {"64": errs[0], "1024": errs[1]},
+        "library_ms": None}
+    del saved, r, dhs
+    torch.cuda.empty_cache()
+
+    errs = []
+    for bh in (64, 1024):
+        gen = np.random.default_rng(bh)
+        q, k, v, dout = (torch.from_numpy(gen.standard_normal(
+            (bh, 4, 64, 256), np.float32)).cuda() for _ in range(4))
+        o, lse = flaunch.flash_attention_cuda(q, k, v, causal=False, window=0,
+                                              return_lse=True)
+        fwd_err = 0.0
+        for name, g, w in zip(("output", "lse"), (o, lse), fref.flash_attention_ref(
+                q, k, v, causal=False, return_lse=True)):
+            err = (g - w).abs()
+            tol = fref.TOL[torch.float32]
+            check(bool((err <= tol + tol * w.abs()).all()),
+                  f"flash_attention's {name} at ({bh}, 4, 64, 256) beyond its "
+                  f"tolerance: max err {float(err.max())}")
+            fwd_err = max(fwd_err, float(err.max()))
+        fwd_errs[f"flash_attention {bh}"] = fwd_err
+        got = fbwd.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=False)
+        want = fref.flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=False)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g - w).abs()
+            check(bool(torch.isfinite(g).all())
+                  and bool((err <= fref.flash_grad_error_bound(w)).all()),
+                  f"flash_attention_bwd {name} at ({bh}, 4, 64, 256) beyond its "
+                  f"bound: max err {float(err.max())}")
+            errs.append(float(err.max()))
+        del got, want
+
+    def kern():
+        return fbwd.flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=False)
+
+    def plain():
+        return fref.flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=False)
+
+    # the library yardstick, timed here and never on the path: SDPA's
+    # memory-efficient backward (its one op, run again on a kept graph)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lo = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+    check("EfficientAttention" in lo.grad_fn.name(),
+          f"SDPA took {lo.grad_fn.name()}, not the memory-efficient kernel")
+
+    def library():
+        return torch.autograd.grad(lo, (qg, kg, vg), dout, retain_graph=True)
+
+    lib_err = max(float((g - w).abs().max()) for g, w in zip(library(), plain()))
+    bound, by = flash_bwd_bound_ms(1024 * 4, 64, 256, mem_rate)
+    out["flash_attention_bwd"] = {
+        "shape": [1024, 4, 64, 256], "clients": 16, "ms": cuda_time_ms(kern, iters=20),
+        "plain_ms": cuda_time_ms(plain, iters=10),
+        "device_ms": device_ms(kern, iters=10, label="flash_attention_bwd"),
+        "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs),
+        "library_ms": cuda_time_ms(library, iters=20),
+        "library_device_ms": device_ms(library, iters=10,
+                                       label="SDPA efficient backward"),
+        "library_max_abs_err": lib_err}
+    for name, t in out.items():
+        print(f"{name} {t['shape']}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms; library "
+              f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)}"
+              f" ms (device {t.get('library_device_ms')} ms, max abs diff to "
+              f"plain {t.get('library_max_abs_err')}); bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); max abs err {t['max_abs_err']:.3g}")
+    print(f"training forwards against plain, max abs err: {fwd_errs}")
+    out["forward_errs"] = fwd_errs
+    return out
+
+
+def variant_training(torch, spec, data, counted) -> dict:
+    """Phase 22: one full-width BlendAvg round of 16 clients (phase 7's
+    data; d_hidden 1024, 4 heads of 256) on each of the recurrent and
+    transformer encoders: round wall, peak memory, finite losses, the
+    launch counts (one forward launch a stacked encoder application in
+    training and one an application in scoring; one sLSTM backward, or
+    two flash backward, a stacked application; the blends of phase 7; no
+    other kernel), a profiled round (busy, idle share, the kernels that
+    take most) and ``evaluate_global``."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core import federation as fed_mod
+    from repro_torch.core.encoders import EncoderConfig
+    from repro_torch.core.federation import FedConfig, Federation, evaluate_global
+
+    clients, va, te = data
+    blaunch = counted["blend_params"]
+    runs = {}
+    for enc_type, (fwd, bwd, per) in VARIANT_KERNELS.items():
+        ecfg = EncoderConfig(d_hidden=1024, n_layers=4, enc_type=enc_type,
+                             n_heads=4)
+        cfg = FedConfig(n_clients=16, rounds=1, lr=1e-2, batch_size=64)
+        fed = Federation.init(torch.Generator().manual_seed(0), cfg, spec, ecfg,
+                              clients, va, device="cuda")
+        leaves = group_leaves(tree_leaves, fed.global_models)
+        counts, restore = count_applications([
+            (eng_mod, "encoder_apply_stacked", "stacked"),
+            (eng_mod, "encoder_apply", "apply"),
+            (fed_mod, "encoder_apply", "apply")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in counted.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        try:
+            logs = fed.round()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        got = {name: m.launches for name, m in counted.items()}
+        peak = torch.cuda.max_memory_allocated()
+        want = {name: 0 for name in counted}
+        want[fwd] = counts["stacked"] + counts["apply"]
+        want[bwd] = per * counts["stacked"]
+        want["blend_params"] = sum(blaunch.launches_for(leaves[m])
+                                   for m in blended(logs))
+        losses = {k: logs[k] for k in ("loss_partial", "loss_vfl", "loss_paired")}
+        print(f"{enc_type}: round {wall:.3f} s wall, peak memory "
+              f"{peak / 1e9:.2f} GB; losses "
+              f"{ {k: round(v, 5) for k, v in losses.items()} }; "
+              f"{counts['stacked']} stacked encoder applications (training), "
+              f"{counts['apply']} unstacked (scoring); launches {got}")
+        check(counts["stacked"] > 0 and got[fwd] > 0 and got[bwd] > 0,
+              f"{enc_type} round: no training through its kernels: {got}")
+        check(got == want, f"{enc_type} round: launches {got}, want {want}")
+        check(all(np.isfinite(v) for v in losses.values()),
+              f"{enc_type} round: losses {losses}")
+        bd = device_breakdown(lambda: fed.round(), wall,
+                              match=VARIANT_SYMBOLS[enc_type] + ("blend_kernel",))
+        print_breakdown(f"{enc_type} training round", bd)
+        ev = evaluate_global(fed, te)
+        check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in ev.values()),
+              f"{enc_type} evaluate_global {ev}")
+        runs[enc_type] = {"round_wall_s": wall, "peak_memory_gb": peak / 1e9,
+                          "launches": got, "applications": dict(counts),
+                          "losses": losses, "breakdown": bd,
+                          "evaluate_global": ev}
+        del fed
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -2692,11 +3041,13 @@ def main() -> int:
     from repro_torch.kernels.blendavg import blendavg as blaunch
     from repro_torch.kernels.blendavg import ref as bref
     from repro_torch.kernels.flash_attention import flash_attention as flaunch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.mlstm_scan import mlstm_scan as mlaunch
     from repro_torch.kernels.mlstm_scan import ref as mref
     from repro_torch.kernels.slstm_cell import ref as sref
     from repro_torch.kernels.slstm_cell import slstm_cell as slaunch
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as sbwd
     from repro_torch.kernels.wire_codec import ops, ref
     from repro_torch.kernels.wire_codec import wire_codec as launcher
     from repro_torch.launch import serve_federated as sf
@@ -2761,7 +3112,8 @@ def main() -> int:
     phase("4 full-width serving")
     counted = {"wire_codec": launcher, "blend_params": blaunch,
                "slstm_cell": slaunch, "flash_attention": flaunch,
-               "mlstm_scan": mlaunch}
+               "mlstm_scan": mlaunch, "slstm_cell_bwd": sbwd,
+               "flash_attention_bwd": fbwd}
     serve4 = full_width_serving(torch, spec, ecfg, models, gmv, counted)
     launches = serve4["launches"]["wire_codec"]
     vfl_batches = serve4["batches"]["vfl_fallback"]
@@ -2837,7 +3189,7 @@ def main() -> int:
     variants = variant_serving(torch, spec, enc, sf, counted)
 
     phase("12 CLI selftest, recurrent and transformer encoders")
-    variant_cli(sf, slaunch, flaunch)
+    variant_cli(sf, slaunch, flaunch, sbwd, fbwd)
 
     phase("13 mLSTM scan against plain")
     mlstm_err, mlstm_main_errs, mlstm_time = mlstm_phase(
@@ -2870,9 +3222,25 @@ def main() -> int:
     sharded_card_vs_cpu(torch)
 
     phase("21 full-width baselines")
-    baselines = baselines_phase(torch, spec, ecfg, data + (train.pop("test"),),
-                                blaunch, bref)
-    del data
+    test = train.pop("test")
+    baselines = baselines_phase(torch, spec, ecfg, data + (test,), blaunch, bref)
+    torch.cuda.empty_cache()
+
+    phase("22 training the recurrent and transformer encoders")
+    bwd_times = backward_kernels(torch, mem_rate)
+    trained = variant_training(torch, spec, data + (test,), counted)
+    del data, test
+    torch.cuda.empty_cache()
+    for enc_type in VARIANT_KERNELS:
+        # data seeds 0 and 2; card_vs_cpu prints the validation AUROC pairs
+        # the card and the CPU order differently, the one way their omegas
+        # can part (each pair moves them 1e-4 to 6e-4 here: PERF.md section 7)
+        for data_seed in (0, 2):
+            worst = card_vs_cpu(torch, data_seed=data_seed, enc_type=enc_type)
+            check(worst["smallest_delta"] >= 1e-3,
+                  f"{enc_type} card vs CPU: a BlendAvg delta "
+                  f"{worst['smallest_delta']} within 1e-3 of a tie")
+            trained[enc_type][f"card_vs_cpu_seed{data_seed}"] = worst
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -2958,8 +3326,41 @@ def main() -> int:
     print("sharded rounds: " + json.dumps(
         {label: {k: v for k, v in rec.items() if k != "breakdown"}
          for label, rec in sharded["runs"].items()}))
+    print("variant training: " + json.dumps(
+        {enc_type: {k: v for k, v in run.items() if k != "breakdown"}
+         for enc_type, run in trained.items()}))
+    bwd_records = []
+    for name, enc_type, src, diff in (
+            ("slstm_cell_bwd", "recurrent",
+             "src/repro_torch/kernels/slstm_cell/slstm_cell_bwd.cu",
+             "src/repro/models/recurrent.py:199"),
+            ("flash_attention_bwd", "transformer",
+             "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+             "src/repro/core/encoders.py:76")):
+        t = bwd_times[name]
+        bwd_records.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"none: the reference differentiates {diff} with jax.grad",
+            "launches": trained[enc_type]["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # SDPA's memory-efficient backward for attention; no PyTorch
+            # call runs the sLSTM's BPTT
+            "library_ms": t["library_ms"],
+            "shape": t["shape"], "device_ms": t["device_ms"],
+            "library_max_abs_err": t.get("library_max_abs_err"),
+            "round_wall_s": trained[enc_type]["round_wall_s"]})
+    for record in (slstm_record, flash_record):  # the forwards training runs
+        errs = {k.split()[1]: v for k, v in bwd_times["forward_errs"].items()
+                if k.startswith(record["name"] + " ")}
+        record["max_abs_err_training_shapes"] = errs
+        record["max_abs_err"] = max(record["max_abs_err"], *errs.values())
+    slstm_record["launches_training_round"] = trained["recurrent"]["launches"]["slstm_cell"]
+    flash_record["launches_training_round"] = (
+        trained["transformer"]["launches"]["flash_attention"])
     print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
-                                  flash_record, mlstm_record]}))
+                                  flash_record, mlstm_record, *bwd_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

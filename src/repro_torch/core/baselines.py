@@ -27,9 +27,11 @@ takes it) gives them; ``device`` is CUDA when None and raises without it.
 The steps are eager autograd with out-of-place updates; the shuffles are
 the reference's numpy ``default_rng(cfg.seed)`` draws, taken in the same
 order. Aggregation blends through ``core.blendavg.blend_trees``, one
-blend-kernel launch a leaf on the card. The baselines train the ``mlp``
-encoders only; the others are refused as ``Federation`` refuses them
-(ROADMAP.md item 17).
+blend-kernel launch a model tree on the card. The baselines train the
+``mlp`` encoders only: ``Federation`` trains the ``recurrent`` and
+``transformer`` ones too, but each baseline on them needs its own parity
+runs, and the reference's FedMA takes ``mlp`` alone (ROADMAP.md item 17,
+its last part).
 """
 from __future__ import annotations
 
@@ -129,8 +131,13 @@ def _evaluate(models: dict, test: SyntheticMultimodal, ecfg, kind) -> dict:
 
 def _init_models(gen, spec, ecfg, base, device) -> dict:
     """The initial models on ``device``: ``base`` if given, else drawn
-    from ``gen``. Refuses an encoder type training does not run."""
+    from ``gen``. Refuses an encoder type the baselines do not train."""
     check_trainable(ecfg)
+    if ecfg.enc_type != "mlp":
+        raise NotImplementedError(
+            f"the baselines train enc_type='mlp' only, got "
+            f"{ecfg.enc_type!r} (ROADMAP.md item 17, its last part: the "
+            "baselines on the recurrent and transformer encoders)")
     device = resolve_device(device)
     if base is None:
         return init_client_models(gen, spec, ecfg, device=device)

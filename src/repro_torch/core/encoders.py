@@ -7,10 +7,11 @@
 
 ``enc_type``: ``mlp``; ``recurrent``, one sLSTM layer over the sequence
 through the sLSTM cell kernel; ``transformer``, one non-causal attention
-block through the flash attention kernel. Parameters are plain dicts
-keyed like the reference's pytrees (the ``mlp`` encoder's ``hidden`` is
-a list), so JAX weights and checkpoints carry over through
-``repro_torch.convert``. ``jax.nn.gelu`` is the tanh form, hence
+block through the flash attention kernel. All three are differentiable:
+the two kernels' gradients run their backward kernels on the card.
+Parameters are plain dicts keyed like the reference's pytrees (the
+``mlp`` encoder's ``hidden`` is a list), so JAX weights and checkpoints
+carry over through ``repro_torch.convert``. ``jax.nn.gelu`` is the tanh form, hence
 ``approximate="tanh"`` throughout.
 
 The reference's transformer scores divide by ``sqrt(hd)``; the kernel
@@ -83,7 +84,7 @@ def encoder_apply(p, x, ecfg: EncoderConfig):
         for layer in p["hidden"]:
             h = h + F.gelu(dense(layer, h), approximate="tanh")
     elif ecfg.enc_type == "recurrent":
-        h = slstm_scan(p["cell"], h, ecfg.n_heads)[0][:, -1]
+        h = slstm_scan(p["cell"], h, ecfg.n_heads, return_state=False)[0][:, -1]
     else:  # transformer
         hn = rmsnorm(p["ln"], h)
         b, s, d = hn.shape

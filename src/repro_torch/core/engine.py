@@ -80,12 +80,14 @@ from repro_torch.core.encoders import (
 )
 from repro_torch.core.state import CLIENT_GROUPS, OPT_MOMENT_KEYS
 from repro_torch.kernels.blendavg.ops import blend_params
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import (
     dense,
     rmsnorm,
     sigmoid_bce,
     softmax_cross_entropy,
 )
+from repro_torch.models.recurrent import slstm_scan_stacked
 
 UNIMODAL_GROUPS = ("f_A", "g_A", "f_B", "g_B")
 VFL_GROUPS = ("f_A", "f_B")
@@ -161,27 +163,45 @@ def _sdense(p, x):
 
 
 def check_trainable(ecfg: EncoderConfig) -> None:
-    """Training runs the ``mlp`` encoders only. The ``recurrent`` and
-    ``transformer`` encoders are served, but their gradients need
-    backward kernels for the sLSTM cell and flash attention that the
-    port does not have yet, and the plain versions may not stand in for
-    them on the card."""
+    """Training runs every encoder type (``mlp``, ``recurrent``,
+    ``transformer``): the recurrent and attention encoders' gradients run
+    the sLSTM and flash attention backward kernels on the card. Raises
+    ``ValueError`` for an unknown type."""
     _check_enc_type(ecfg)
-    if ecfg.enc_type != "mlp":
-        raise NotImplementedError(
-            f"training enc_type={ecfg.enc_type!r} is not ported yet "
-            "(ROADMAP.md, modules to port, item 17: training the encoder "
-            "variants); the port serves it and trains 'mlp'")
+
+
+def _stacked_norm(p, h):
+    """rmsnorm with a per-client gain: p["g"] (C, d), h (C, ..., d)."""
+    g = p["g"].reshape(p["g"].shape[0], *([1] * (h.dim() - 2)), -1)
+    return rmsnorm({"g": g}, h)
 
 
 def encoder_apply_stacked(p, x, ecfg: EncoderConfig):
-    """C stacked encoders on their own inputs: x (C, B, S, F) -> (C, B, d)."""
+    """C stacked encoders on their own inputs: x (C, B, S, F) -> (C, B, d).
+    One sLSTM or flash attention launch serves all C clients."""
     check_trainable(ecfg)
     h = torch.tanh(_sdense(p["in"], x))
-    h = torch.mean(h, dim=2)
-    for layer in p["hidden"]:
-        h = h + F.gelu(_sdense(layer, h), approximate="tanh")
-    return rmsnorm({"g": p["norm"]["g"][:, None, :]}, h)
+    if ecfg.enc_type == "mlp":
+        h = torch.mean(h, dim=2)
+        for layer in p["hidden"]:
+            h = h + F.gelu(_sdense(layer, h), approximate="tanh")
+    elif ecfg.enc_type == "recurrent":
+        h = slstm_scan_stacked(p["cell"], h, ecfg.n_heads)[:, :, -1]
+    else:  # transformer
+        hn = _stacked_norm(p["ln"], h)
+        c, b, s, d = hn.shape
+        nh = ecfg.n_heads
+
+        def heads(w):  # (C, B, S, d) -> (C*B, nh, S, hd)
+            return (_sdense(w, hn).reshape(c * b, s, nh, d // nh)
+                    .permute(0, 2, 1, 3))
+
+        att = flash_attention(heads(p["wq"]), heads(p["wk"]), heads(p["wv"]),
+                              causal=False)
+        h = h + att.permute(0, 2, 1, 3).reshape(c, b, s, d)
+        h = h + F.gelu(_sdense(p["ff"], h), approximate="tanh")
+        h = torch.mean(h, dim=2)
+    return _stacked_norm(p["norm"], h)
 
 
 def fusion_apply_stacked(p, h_a, h_b):
@@ -266,7 +286,7 @@ def _f32(x, device=None) -> torch.Tensor:
 
 def make_phase_fns(cfg: EngineConfig) -> SimpleNamespace:
     """Build the phase functions closed over ``cfg``; raises
-    ``NotImplementedError`` for an encoder type training does not run."""
+    ``ValueError`` for an unknown encoder type."""
     check_trainable(cfg.ecfg)
     ecfg, kind = cfg.ecfg, cfg.kind
     opt = make_optimizer(cfg)

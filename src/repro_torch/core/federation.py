@@ -43,9 +43,12 @@ K in a sampled round. The default draws them with ``torch.randperm``
 from a CPU ``torch.Generator`` seeded with ``cfg.seed``; a parity test
 passes the reference's draws instead.
 
-Not ported yet (ROADMAP.md, modules to port, item 17): training the
-``recurrent`` and ``transformer`` encoders, which the port only serves.
-Asking for it raises ``NotImplementedError``.
+Every encoder type trains (``EncoderConfig.enc_type``): ``mlp``,
+``recurrent`` (the sLSTM cell) and ``transformer`` (flash attention), in
+full, sampled and async rounds under every strategy. Each phase step
+runs one forward kernel launch for all C (or K) clients' encoders of a
+modality, and its backward kernels (``kernels/slstm_cell/slstm_cell_bwd``,
+``kernels/flash_attention/flash_attention_bwd``) carry the gradients.
 """
 from __future__ import annotations
 
@@ -343,8 +346,7 @@ class Federation:
         numpy arrays or tensors keyed like the models) gives them.
         ``device``: CUDA when None (raises without it). ``perms``: the
         permutation source (default ``generator_perms(cfg.seed)``).
-        Raises ``NotImplementedError`` for an encoder type training does
-        not run (``recurrent``, ``transformer``)."""
+        Raises ``ValueError`` for an unknown encoder type."""
         check_trainable(ecfg)
         if cfg.n_sampled < 0 or cfg.n_sampled > cfg.n_clients:
             raise ValueError(

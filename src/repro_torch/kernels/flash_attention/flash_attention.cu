@@ -365,7 +365,8 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 template <typename T, int KD>
 __global__ void __launch_bounds__(kThreads<T>)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int hq,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int hq,
                  int hkv, int sq, int sk, int d, int causal, int window,
                  float scale, int vec) {
   using L = Layout<T, KD>;
@@ -543,6 +544,7 @@ __global__ void __launch_bounds__(kThreads<T>)
         fa[h] = isfinite(m[h]) ? expf(m[h] - safe) : 0.0f;
         fb[h] = isfinite(mb) ? expf(mb - safe) : 0.0f;
         l[h] = fa[h] * l[h] + fb[h] * xml[(2 + h) * kLanes + i];
+        m[h] = mm;  // l is now relative to the merged max
       }
 #pragma unroll
       for (int nt = 0; nt < KD / 8; ++nt)
@@ -550,6 +552,17 @@ __global__ void __launch_bounds__(kThreads<T>)
         for (int e = 0; e < 4; ++e)
           o[nt][e] = fa[e >> 1] * o[nt][e] +
                      fb[e >> 1] * xo[(nt * 4 + e) * kLanes + i];
+    }
+  }
+
+  // the row's log-sum-exp of the scaled scores, for the backward
+  // (flash_attention_bwd.cu): -inf where the row sees no key
+  if (lse != nullptr && kh == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rg * 16 + g + 8 * h;
+      if (r < valid)
+        lse[row0 + r] = isfinite(m[h]) ? m[h] + logf(l[h]) : -CUDART_INF_F;
     }
   }
 
@@ -590,8 +603,8 @@ __global__ void __launch_bounds__(kThreads<T>)
 
 template <typename T, int KD>
 int launch_kd(const void* q, const void* k, const void* v, void* out,
-              int batch, int hq, int hkv, int sq, int sk, int d, int causal,
-              int window, int vec, cudaStream_t stream) {
+              float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
+              int causal, int window, int vec, cudaStream_t stream) {
   using L = Layout<T, KD>;
   // above 48 KB a block's dynamic shared memory needs opting in (on the
   // current device, so at every launch)
@@ -604,15 +617,15 @@ int launch_kd(const void* q, const void* k, const void* v, void* out,
   flash_kernel<T, KD><<<dim3((unsigned)(batch * hkv), (unsigned)m_tiles),
                         kThreads<T>, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, sk, d,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, sq, sk, d,
       causal, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int hq, int hkv, int sq, int sk, int d, int causal, int window,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
+           int causal, int window, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 0 ||
       d < 1 || d > kMaxD || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -627,39 +640,44 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
                                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 32)
-    return launch_kd<T, 32>(q, k, v, out, batch, hq, hkv, sq, sk, d, causal,
-                            window, vec, s);
+    return launch_kd<T, 32>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                            causal, window, vec, s);
   if (d <= 64)
-    return launch_kd<T, 64>(q, k, v, out, batch, hq, hkv, sq, sk, d, causal,
-                            window, vec, s);
+    return launch_kd<T, 64>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                            causal, window, vec, s);
   if (d <= 128)
-    return launch_kd<T, 128>(q, k, v, out, batch, hq, hkv, sq, sk, d, causal,
-                             window, vec, s);
-  return launch_kd<T, 256>(q, k, v, out, batch, hq, hkv, sq, sk, d, causal,
-                           window, vec, s);
+    return launch_kd<T, 128>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                             causal, window, vec, s);
+  return launch_kd<T, 256>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                           causal, window, vec, s);
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes. q is a contiguous (batch, hq, sq, d)
-// array, k and v contiguous (batch, hkv, sk, d) arrays of q's dtype, out
-// a contiguous (batch, hq, sq, d) array of q's dtype, all on the device
-// of `stream`; hq % hkv == 0, 1 <= d <= 256, (hq / hkv) * sq <= 65535 *
-// 64 and batch * hkv < 2^31 (the grid). causal is 0 or 1; window 0
-// means no window. Returns the first CUDA error of the attribute call
-// and the launch.
+// Plain C entry points for ctypes, one a dtype. q is a contiguous
+// (batch, hq, sq, d) array, k and v contiguous (batch, hkv, sk, d) arrays
+// of q's dtype, out a contiguous (batch, hq, sq, d) array of q's dtype,
+// all on the device of `stream`; hq % hkv == 0, 1 <= d <= 256, (hq / hkv)
+// * sq <= 65535 * 64 and batch * hkv < 2^31 (the grid). lse is null or a
+// contiguous (batch, hq, sq) f32 array that receives the row log-sum-exp
+// of the scaled scores (-inf for a row with no visible key); out is the
+// same bit for bit either way. causal is 0 or 1; window 0 means no
+// window. Returns the first CUDA error of the attribute call and the
+// launch.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int batch,
-                                   int hq, int hkv, int sq, int sk, int d,
-                                   int causal, int window, void* stream) {
-  return launch<float>(q, k, v, out, batch, hq, hkv, sq, sk, d, causal,
+                                   const void* v, void* out, float* lse,
+                                   int batch, int hq, int hkv, int sq, int sk,
+                                   int d, int causal, int window,
+                                   void* stream) {
+  return launch<float>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
                        window, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int batch,
-                                    int hq, int hkv, int sq, int sk, int d,
-                                    int causal, int window, void* stream) {
-  return launch<bf16>(q, k, v, out, batch, hq, hkv, sq, sk, d, causal,
+                                    const void* v, void* out, float* lse,
+                                    int batch, int hq, int hkv, int sq,
+                                    int sk, int d, int causal, int window,
+                                    void* stream) {
+  return launch<bf16>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
                       window, stream);
 }

@@ -1,8 +1,9 @@
 """Launcher of the CUDA flash attention kernel (``flash_attention.cu``).
 
 ``flash_attention_cuda(q, k, v, causal=, window=)`` checks its tensors,
-allocates the output, launches the kernel on the current stream and
-adds one to ``launches``. It takes CUDA tensors only: there is no CPU
+allocates the output (and, with ``return_lse``, each row's log-sum-exp
+for the backward, ``flash_attention_bwd.py``), launches the kernel on
+the current stream and adds one to ``launches``. It takes CUDA tensors only: there is no CPU
 path here (``ops.flash_attention`` routes CPU tensors to ``ref.py``).
 The library is built on first call, never at import.
 """
@@ -34,22 +35,26 @@ _fns: dict = {}
 
 
 def _fn(dtype):
+    """The C entry point flash_attention_<dtype>: four tensors, the
+    log-sum-exp pointer (null for none), eight ints and the stream."""
     fn = _fns.get(dtype)
     if fn is None:
         fn = getattr(_build.load(SOURCE), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool, window: int) -> torch.Tensor:
+                         causal: bool, window: int, return_lse: bool = False):
     """q (B, Hq, Sq, d), k and v (B, Hkv, Sk, d), one dtype (f32 or bf16),
     contiguous on one CUDA device; Hq % Hkv == 0, d <= 256, (Hq / Hkv) * Sq
     <= MAX_GROUP_ROWS. ``window`` of
     0 or less means no window, as in the reference. Returns (B, Hq, Sq, d)
-    in q's dtype."""
+    in q's dtype, and with ``return_lse`` (f32 only) the (B, Hq, Sq) f32
+    log-sum-exp of each row's scaled scores; the output is the same bit
+    for bit."""
     global launches
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 of "
@@ -76,16 +81,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_cuda takes CUDA tensors on one "
                          f"device, got q on {q.device}, k on {k.device}, "
                          f"v on {v.device}")
+    if return_lse and q.dtype != torch.float32:
+        raise ValueError(f"the log-sum-exp output takes float32, got {q.dtype}")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse.fill_(float("-inf"))) if return_lse else out
     fn = _fn(q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, hq, hkv, sq, sk, d, int(bool(causal)),
                  max(int(window), 0), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -1,0 +1,84 @@
+"""Launcher of the CUDA flash attention backward (``flash_attention_bwd.cu``).
+
+``flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=)`` allocates
+dq, dk, dv and the scratch row sums D = rowsum(dout o out), launches the
+source's two kernels (dq and D over query blocks, then dk and dv over key
+blocks) on the current stream and adds one to ``launches`` for each.
+CUDA tensors only (``ops.FlashAttentionFn`` routes CPU tensors to
+``ref.flash_attention_bwd_ref``); built on first call, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.flash_attention import MAX_HEAD_DIM
+
+SOURCE = Path(__file__).with_name("flash_attention_bwd.cu")
+
+# Kernel launches made by this process (two a backward); callers reset
+# it to 0 to count the launches of one run.
+launches = 0
+KERNELS_A_CALL = 2
+TILE = 64  # kTile in flash_attention_bwd.cu: query rows and keys a block
+MAX_TILES = 65535  # the grid's y limit, in tiles of Sq or Sk
+
+_fns: dict = {}
+
+
+def _fn():
+    fn = _fns.get("f32")
+    if fn is None:
+        fn = _build.load(SOURCE).flash_attention_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["f32"] = fn
+    return fn
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool):
+    """q, out, dout (B, H, Sq, d); k, v (B, H, Sk, d); lse (B, H, Sq); all
+    f32 on one CUDA device, d a multiple of 4 and at most 256. Returns
+    (dq, dk, dv)."""
+    global launches
+    ts = (q, k, v, out, dout, lse)
+    if any(x.dtype != torch.float32 for x in ts):
+        raise ValueError(f"flash_attention_bwd_cuda takes float32, got "
+                         f"{[x.dtype for x in ts]}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"want q (B, H, Sq, d), k and v (B, H, Sk, d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if (tuple(k.shape) != (b, h, sk, d) or out.shape != q.shape
+            or dout.shape != q.shape or tuple(lse.shape) != (b, h, sq)):
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
+    if d % 4 or d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd_cuda takes a head dim that is a "
+                         f"multiple of 4, at most {MAX_HEAD_DIM}; got {d}")
+    if -(-sq // TILE) > MAX_TILES or -(-sk // TILE) > MAX_TILES or b * h > 2**31 - 1:
+        raise ValueError(f"({b * h}, {sq}, {sk}) exceed the grid")
+    dev = q.device
+    if dev.type != "cuda" or any(x.device != dev for x in ts):
+        raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors on one "
+                         f"device, got {[str(x.device) for x in ts]}")
+    q, k, v, out, dout, lse = (x.contiguous() for x in ts)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dd = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn()(*(x.data_ptr() for x in (q, k, v, out, dout, lse, dd, dq,
+                                             dk, dv)),
+                    b * h, sq, sk, d, int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += KERNELS_A_CALL
+    return dq, dk, dv

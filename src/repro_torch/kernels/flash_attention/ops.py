@@ -4,22 +4,72 @@
 the reference's ``flash_attention_pallas``: grouped-query heads, causal
 and sliding-window masks, queries end-aligned to the keys. A CUDA tensor
 goes through the CUDA kernel; only a CPU tensor takes the plain version.
+
+Where a gradient is wanted (autograd on, an input that requires it) the
+call goes through ``FlashAttentionFn``: the forward also keeps each
+row's log-sum-exp, and the backward runs the CUDA backward kernels
+(``flash_attention_bwd.cu``) or, for CPU tensors, the plain backward.
+That path takes f32 with one K/V head a query head and no window; the
+rest is refused (ROADMAP item 15 trains the language model's attention).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.flash_attention_bwd import (
+    flash_attention_bwd_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """softmax(q k^T / sqrt(d)) v with its gradient for q, k and v (f32,
+    Hq == Hkv, no window)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        if q.device.type == "cuda":
+            out, lse = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=causal,
+                                            window=0, return_lse=True)
+        else:
+            out, lse = flash_attention_ref(q, k, v, causal=causal,
+                                           return_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd_cuda if q.device.type == "cuda"
+               else flash_attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Hq, Sq, d); k, v (B, Hkv, Sk, d) -> (B, Hq, Sq, d)."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if (q.dtype != torch.float32 or k.dtype != torch.float32
+                or v.dtype != torch.float32 or k.shape[1] != q.shape[1]
+                or window > 0):
+            raise NotImplementedError(
+                f"the attention backward takes float32 with one K/V head a "
+                f"query head and no window, got {q.dtype}, {q.shape[1]} query "
+                f"/ {k.shape[1]} K/V heads, window {window} (ROADMAP.md item "
+                f"15: training the language model)")
+        return FlashAttentionFn.apply(q, k, v, bool(causal))
     if q.device.type == "cuda":
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
                                     window=window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention runs on CUDA or the CPU, got {q.device}")
+    return flash_attention_ref(q, k, v, causal=causal, window=window)

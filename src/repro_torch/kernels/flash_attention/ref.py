@@ -6,6 +6,11 @@ is held against on the card. It follows the kernel, not the reference's
 query row with no visible key (causal with Sq > Sk) gives 0, as the
 TPU kernel's ``acc / max(l, 1e-30)`` does, where the reference's
 softmax gives NaN.
+
+``flash_attention_bwd_ref`` is the plain backward (the CPU path of
+``ops.FlashAttentionFn`` and the oracle of ``flash_attention_bwd.cu``,
+within ``flash_grad_error_bound``): the gradients from the output, the
+row log-sum-exp and the gradient of the output, as the kernel forms them.
 """
 from __future__ import annotations
 
@@ -15,6 +20,11 @@ import torch
 # rescales its sums tile by tile), bf16 2e-2 (the output is rounded to
 # bf16); the tolerances of the reference's kernel tests.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Backward kernel vs plain backward on the same inputs (f32): the products
+# sum S or d terms in another order, and ds = p (dp - D) cancels; an
+# element's error scales with the terms summed into it, so the absolute
+# part is relative to the tensor's largest entry.
+GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
 
 
 def attention_scale(d: int) -> torch.Tensor:
@@ -23,11 +33,25 @@ def attention_scale(d: int) -> torch.Tensor:
     return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def visible(sq: int, sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) bool: the keys each query sees, queries end-aligned."""
+    qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    ki = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = ki <= qi
+    if window > 0:
+        mask = mask & (ki > qi - window)
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
     """q (B, Hq, Sq, d); k, v (B, Hkv, Sk, d); Hq % Hkv == 0. Returns
     (B, Hq, Sq, d) in q's dtype, computed in f32. Queries are end-aligned
     to the keys; ``window > 0`` keeps each query's last ``window`` keys
-    (itself included)."""
+    (itself included). With ``return_lse`` also the (B, Hq, Sq) f32
+    log-sum-exp of each row's scaled scores (-inf with no visible key)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -36,16 +60,41 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * attention_scale(d)
-    qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    ki = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = ki <= qi
-    if window > 0:
-        mask = mask & (ki > qi - window)
+    mask = visible(sq, sk, causal, window, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     safe_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.where(mask, torch.exp(s - safe_m), torch.zeros_like(s))
     out = (p @ vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = m + torch.log(p.sum(dim=-1, keepdim=True))
+    lse = torch.where(torch.isfinite(m), lse, m)[..., 0]
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = False):
+    """The plain backward, f32, one K/V head a query head, no window: q,
+    out, dout (B, H, Sq, d), k, v (B, H, Sk, d), lse (B, H, Sq) as the
+    forward gives them. With p = exp(s * scale - lse) on the visible keys
+    and D = rowsum(dout o out): dv = p^T dout, ds = p (dout v^T - D),
+    dq = scale ds k, dk = scale ds^T q. Returns (dq, dk, dv)."""
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    scale = attention_scale(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = visible(sq, sk, causal, 0, q.device) & torch.isfinite(lse)[..., None]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dout = dout.float()
+    dv = p.transpose(-1, -2) @ dout
+    dd = (dout * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dout @ v.float().transpose(-1, -2) - dd)
+    return ds @ k.float() * scale, ds.transpose(-1, -2) @ q.float() * scale, dv
+
+
+def flash_grad_error_bound(want: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |got - want| between the backward kernels and
+    the plain backward on the same inputs (f32): GRAD_RTOL * |want| plus
+    GRAD_ATOL_REL times the tensor's largest |want|."""
+    want = want.float()
+    return GRAD_RTOL * want.abs() + GRAD_ATOL_REL * want.abs().max()

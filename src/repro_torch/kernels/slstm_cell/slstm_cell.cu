@@ -23,6 +23,16 @@
 // Everything is computed in f32; pre_x, r and the output are f32, or all
 // bf16; the state is f32.
 //
+// Stacked clients (the federated trainer's encoders): r may hold C
+// clients' weights, (C, H, hd, 4hd), with pre_x (C*B, H, S, 4, hd); rows
+// [c*B, (c+1)*B) run with client c's r_h, in the same launch. The grid
+// takes the C*H (client, head) pairs as its heads; with C = 1 the plan,
+// the arithmetic and the output are those of the unstacked call. For the
+// backward (slstm_cell_bwd.cu) the kernel can also write, per step, each
+// unit's gate sums a = pre + h_prev @ r_h (z, i, f, o) and its state
+// (c, n, m) after the step: `save`, (C*B, H, S, 7, hd) f32, null when no
+// gradient is wanted.
+//
 // Bound. A call does B*H*S*2*hd*4hd f32 FLOPs in the recurrent products
 // (at B=64, H=4, S=64, hd=256: 8.6 GFLOP, 128 us at 67 TFLOP/s) against
 // 88 MB of HBM traffic (26 us at 3.35 TB/s): operations. Beside it sits
@@ -208,6 +218,7 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
 // State (c, n, m, h), each (batch * n_heads, hd) f32: s0 is read when
 // not null, else the zero state; s1 is written when not null.
 struct State {
+  float* save;  // (rows, heads, seq, 7, hd): a_z, a_i, a_f, a_o, c, n, m
   const float* c0;
   const float* n0;
   const float* m0;
@@ -376,7 +387,8 @@ __device__ __forceinline__ void load_slice(float4* __restrict__ rs,
   }
 }
 
-// Grid: (n_heads * groups) clusters of pl.cluster CTAs of kThreads
+// Grid: (n_heads * groups) clusters, n_heads = clients * heads (client
+// c's head h is head c * heads + h; its rows are c * batch + b) of pl.cluster CTAs of kThreads
 // threads; the first pl.threads compute, each RT rows of one unit and GT
 // of its gates (GT < 4: the unit's four gates on 4 / GT adjacent lanes,
 // which gather the gate values by shuffles and run the same state
@@ -386,8 +398,8 @@ __device__ __forceinline__ void load_slice(float4* __restrict__ rs,
 template <typename T, int RT, int GT>
 __global__ void __launch_bounds__(kThreads, 1)
     slstm_kernel(const T* __restrict__ pre_x, const T* __restrict__ r,
-                 T* __restrict__ out, int batch, int n_heads, int seq, int hd,
-                 Plan pl, State st) {
+                 T* __restrict__ out, int batch, int n_heads, int heads,
+                 int seq, int hd, Plan pl, State st) {
   constexpr int GL = 4 / GT;
   extern __shared__ float4 smem4[];
   float4* rs_all = smem4;  // (hd, unit_pad) float4: gates z, i, f, o
@@ -399,18 +411,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int cid = blockIdx.x / pl.cluster;
   const int rank = blockIdx.x % pl.cluster;  // the cluster spans x
-  const int head = cid / pl.groups;
+  const int vhead = cid / pl.groups;  // client * heads + head
+  const int client = vhead / heads;
+  const int head = vhead - client * heads;
   const int group = cid % pl.groups;
+  const int64_t row_base = (int64_t)client * batch;  // the client's first row
   const int u0 = rank * pl.units;
   const int tid = threadIdx.x;
 
-  load_slice<T>(rs_all, r + (int64_t)head * hd * 4 * hd + u0, hd, u0, pl, tid);
+  load_slice<T>(rs_all, r + (int64_t)vhead * hd * 4 * hd + u0, hd, u0, pl, tid);
   // h_{-1} of every row of the group into the parity-0 buffer.
   for (int idx = tid; idx < hbuf_size; idx += kThreads) {
     const int row = idx / pl.hstride, i = idx - row * pl.hstride;
     const int b = group * pl.rows + row;
     hbuf[idx] = (st.h0 != nullptr && b < batch && i < hd)
-                    ? st.h0[((int64_t)b * n_heads + head) * hd + i]
+                    ? st.h0[((row_base + b) * heads + head) * hd + i]
                     : 0.0f;
   }
 
@@ -430,14 +445,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   bool row_ok[RT];
   const T* pre_k[RT];
   T* out_k[RT];
+  float* save_k[RT];
   float c[RT], n[RT], m[RT], hl[RT];
 #pragma unroll
   for (int k = 0; k < RT; ++k) {
     const int b = group * pl.rows + rl * RT + k;
     row_ok[k] = unit_ok && b < batch;
-    const int64_t bh = (int64_t)(row_ok[k] ? b : 0) * n_heads + head;
+    const int64_t bh = (row_base + (row_ok[k] ? b : 0)) * heads + head;
     pre_k[k] = pre_x + bh * seq * 4 * hd + (unit_ok ? gl * GT * hd + unit : 0);
     out_k[k] = out + bh * seq * hd + (unit_ok ? unit : 0);
+    save_k[k] = st.save + (st.save != nullptr ? bh * seq * 7 * hd + (unit_ok ? unit : 0) : 0);
     c[k] = 0.0f;
     n[k] = 0.0f;
     m[k] = -1e30f;
@@ -519,6 +536,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                              (tid & 31 & ~(GL - 1)) | (g / GT));
       }
       hn[k] = cell_update(x, c[k], n[k], m[k]);
+      if (st.save != nullptr && row_ok[k] && gl == 0) {
+        float* sp = save_k[k] + (int64_t)t * 7 * hd;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) sp[g * hd] = x[g];
+        sp[4 * hd] = c[k];
+        sp[5 * hd] = n[k];
+        sp[6 * hd] = m[k];
+      }
     }
 
     if (unit_ok)
@@ -539,7 +564,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int k = 0; k < RT; ++k) {
       if (!row_ok[k]) continue;
       const int64_t sj =
-          ((int64_t)(group * pl.rows + rl * RT + k) * n_heads + head) * hd + unit;
+          ((row_base + group * pl.rows + rl * RT + k) * heads + head) * hd + unit;
       st.c1[sj] = c[k];
       st.n1[sj] = n[k];
       st.m1[sj] = m[k];
@@ -566,16 +591,32 @@ struct Launch {
   }
 };
 
-// Raise the kernel's dynamic shared-memory limit to the plan's, then ask
+// The dynamic shared-memory limit last set on a kernel instance (on the
+// current device; a change of device re-prepares, see run()).
+template <typename T, int RT, int GT>
+int& smem_limit() {
+  static int bytes = -1;
+  return bytes;
+}
+
+// Set the kernel's dynamic shared-memory limit to `bytes`.
+template <typename T, int RT, int GT>
+int set_smem_limit(int bytes) {
+  const int err = (int)cudaFuncSetAttribute(
+      slstm_kernel<T, RT, GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  smem_limit<T, RT, GT>() = err == 0 ? bytes : -1;
+  return err;
+}
+
+// Set the kernel's dynamic shared-memory limit to the plan's, then ask
 // how many of its clusters the card can hold at once (*active).
 template <typename T, int RT, int GT>
 int prepare(const Launch& l, int* active) {
-  auto kern = slstm_kernel<T, RT, GT>;
-  int err = (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)l.cfg.dynamicSmemBytes);
+  const int err = set_smem_limit<T, RT, GT>((int)l.cfg.dynamicSmemBytes);
   if (err != 0) return err;
-  return (int)cudaOccupancyMaxActiveClusters(active, kern, &l.cfg);
+  return (int)cudaOccupancyMaxActiveClusters(active, slstm_kernel<T, RT, GT>,
+                                             &l.cfg);
 }
 
 // The occupancy answer of the last (device, plan) checked, per kernel.
@@ -585,7 +626,8 @@ struct Checked {
 
 template <typename T, int RT, int GT>
 int run(const Plan& pl, const void* pre_x, const void* r, void* out,
-        int batch, int n_heads, int seq, int hd, State st, void* stream) {
+        int batch, int n_heads, int heads, int seq, int hd, State st,
+        void* stream) {
   static std::mutex mu;
   static Checked last;
   Launch l(pl, n_heads, stream);
@@ -601,12 +643,16 @@ int run(const Plan& pl, const void* pre_x, const void* r, void* out,
       if (err != 0) return err;
       if (active < 1) return kClusterUnschedulable;
       last = Checked{device, pl.cluster, pl.threads, pl.smem};
+    } else if (smem_limit<T, RT, GT>() != pl.smem) {
+      // a plan query (cluster_budget, active_clusters) set another limit
+      err = set_smem_limit<T, RT, GT>(pl.smem);
+      if (err != 0) return err;
     }
   }
   err = (int)cudaLaunchKernelEx(
       &l.cfg, slstm_kernel<T, RT, GT>, static_cast<const T*>(pre_x),
-      static_cast<const T*>(r), static_cast<T*>(out), batch, n_heads, seq, hd,
-      pl, st);
+      static_cast<const T*>(r), static_cast<T*>(out), batch, n_heads, heads,
+      seq, hd, pl, st);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
@@ -637,24 +683,32 @@ int cluster_budget(int hd, int* budget) {
   return 0;
 }
 
+// batch rows a client; the grid's heads are the clients' (client, head)
+// pairs, so a stacked call plans as one of clients * heads heads.
 template <typename T>
-int launch(const void* pre_x, const void* r, void* out, int batch,
-           int n_heads, int seq, int hd, State st, void* stream) {
-  if (hd < 1 || hd > kMaxHd || batch < 1 || n_heads < 1 || seq < 0)
+int launch(const void* pre_x, const void* r, void* out, int clients,
+           int batch, int heads, int seq, int hd, State st, void* stream) {
+  if (hd < 1 || hd > kMaxHd || batch < 1 || heads < 1 || clients < 1 ||
+      seq < 0 || (int64_t)clients * heads > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   int budget = 0;
   const int err = cluster_budget<T>(hd, &budget);
   if (err != 0) return err;
+  const int n_heads = clients * heads;
   const Plan pl = plan(batch, n_heads, hd, budget);
   if (pl.gates_per_thread == 1)
-    return run<T, 1, 1>(pl, pre_x, r, out, batch, n_heads, seq, hd, st, stream);
+    return run<T, 1, 1>(pl, pre_x, r, out, batch, n_heads, heads, seq, hd, st,
+                        stream);
   switch (pl.rows_per_thread) {
     case 1:
-      return run<T, 1, 4>(pl, pre_x, r, out, batch, n_heads, seq, hd, st, stream);
+      return run<T, 1, 4>(pl, pre_x, r, out, batch, n_heads, heads, seq, hd,
+                          st, stream);
     case 2:
-      return run<T, 2, 4>(pl, pre_x, r, out, batch, n_heads, seq, hd, st, stream);
+      return run<T, 2, 4>(pl, pre_x, r, out, batch, n_heads, heads, seq, hd,
+                          st, stream);
     default:
-      return run<T, 4, 4>(pl, pre_x, r, out, batch, n_heads, seq, hd, st, stream);
+      return run<T, 4, 4>(pl, pre_x, r, out, batch, n_heads, heads, seq, hd,
+                          st, stream);
   }
 }
 
@@ -671,12 +725,16 @@ int active_clusters(const Plan& pl, int n_heads, int* active) {
 
 }  // namespace
 
-// Plain C entry points for ctypes. pre_x is a contiguous
-// (batch, n_heads, seq, 4, hd) array, r a contiguous (n_heads, hd, 4*hd)
-// array and out a contiguous (batch, n_heads, seq, hd) array, all of the
-// named dtype and on the device of `stream`; 1 <= hd <= 256. c0, n0, m0,
-// h0 are the initial state and c1, n1, m1, h1 the final state, each a
-// contiguous (batch, n_heads, hd) f32 array: c0 .. h0 all null (the zero
+// Plain C entry points for ctypes, one a dtype. pre_x is a contiguous
+// (clients * batch, n_heads, seq, 4, hd) array, r a contiguous (clients,
+// n_heads, hd, 4 * hd) array (clients = 1: one head set for every row)
+// and out a contiguous (clients * batch, n_heads, seq, hd) array, all of
+// the named dtype and on the device of `stream`; 1 <= hd <= 256. Rows
+// [c * batch, (c + 1) * batch) run with client c's r. save is null or a
+// contiguous (clients * batch, n_heads, seq, 7, hd) f32 array that
+// receives each step's gate sums and (c, n, m). c0, n0, m0, h0 are the
+// initial state and c1, n1, m1, h1 the final state, each a contiguous
+// (clients * batch, n_heads, hd) f32 array: c0 .. h0 all null (the zero
 // state) or none, and likewise c1 .. h1 (not written). Returns
 // cudaGetLastError() after the launch, a CUDA error of the set-up, or
 // -1 when the card cannot hold one cluster of the plan.
@@ -684,18 +742,21 @@ int active_clusters(const Plan& pl, int n_heads, int* active) {
   const float *c0, const float *n0, const float *m0, const float *h0,    \
       float *c1, float *n1, float *m1, float *h1
 
-extern "C" int slstm_cell_f32(const void* pre_x, const void* r, void* out,
-                              STATE_ARGS, int batch, int n_heads, int seq,
-                              int hd, void* stream) {
-  return launch<float>(pre_x, r, out, batch, n_heads, seq, hd,
-                       State{c0, n0, m0, h0, c1, n1, m1, h1}, stream);
+extern "C" int slstm_cell_stacked_f32(const void* pre_x, const void* r,
+                                      void* out, float* save, STATE_ARGS,
+                                      int clients, int batch, int heads,
+                                      int seq, int hd, void* stream) {
+  return launch<float>(pre_x, r, out, clients, batch, heads, seq, hd,
+                       State{save, c0, n0, m0, h0, c1, n1, m1, h1}, stream);
 }
 
-extern "C" int slstm_cell_bf16(const void* pre_x, const void* r, void* out,
-                               STATE_ARGS, int batch, int n_heads, int seq,
-                               int hd, void* stream) {
-  return launch<__nv_bfloat16>(pre_x, r, out, batch, n_heads, seq, hd,
-                               State{c0, n0, m0, h0, c1, n1, m1, h1}, stream);
+extern "C" int slstm_cell_stacked_bf16(const void* pre_x, const void* r,
+                                       void* out, float* save, STATE_ARGS,
+                                       int clients, int batch, int heads,
+                                       int seq, int hd, void* stream) {
+  return launch<__nv_bfloat16>(pre_x, r, out, clients, batch, heads, seq, hd,
+                               State{save, c0, n0, m0, h0, c1, n1, m1, h1},
+                               stream);
 }
 
 // The plan of a call, for the launcher's tests: out[0..10] = cluster,

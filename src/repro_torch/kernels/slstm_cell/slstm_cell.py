@@ -4,7 +4,10 @@
 (and, with ``return_state``, the final state), launches the kernel on
 the current stream and adds one to ``launches``; ``initial_state``
 starts the recurrence from a given (c, n, m, h) instead of the zero
-state. It takes CUDA tensors only: there is no CPU path here
+state. ``r`` of shape (C, H, hd, 4hd) stacks C clients' weights over the
+rows of ``pre_x`` (C*B of them, client-major): one launch for all C.
+With ``save`` the kernel also writes what the backward
+(``slstm_cell_bwd.py``) reads: each step's gate sums and (c, n, m). It takes CUDA tensors only: there is no CPU path here
 (``ops.slstm_cell`` routes CPU tensors to ``ref.py``). The library is
 built on first call, never at import.
 
@@ -44,6 +47,7 @@ CLUSTER_UNSCHEDULABLE = -1  # the C entry point's answer when no cluster fits
 BARRIER_BYTES = 16  # two mbarriers, one an h buffer
 
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
+SAVE_SLOTS = 7  # a step's saved floats a unit: a_z, a_i, a_f, a_o, c, n, m
 _fns: dict = {}
 
 
@@ -141,13 +145,13 @@ def kernel_plan(batch: int, n_heads: int, hd: int, dtype=torch.float32) -> tuple
 
 
 def _fn(dtype):
-    """The C entry point slstm_cell_<dtype>: three tensors, eight state
-    pointers (null for the zero state or a state not written), four
-    ints and the stream."""
+    """The C entry point slstm_cell_stacked_<dtype>: three tensors, the
+    save pointer, eight state pointers (null for the zero state, a state
+    not written or nothing saved), five ints and the stream."""
     fn = _fns.get(dtype)
     if fn is None:
-        fn = getattr(_build.load(SOURCE), f"slstm_cell_{_ENTRY[dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn = getattr(_build.load(SOURCE), f"slstm_cell_stacked_{_ENTRY[dtype]}")
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
@@ -165,53 +169,66 @@ def _check_state(state, b: int, h: int, hd: int, device) -> None:
 
 
 def slstm_cell_cuda(pre_x: torch.Tensor, r: torch.Tensor, initial_state=None,
-                    return_state: bool = False):
-    """pre_x (B, H, S, 4, hd) and r (H, hd, 4hd), both f32 or both bf16,
-    contiguous on one CUDA device, hd <= 256; initial_state None or
-    (c, n, m, h), each a contiguous (B, H, hd) f32 tensor there. Returns
-    h (B, H, S, hd) in their dtype, and the final (c, n, m, h) with
-    ``return_state``."""
+                    return_state: bool = False, save: bool = False):
+    """pre_x (B, H, S, 4, hd) and r (H, hd, 4hd), or pre_x (C*B, H, S, 4,
+    hd) and r (C, H, hd, 4hd), both f32 or both bf16, contiguous on one
+    CUDA device, hd <= 256; initial_state None or (c, n, m, h), each a
+    contiguous (C*B, H, hd) f32 tensor there. Returns h (C*B, H, S, hd)
+    in their dtype, then the final (c, n, m, h) with ``return_state``,
+    then with ``save`` the (C*B, H, S, 7, hd) f32 tensor of each step's
+    gate sums (z, i, f, o) and state (c, n, m) after it."""
     global launches
     if pre_x.dtype not in _ENTRY or r.dtype != pre_x.dtype:
         raise ValueError(f"slstm_cell_cuda takes float32 or bfloat16 of one "
                          f"dtype, got pre_x {pre_x.dtype}, r {r.dtype}")
     if pre_x.dim() != 5 or pre_x.shape[3] != 4:
         raise ValueError(f"want pre_x (B, H, S, 4, hd), got {tuple(pre_x.shape)}")
-    b, h, s, _, hd = pre_x.shape
-    if tuple(r.shape) != (h, hd, 4 * hd):
-        raise ValueError(f"want r (H, hd, 4hd) = {(h, hd, 4 * hd)}, got "
+    rows, h, s, _, hd = pre_x.shape
+    clients = r.shape[0] if r.dim() == 4 else 1
+    if (tuple(r.shape[-3:]) != (h, hd, 4 * hd) or r.dim() not in (3, 4)
+            or rows % clients):
+        raise ValueError(f"want r (H, hd, 4hd) = {(h, hd, 4 * hd)} or (C, H, "
+                         f"hd, 4hd) with C dividing {rows} rows, got "
                          f"{tuple(r.shape)}")
+    b = rows // clients
     if not (pre_x.is_contiguous() and r.is_contiguous()):
         raise ValueError("slstm_cell_cuda takes contiguous tensors")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"slstm_cell_cuda takes a head dim of at most "
                          f"{MAX_HEAD_DIM} (r_h's slice in a CTA's shared "
                          f"memory), got {hd}")
-    if 8 * b * h > 2**31 - 1:  # up to a cluster of 8 CTAs a (batch, head) pair
-        raise ValueError(f"{b * h} (batch, head) pairs exceed the grid")
+    if 8 * rows * h > 2**31 - 1:  # up to a cluster of 8 CTAs a (row, head) pair
+        raise ValueError(f"{rows * h} (row, head) pairs exceed the grid")
     if initial_state is not None:
-        _check_state(initial_state, b, h, hd, pre_x.device)
+        _check_state(initial_state, rows, h, hd, pre_x.device)
     if pre_x.device.type != "cuda" or r.device != pre_x.device:
         raise ValueError(f"slstm_cell_cuda takes CUDA tensors on one device, "
                          f"got pre_x on {pre_x.device}, r on {r.device}")
-    out = torch.empty((b, h, s, hd), dtype=pre_x.dtype, device=pre_x.device)
+    out = torch.empty((rows, h, s, hd), dtype=pre_x.dtype, device=pre_x.device)
     final = None
     if return_state and s == 0:  # nothing to run: the state passes through
         final = tuple(x.clone() for x in (
             initial_state if initial_state is not None
-            else _zero_state(b, h, hd, pre_x.device)))
+            else _zero_state(rows, h, hd, pre_x.device)))
     elif return_state:
-        final = tuple(torch.empty((b, h, hd), dtype=torch.float32,
+        final = tuple(torch.empty((rows, h, hd), dtype=torch.float32,
                                   device=pre_x.device) for _ in range(4))
+    saved = (torch.empty((rows, h, s, SAVE_SLOTS, hd), dtype=torch.float32,
+                         device=pre_x.device) if save else None)
+
+    def result():
+        extra = ((final,) if return_state else ()) + ((saved,) if save else ())
+        return (out, *extra) if extra else out
+
     if out.numel() == 0:
-        return (out, final) if return_state else out
+        return result()
     fn = _fn(pre_x.dtype)
     ptrs = tuple(None if x is None else x.data_ptr() for x in (
-        *(initial_state or (None,) * 4), *(final or (None,) * 4)))
+        saved, *(initial_state or (None,) * 4), *(final or (None,) * 4)))
     with torch.cuda.device(pre_x.device):
         stream = torch.cuda.current_stream(pre_x.device).cuda_stream
-        err = fn(pre_x.data_ptr(), r.data_ptr(), out.data_ptr(), *ptrs, b, h,
-                 s, hd, stream)
+        err = fn(pre_x.data_ptr(), r.data_ptr(), out.data_ptr(), *ptrs,
+                 clients, b, h, s, hd, stream)
     if err == CLUSTER_UNSCHEDULABLE:
         p = plan(MAX_ROWS, 1, hd, 1)  # the largest a CTA of this hd needs
         raise RuntimeError(f"slstm_cell: this card cannot hold one cluster of "
@@ -220,4 +237,4 @@ def slstm_cell_cuda(pre_x: torch.Tensor, r: torch.Tensor, initial_state=None,
     if err != 0:
         raise RuntimeError(f"slstm_cell kernel launch failed: CUDA error {err}")
     launches += 1
-    return (out, final) if return_state else out
+    return result()

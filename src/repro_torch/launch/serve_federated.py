@@ -14,9 +14,9 @@ request engine, on one device (port of
     # smoke: 2 mixes through one engine, parity + byte assertions
     PYTHONPATH=src python -m repro_torch.launch.serve_federated --selftest
 
-    # the recurrent (sLSTM) or transformer encoders, on seeded models
+    # the recurrent (sLSTM) or transformer encoders, trained inline
     PYTHONPATH=src python -m repro_torch.launch.serve_federated --selftest \
-        --enc-type recurrent --train-rounds 0
+        --enc-type recurrent --train-rounds 2
 
 Requests route by available modalities to the blended local heads, pad
 into capacity-bucketed micro-batches, and the VFL fallback's
@@ -24,9 +24,8 @@ feature/score messages meter real wire bytes through the codec. With no
 checkpoint, a small BlendFL federation is trained inline
 (``--train-rounds``, ``--clients``), as the reference does;
 ``--train-rounds 0`` serves models initialised from ``--seed`` instead.
-Training runs the ``mlp`` encoders only: the ``recurrent`` and
-``transformer`` encoders are served from ``--seed`` (``--train-rounds
-0``) or from a checkpoint (``--ckpt-dir``).
+Every ``--enc-type`` trains inline: the ``recurrent`` and ``transformer``
+encoders' gradients run the sLSTM and flash attention backward kernels.
 """
 from __future__ import annotations
 
@@ -305,19 +304,9 @@ def load_models(args, spec, ecfg):
     """The served models: a checkpoint's when ``--ckpt-dir`` is given,
     else a federation trained inline for ``--train-rounds`` rounds, or,
     with ``--train-rounds 0``, models initialised from ``--seed``; all on
-    ``--device``. Inline training of an encoder type that training does
-    not run is refused before any work."""
+    ``--device``, for any ``--enc-type``."""
     from repro_torch.core.encoders import fusion_init, init_client_models
 
-    if not args.ckpt_dir and args.train_rounds > 0:
-        from repro_torch.core.engine import check_trainable
-
-        try:
-            check_trainable(ecfg)
-        except NotImplementedError as err:
-            raise NotImplementedError(
-                f"{err}: serve seeded models with --train-rounds 0, or a "
-                "checkpoint with --ckpt-dir") from err
     if args.ckpt_dir:
         return models_from_checkpoint(args.ckpt_dir, spec, ecfg,
                                       step=args.step, device=args.device)

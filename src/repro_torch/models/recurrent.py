@@ -13,7 +13,11 @@ any kernel too), and ``gated_linear_scan_ref`` the sequential oracle.
 
 ``slstm_scan`` is the stabilized sLSTM layer over the sLSTM cell kernel,
 from the zero state or a given one, returning the final state;
-``slstm_step`` is its one-token decode, the same kernel at S = 1. The
+``slstm_step`` is its one-token decode, the same kernel at S = 1;
+``slstm_scan_stacked`` runs C clients' layers (leaves with a leading C
+axis) in one kernel launch. Both scans are differentiable from the zero
+state without a final state (``return_state=False``): the cell's
+gradient runs the sLSTM backward kernel. The
 reference's ``shard_axes`` (the batch sharded over a mesh inside the
 time scan) is not ported: the port runs on one device.
 """
@@ -76,19 +80,35 @@ def slstm_init(gen: torch.Generator, d: int, n_heads: int, dtype, *, device):
     }
 
 
-def slstm_scan(p, x, n_heads: int, initial_state=None):
+def slstm_scan(p, x, n_heads: int, initial_state=None,
+               return_state: bool = True):
     """Stabilized sLSTM over time. x (B, S, d); initial_state (c, n, m,
     h), each (B, H, hd) f32, or None for the zero state. Returns
     (h (B, S, d) in f32, final state), heads in head-major order as the
-    reference lays them out."""
+    reference lays them out; the final state is None without
+    ``return_state``."""
     b, s, d = x.shape
     hd = d // n_heads
     # pre-activations in f32, as the reference computes them before its scan
     pre_x = (x @ p["wx"].to(x.dtype) + p["b"].to(x.dtype)).float()
     pre_x = pre_x.reshape(b, s, 4, n_heads, hd).permute(0, 3, 1, 2, 4)
-    hs, final = slstm_cell(pre_x.contiguous(), p["r"].float(), initial_state,
-                           return_state=True)  # hs (B, H, S, hd)
+    hs = slstm_cell(pre_x.contiguous(), p["r"].float(), initial_state,
+                    return_state=return_state)  # hs (B, H, S, hd)
+    hs, final = hs if return_state else (hs, None)
     return hs.permute(0, 2, 1, 3).reshape(b, s, d), final
+
+
+def slstm_scan_stacked(p, x, n_heads: int):
+    """C clients' sLSTM layers on their own inputs, from the zero state,
+    in one cell launch: leaves wx (C, d, 4d), r (C, H, hd, 4hd), b (C,
+    4d); x (C, B, S, d). Returns h (C, B, S, d) in f32."""
+    c, b, s, d = x.shape
+    hd = d // n_heads
+    pre_x = torch.bmm(x.reshape(c, b * s, d), p["wx"].to(x.dtype))
+    pre_x = (pre_x + p["b"].to(x.dtype)[:, None, :]).float()
+    pre_x = pre_x.reshape(c * b, s, 4, n_heads, hd).permute(0, 3, 1, 2, 4)
+    hs = slstm_cell(pre_x.contiguous(), p["r"].float())  # (C*B, H, S, hd)
+    return hs.permute(0, 2, 1, 3).reshape(c, b, s, d)
 
 
 def slstm_step(p, x_t, n_heads: int, state):

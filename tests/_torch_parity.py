@@ -171,11 +171,12 @@ DELTA_MARGIN = 1e-3
 
 def federation_pair(monkeypatch, rounds, *, data_seed=0, n_clients=4,
                     n_train=400, n_val=200, n_test=10, d_hidden=32,
-                    n_layers=1, **kw):
+                    n_layers=1, enc_type="mlp", n_heads=4, **kw):
     """The reference's and the port's ``Federation`` side by side for
     ``rounds`` rounds, from the reference's initial weights and with its
     shuffles replayed (``JaxKeyPerms``); ``kw`` goes to both
-    ``FedConfig``s (lr 1e-2 unless it says otherwise). Returns (per-round
+    ``FedConfig``s (lr 1e-2 unless it says otherwise), ``enc_type`` and
+    ``n_heads`` to both ``EncoderConfig``s. Returns (per-round
     (jax logs, port logs), the two federations, every (scores, global
     score) the reference's BlendAvg scored, the omega EMA each of its
     policy selections saw, the two test sets)."""
@@ -210,11 +211,13 @@ def federation_pair(monkeypatch, rounds, *, data_seed=0, n_clients=4,
     spec = tsyn.make_task("smnist")
     ttr, tva, tte = tsyn.train_val_test(spec, n_train, n_val, n_test,
                                         seed=data_seed)
+    enc = dict(d_hidden=d_hidden, n_layers=n_layers, enc_type=enc_type,
+               n_heads=n_heads)
     jf = JFederation.init(jax.random.PRNGKey(0), JFedConfig(**cfg), spec,
-                          jenc.EncoderConfig(d_hidden=d_hidden, n_layers=n_layers),
+                          jenc.EncoderConfig(**enc),
                           jpart.partition(jtr, n_clients, **FED_SPLIT), jva)
     tf = Federation.init(torch.Generator(), FedConfig(**cfg), spec,
-                         tenc.EncoderConfig(d_hidden=d_hidden, n_layers=n_layers),
+                         tenc.EncoderConfig(**enc),
                          tpart.partition(ttr, n_clients, **FED_SPLIT), tva,
                          device="cpu",
                          base=jax.tree.map(np.asarray, jf.global_models),
@@ -597,3 +600,49 @@ def assert_baseline_close(want, got):
             np.testing.assert_allclose(th[k], jh[k], rtol=0,
                                        atol=BASELINE_METRIC_ATOL, err_msg=k)
     assert_trees_close(jm, tm, rtol=0, atol=BASELINE_PARAM_ATOL)
+
+
+# ------------------------------------------- training the encoder variants --
+
+def assert_stacked_encoder_matches_jax(enc_type, n_heads, seed, c=3, b=4, s=6,
+                                       f=10, d=32):
+    """``engine.encoder_apply_stacked`` (one sLSTM or flash call for all C
+    clients) against ``jax.vmap`` of the reference's ``encoder_apply``:
+    the features and the gradients of sum(features * w) for every
+    client's parameters and inputs, within PARAM_TOL. Weights are the
+    reference's init of each client plus numpy noise."""
+    import torch
+
+    from repro.core import encoders as jenc
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import encoders as tenc
+    from repro_torch.core.engine import encoder_apply_stacked
+
+    rng = np.random.default_rng(seed)
+    jcfg = jenc.EncoderConfig(d_hidden=d, n_layers=1, enc_type=enc_type,
+                              n_heads=n_heads)
+    keys = jax.random.split(jax.random.PRNGKey(seed), c)
+    p = jax.tree.map(lambda x: (np.asarray(x) + 0.1 * rng.standard_normal(
+        x.shape)).astype(np.float32),
+        jax.vmap(lambda k: jenc.encoder_init(k, f, jcfg))(keys))
+    x = rng.standard_normal((c, b, s, f)).astype(np.float32)
+    w = rng.standard_normal((c, b, d)).astype(np.float32)
+
+    def loss(p, x):
+        return jax.numpy.sum(jax.vmap(lambda pc, xc: jenc.encoder_apply(pc, xc, jcfg))(
+            p, x) * w)
+
+    want_h = jax.vmap(lambda pc, xc: jenc.encoder_apply(pc, xc, jcfg))(p, x)
+    want_p, want_x = jax.grad(loss, argnums=(0, 1))(p, x)
+    leaves, treedef = jax.tree.flatten(params_from_numpy(p, "cpu"))
+    leaves = [t.requires_grad_(True) for t in leaves]
+    tp = jax.tree.unflatten(treedef, leaves)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tcfg = tenc.EncoderConfig(d_hidden=d, n_layers=1, enc_type=enc_type,
+                              n_heads=n_heads)
+    h = encoder_apply_stacked(tp, tx, tcfg)
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(want_h), **PARAM_TOL)
+    torch.sum(h * torch.from_numpy(w)).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_x), **PARAM_TOL)
+    jax.tree.map(lambda t, g: np.testing.assert_allclose(
+        t.grad.numpy(), np.asarray(g), **PARAM_TOL), tp, want_p)

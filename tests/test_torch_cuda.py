@@ -799,3 +799,134 @@ def test_fedavg_round_launches_its_blends_on_card():
                         va, te, cfg, device="cuda")
     assert blend_launcher.launches - before == want == 5
     assert all(np.isnan(v) or 0.0 <= v <= 1.0 for v in res.values())
+
+
+# -------------------------------------------- backward kernels (training) --
+# The sLSTM forward's stacked and saving forms against the plain form of
+# the same kernel: bit for bit (the arithmetic of a (row, gate) does not
+# depend on the plan). The backward kernels against their plain backwards
+# on the same saved inputs: within slstm_grad_error_bound /
+# flash_grad_error_bound (GRAD_RTOL of each entry plus GRAD_ATOL_REL of
+# the tensor's largest).
+
+def _stacked_slstm(c, b, h, s, hd, seed):
+    rng = np.random.default_rng(seed)
+    pre = (rng.standard_normal((c * b, h, s, 4, hd)) * 0.5).astype(np.float32)
+    r = (rng.standard_normal((c, h, hd, 4 * hd)) / np.sqrt(hd)).astype(np.float32)
+    return torch.from_numpy(pre).cuda(), torch.from_numpy(r).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,h,s,hd", [
+    (1, 2, 4, 64, 256), (3, 5, 2, 17, 16), (16, 4, 4, 8, 256), (2, 40, 2, 9, 8),
+])
+def test_slstm_stacked_and_saving_forward_bit_for_bit_on_card(c, b, h, s, hd):
+    """One launch for C clients gives each client's rows what a launch of
+    that client alone gives; saving changes nothing; with C = 1 the
+    stacked form is the unstacked call."""
+    _skip_without_card()
+    from repro_torch.kernels.slstm_cell.ref import slstm_cell_ref as ref
+
+    pre, r = _stacked_slstm(c, b, h, s, hd, seed=c + hd)
+    before = slstm_launcher.launches
+    out, saved = slstm_launcher.slstm_cell_cuda(pre, r, save=True)
+    assert slstm_launcher.launches == before + 1
+    assert torch.equal(out, slstm_launcher.slstm_cell_cuda(pre, r))
+    for k in range(c):
+        alone = slstm_launcher.slstm_cell_cuda(pre[k * b:(k + 1) * b].contiguous(),
+                                               r[k].contiguous())
+        assert torch.equal(out[k * b:(k + 1) * b], alone), k
+    want_out, want_saved = ref(pre, r, save=True)
+    err = (saved - want_saved).abs()
+    assert bool((err <= slstm_error_bound(want_saved, saved)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,h,s,hd", [
+    (1, 2, 4, 64, 256), (1, 64, 4, 64, 256), (3, 5, 2, 17, 16),
+    (2, 40, 2, 9, 8), (4, 3, 4, 33, 64),
+])
+def test_slstm_bwd_kernel_matches_plain_on_card(c, b, h, s, hd):
+    """The BPTT kernel against the plain backward on the kernel's own
+    saved forward; one launch."""
+    _skip_without_card()
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as bwd
+    from repro_torch.kernels.slstm_cell.ref import (slstm_cell_bwd_ref,
+                                                    slstm_grad_error_bound)
+
+    pre, r = _stacked_slstm(c, b, h, s, hd, seed=7 * c + hd)
+    _, saved = slstm_launcher.slstm_cell_cuda(pre, r, save=True)
+    dhs = torch.randn(c * b, h, s, hd, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(hd))
+    before = bwd.launches
+    got = bwd.slstm_cell_bwd_cuda(saved, r, dhs)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    want = slstm_cell_bwd_ref(saved, r, dhs)
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= slstm_grad_error_bound(want)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_slstm_autograd_on_card_matches_cpu():
+    """SLSTMCellFn on the card (both kernels) against its CPU path (the
+    plain versions) on the same inputs: the forward and pre_x's and r's
+    gradients."""
+    _skip_without_card()
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as bwd
+    from repro_torch.kernels.slstm_cell.ops import slstm_cell
+    from repro_torch.kernels.slstm_cell.ref import slstm_grad_error_bound
+
+    pre, r = _stacked_slstm(2, 6, 2, 12, 16, seed=3)
+    w = torch.randn(12, 2, 12, 16, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        p = pre.detach().to(dev).requires_grad_(True)
+        rr = r.detach().to(dev).requires_grad_(True)
+        out = slstm_cell(p, rr)
+        (out * w.to(dev)).sum().backward()
+        grads.append((out.detach().cpu(), p.grad.cpu(), rr.grad.cpu()))
+    before = bwd.launches
+    slstm_cell(pre.clone().requires_grad_(True), r).sum().backward()
+    assert bwd.launches == before + 1
+    (o1, g1, d1), (o0, g0, d0) = grads
+    assert bool(((o1 - o0).abs() <= slstm_error_bound(o0, o1)).all())
+    for got, want in ((g1, g0), (d1, d0)):
+        assert bool(((got - want).abs() <= slstm_grad_error_bound(want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (2, 4, 64, 64, 256, False), (3, 2, 64, 64, 16, False),
+    (1, 2, 40, 72, 32, True), (2, 2, 70, 70, 64, False), (1, 1, 5, 3, 8, True),
+])
+def test_flash_lse_and_bwd_kernel_match_plain_on_card(b, h, sq, sk, d, causal):
+    """The forward's log-sum-exp leaves its output as it was, bit for
+    bit, and matches the plain version's; the two backward kernels match
+    the plain backward on the same inputs (two launches)."""
+    _skip_without_card()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_grad_error_bound)
+
+    q, k, v = _qkv(b, h, h, sq, sk, d, seed=d + sq)
+    out, lse = flash_launcher.flash_attention_cuda(q, k, v, causal=causal,
+                                                   window=0, return_lse=True)
+    assert torch.equal(out, flash_launcher.flash_attention_cuda(
+        q, k, v, causal=causal, window=0))
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    np.testing.assert_allclose(lse[fin].cpu().numpy(), want_lse[fin].cpu().numpy(),
+                               rtol=FLASH_TOL[torch.float32],
+                               atol=FLASH_TOL[torch.float32])
+    dout = torch.randn_like(out)
+    before = fbwd.launches
+    got = fbwd.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert fbwd.launches == before + 2
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g - w).abs()
+        assert bool((err <= flash_grad_error_bound(w)).all()), (name, float(err.max()))

@@ -20,7 +20,6 @@ that every candidate's delta in these runs is at least 1e-3 away from
 import jax
 import numpy as np
 import pytest
-import torch
 
 from _torch_parity import (
     DELTA_MARGIN,
@@ -33,10 +32,7 @@ from _torch_parity import (
 )
 from repro.core.federation import evaluate_global as jevaluate
 from repro_torch.convert import params_to_numpy
-from repro_torch.core import encoders as tenc
-from repro_torch.core import partitioner as tpart
-from repro_torch.core.federation import FedConfig, Federation, evaluate_global
-from repro_torch.data import synthetic as tsyn
+from repro_torch.core.federation import evaluate_global
 
 EVAL_ATOL = 1e-3
 SEED = 0
@@ -112,19 +108,3 @@ def test_one_round_variant_tracks_jax(monkeypatch, kw):
                      params_to_numpy(tf.resid_down))
     else:
         assert_trees_close(jg, tg, **PARAM_TOL)
-
-
-@pytest.mark.parametrize("enc_type", ["recurrent", "transformer"])
-@pytest.mark.parametrize("kw", [dict(), dict(strategy="scaffold", n_sampled=2)],
-                         ids=["full", "sampled_scaffold"])
-def test_training_encoder_variants_raises(enc_type, kw):
-    """Training the recurrent and transformer encoders is not ported
-    (ROADMAP item 17): ``Federation`` refuses it, whatever the round's
-    strategy or sampling, and names the item."""
-    spec = tsyn.make_task("smnist")
-    tr, va, _ = tsyn.train_val_test(spec, 40, 20, 1)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Federation.init(torch.Generator(), FedConfig(**kw), spec,
-                        tenc.EncoderConfig(d_hidden=8, n_layers=1,
-                                           enc_type=enc_type),
-                        tpart.partition(tr, 3), va, device="cpu")

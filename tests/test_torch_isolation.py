@@ -163,8 +163,8 @@ def test_missing_nvcc_raises(monkeypatch):
     from repro_torch.kernels import _build
 
     assert [p.name for p in _build.sources()] == [
-        "blendavg.cu", "flash_attention.cu", "mlstm_scan.cu", "slstm_cell.cu",
-        "wire_codec.cu"]
+        "blendavg.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "mlstm_scan.cu", "slstm_cell.cu", "slstm_cell_bwd.cu", "wire_codec.cu"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

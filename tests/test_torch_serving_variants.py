@@ -1,8 +1,8 @@
 """Decentralized serving of the PyTorch port on the recurrent (sLSTM)
 and transformer encoders, against the JAX reference on the CPU:
 ``predict`` on all four routes, the ``ServingEngine`` over request
-streams, a JAX checkpoint served by the port, padding rows, the CLI
-selftest on seeded models, and the refusal to train these encoders.
+streams, a JAX checkpoint served by the port, padding rows, and the CLI
+selftest on seeded models and on models it trains inline.
 
 Weights are the reference's init plus numpy noise on every leaf, carried
 across with ``params_from_numpy``; d_hidden=32 and 4 heads, so hd = 8,
@@ -104,22 +104,13 @@ def test_serve_driver_selftest_variants_cpu(capsys, enc_type):
 
 
 @pytest.mark.parametrize("enc_type", ["recurrent", "transformer"])
-def test_training_refuses_variant_encoders_at_entry(enc_type):
-    """Training these encoders needs backward kernels the port does not
-    have yet: every training entry refuses them before any work."""
-    from repro_torch.core.engine import (EngineConfig, encoder_apply_stacked,
-                                         make_phase_fns)
-    from repro_torch.core.federation import FedConfig, Federation
-
-    spec = make_task("smnist")
-    ecfg = tenc.EncoderConfig(d_hidden=16, n_layers=1, enc_type=enc_type)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Federation.init(torch.Generator(), FedConfig(rounds=1), spec, ecfg,
-                        clients=None, val=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_phase_fns(EngineConfig(ecfg=ecfg, kind=spec.kind))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        encoder_apply_stacked({}, torch.zeros(1, 2, 3, 8), ecfg)
-    with pytest.raises(NotImplementedError, match="--train-rounds 0"):
-        tsf.main(["--selftest", "--enc-type", enc_type, "--train-rounds", "2",
-                  "--device", "cpu"])
+def test_serve_driver_selftest_trains_variants_cpu(capsys, enc_type):
+    """``--train-rounds 2`` trains the recurrent and transformer encoders
+    inline (their gradients through the autograd functions' CPU paths),
+    then serves the blended models."""
+    tsf.main(["--selftest", "--enc-type", enc_type, "--train-rounds", "2",
+              "--device", "cpu", "--requests", "12", "--rows", "6",
+              "--capacities", "2,4,8"])
+    out = capsys.readouterr().out
+    assert "trained in-process federation: 3 clients, 2 rounds on cpu" in out
+    assert "selftest ok" in out

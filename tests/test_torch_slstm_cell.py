@@ -85,11 +85,12 @@ def test_slstm_scan_matches_jax(d, n_heads, s):
 
 
 def test_slstm_scan_has_no_state_arguments():
-    """The scan takes the decode state as the reference does, but not the
+    """The scan takes the decode state as the reference does (and
+    ``return_state``, False where a gradient is wanted), but not the
     reference's batch sharding (``shard_axes``), which the port does not
     run: it does not take it rather than ignore it."""
     assert list(inspect.signature(trec.slstm_scan).parameters) == [
-        "p", "x", "n_heads", "initial_state"]
+        "p", "x", "n_heads", "initial_state", "return_state"]
     with pytest.raises(TypeError):
         trec.slstm_scan({}, torch.zeros(1, 2, 8), 2, shard_axes=())
 

@@ -24,8 +24,10 @@ state), in f32, and (64, 4, 64, 256) in bf16. Variants:
 
 ``no_exchange``, ``no_products`` and ``no_gate_math`` give wrong outputs:
 they are timed only.
-``--baseline`` builds another version of the kernel's source (the same
-C entry points), times it beside the rest and reports whether its f32
+Each is called through its ``slstm_cell_stacked_<dtype>`` entry with one
+client and nothing saved. ``--baseline`` builds another version of the
+kernel's source (one older than the stacked entry through its
+``slstm_cell_<dtype>`` entry), times it beside the rest and reports whether its f32
 outputs and final state are bitwise equal to the kernel's on the same
 inputs.
 
@@ -83,6 +85,28 @@ def variant_source(src: str, edits) -> str:
             raise ValueError(f"ablation edit no longer matches the source: {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def entry(lib, tag: str):
+    """The library's launch for dtype ``tag`` (f32 or bf16) as fn(pre_x,
+    r, out, c0..h0, c1..h1, batch, heads, seq, hd, stream): its stacked
+    entry with one client and no save pointer, or the plain entry of a
+    source older than it."""
+    tail = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if not hasattr(lib, f"slstm_cell_stacked_{tag}"):
+        fn = getattr(lib, f"slstm_cell_{tag}")
+        fn.argtypes = [ctypes.c_void_p] * 11 + tail
+        fn.restype = ctypes.c_int
+        return fn
+    fn = getattr(lib, f"slstm_cell_stacked_{tag}")
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def stacked(pre, r, out, *args):
+        *ptrs, b, h, s, hd, stream = args
+        return fn(pre, r, out, None, *ptrs, 1, b, h, s, hd, stream)
+
+    return stacked
 
 
 def build(name: str, text: str, nvcc: str, flags) -> tuple:
@@ -148,10 +172,8 @@ def main(argv=None) -> int:
 
         outputs = {}
         for name, (lib, _) in built.items():
-            fn = getattr(ctypes.CDLL(str(lib)),
-                         "slstm_cell_f32" if dtype == torch.float32 else "slstm_cell_bf16")
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn = entry(ctypes.CDLL(str(lib)),
+                       "f32" if dtype == torch.float32 else "bf16")
 
             def call(x=None, fn=fn, name=name):
                 pre, r, st = x or nxt()
