@@ -2,9 +2,10 @@
 
 Each ``.cu`` source under ``src/repro_torch/kernels/`` compiles on its
 own into a shared library with a plain C interface, under
-``build/repro_torch_kernels/`` at the repository root. The library's
-name carries a hash of its source, so an edited source is rebuilt and a
-built one is reused. Builds happen at first use, never at import;
+``build/repro_torch_kernels/`` at the repository root; the headers
+(``.cuh``) of that directory are on its include path. The library's
+name carries a hash of its source and of every header, so an edited
+source or header is rebuilt and a built one is reused. Builds happen at first use, never at import;
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
@@ -38,6 +39,11 @@ def sources() -> list:
     return sorted(KERNELS_DIR.rglob("*.cu"))
 
 
+def headers() -> list:
+    """Every CUDA header the sources may include, in a stable order."""
+    return sorted(KERNELS_DIR.rglob("*.cuh"))
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler; raises if there is none."""
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
@@ -55,6 +61,7 @@ def nvcc() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()
+                            + b"".join(h.read_bytes() for h in headers())
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
@@ -63,7 +70,7 @@ def _start(src: Path, out: Path) -> tuple:
     """Start one nvcc into a per-process temporary file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(KERNELS_DIR), "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, cmd, tmp

@@ -1,6 +1,6 @@
-// Backward of flash attention (flash_attention.cu), FlashAttention-2
-// style: dq, dk and dv from dout, the forward's output and its row
-// log-sum-exp, with the probabilities recomputed tile by tile.
+// Backward of flash attention (flash_attention.cu): dq, dk and dv from
+// dout, the forward's output and its row log-sum-exp, with the
+// probabilities recomputed.
 //
 // Replaces no TPU kernel: the reference differentiates the XLA form of
 // its encoder's attention (jax.grad through the einsum softmax,
@@ -12,37 +12,85 @@
 // multiplies), p = exp(s - lse) on the visible keys, D = rowsum(dout o out):
 //   dv = p^T dout;  dp = dout v^T;  ds = p (dp - D);
 //   dq = scale * ds k;  dk = scale * ds^T q.
-// Two kernels, no atomics, deterministic:
-//   dq_kernel:   a block a (batch, head, 64 query rows): D for its rows
-//                (written for dkv_kernel), then a loop over 64-key tiles;
-//   dkv_kernel:  a block a (batch, head, 64 keys): a loop over 64-row
-//                query tiles, dk and dv in registers.
 // Scope: f32, as many K/V heads as query heads, no window; causal masks
 // with queries end-aligned to the keys as the forward's. The head dim is a
-// multiple of 4 (16-byte loads), at most 256.
+// multiple of 4 (16-byte loads), at most 256. No atomics, deterministic.
 //
 // Bound: at the transformer encoder's training shape (C*B = 1024, H = 4,
-// S = 64, d = 256) the five products are 2 * 5 * S^2 * d a (batch, head):
-// 43 GFLOP, 0.64 ms at 67 TFLOP/s of f32 SIMT; the call reads q, k, v,
-// out, dout and lse and writes dq, dk, dv: 2.1 GB, 0.64 ms at 3.35 TB/s.
+// S = 64, d = 256) the call reads q, k, v, out, dout and lse and writes
+// dq, dk, dv: 2.15 GB, 0.641 ms at 3.35 TB/s. The five products are
+// 2 * 5 * S^2 * d a (batch, head), 42.9 GFLOP; run as 3xTF32 on the tensor
+// cores, the fused kernel's engine, that is 129 GFLOP of TF32, 0.260 ms
+// at 495 TFLOP/s. So bytes bound it. (The two SIMT kernels' f32 products
+// would take 0.64 ms at 67 TFLOP/s.)
 //
-// Design: SIMT f32 FMAs, register-blocked so that each 16-byte
-// shared-memory load feeds 8 FMAs or more (a thread with 1 x 4 entries of
-// a 32 x 32 tile would feed 3.2, and shared memory, not the FMAs, would
-// set the pace). A 64 x 64 score tile (s and dp together) gives each of the
-// 256 threads 4 query rows x 4 keys; the d axis is staged in 32-column
-// chunks, transposed ([column][row], rows padded to 68) so that one
-// float4 holds a thread's 4 rows or 4 keys: 4 loads feed 32 FMAs. The
-// output products take one float4 of ds (or p) and d/64 float4s of the
-// operand's row per step: 4 rows (or keys) x d/16 columns a thread in
-// registers, 16 FMAs a load at d = 256. Both kernels form s and dp (7
-// products of S^2 d in all, against the 5 the bound counts). Shared
-// memory at d = 256: dq_kernel 119 KB (K's full tile, four chunks, ds),
-// dkv_kernel 203 KB (q's and dout's full tiles, four chunks, p, ds); one
-// block an SM.
+// Two paths, chosen by shape alone (kernels_a_call in
+// flash_attention_bwd.py mirrors the choice):
+//
+// 1. Sq <= 64 and Sk <= 64 (the encoder's S = 64): fused_kernel, one
+//    block a (batch, head), one launch a call. The (batch, head) is a
+//    single 64 x 64 score tile, so one block forms s and dp once and
+//    derives dq, dk and dv from them, each written once:
+//    - phase 1: s = q k^T and dp = dout v^T over d in 16-column chunks of
+//      q, k, dout and v, staged by 16-byte cp.async into a double-buffered
+//      ring (rows padded to 20 floats, so that the fragment loads
+//      g * 20 + t are free of bank conflicts). 8 warps: warp w takes
+//      query rows 16 (w & 3) .. + 15 and keys 32 (w >> 2) .. + 31 of both
+//      products, as mma.sync.m16n8k8 TF32 in the forward's 3xTF32 split
+//      (x = big + small, big = rna(x), small = rna(x - big); each product
+//      small*big + big*small + big*big). Each k-step's products go into a
+//      zeroed fragment added to the sum in f32 (mma_3xtf32_rn): mma.sync
+//      truncates what it adds into its sum, and over d = 256 with |s|,
+//      |dp| near 16 the drift, carried by p and ds = p (dp - D) into every
+//      output, was most of the kernel's error: 4.1e-5 against an f64
+//      backward with the sums in the tensor cores, 4.3e-6 so (the plain
+//      f32 backward's own 6.5e-6), for 3% more time. Phase 2's sums (over
+//      64 keys) stay in the tensor cores: adding there moved the error
+//      little. D = rowsum(dout o out) is formed while the first chunk lands.
+//    - p = exp(s * scale - lse) and ds = p (dp - D) on the accumulator
+//      fragments, masked as the plain backward masks; p^T, ds^T and ds go
+//      to shared memory (rows padded to 68 floats: the A-fragment loads
+//      g * 68 + t are conflict-free). A transposed fragment is read from
+//      the transposed copy: tf32 has no ldmatrix.trans, and the forward's
+//      register permutation carries the S fragment into an A fragment only
+//      untransposed.
+//    - phase 2: dv = p^T dout, dk = ds^T q and dq = ds k over d in
+//      32-column chunks of dout, q and k (re-read; the block read them in
+//      phase 1, so L2 serves them), staged the same way with rows padded
+//      to 40 floats (B-fragment loads t * 40 + g conflict-free). Warp w
+//      takes rows 16 (w & 3) .. + 15 and columns 16 (w >> 2) .. + 15 of
+//      the chunk in all three products, in 3xTF32 again; each chunk of
+//      dq, dk, dv is stored from the accumulators once.
+//    That is the bound's 5 products, one pass over the inputs from HBM,
+//    one launch. Shared memory 114,176 B: two blocks an SM.
+// 2. Otherwise: the two SIMT kernels of the first design, unchanged:
+//    dq_kernel, a block a (batch, head, 64 query rows), forms D for its
+//    rows (written for dkv_kernel), then loops over 64-key tiles;
+//    dkv_kernel, a block a (batch, head, 64 keys), loops over 64-row
+//    query tiles with dk and dv in registers. Each forms s and dp itself
+//    (7 products of S^2 d in all). SIMT f32 FMAs, register-blocked: a
+//    64 x 64 score tile gives each of 256 threads 4 query rows x 4 keys;
+//    the d axis is staged in 32-column chunks transposed, so that 4
+//    float4 loads feed 32 FMAs; the output products take 4 rows (or keys)
+//    x d/16 columns a thread, 16 FMAs a load at d = 256. Shared memory
+//    at d = 256: dq_kernel 119 KB, dkv_kernel 203 KB; one block an SM.
+//
+// Measured (tools/torch_bwd_ablation.py and chip_smoke.py phase 22, one
+// "NVIDIA H100 80GB HBM3" at 700.00 W; PERF.md has the runs): the fused
+// kernel 1.37 ms a call at (1024, 4, 64, 256) (1.31-1.34 with phase 1's
+// sums in the tensor cores), 2.1x its 0.641 ms bound, against 5.30-5.35
+// ms of the two-kernel design timed in turns in the same runs and
+// 2.38-2.40 ms of SDPA's memory-efficient backward; 0.104 ms against
+// 0.346 at one client's (64, 4, 64, 256). With one TF32 product in place
+// of three it takes 1.21 ms, with no product at all 1.21: staging and the
+// HBM pass, not the tensor cores, set its pace. ptxas: 128 registers, no
+// spills (two blocks an SM).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -388,15 +436,247 @@ int launch_kd(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+
+// ----------------------------------------------- fused: Sq, Sk <= 64 --
+// (the products' helpers are in tf32_mma.cuh, the copies' in cp_async.cuh)
+
+constexpr int kFusedThreads = 256;  // 8 warps
+constexpr int kChA = 16;            // columns of d a phase-1 chunk
+constexpr int kLdA = kChA + 4;      // its row stride: g * 20 + t spreads banks
+constexpr int kChB = 32;            // columns of d a phase-2 chunk
+constexpr int kLdB = kChB + 8;      // its row stride: t * 40 + g spreads banks
+constexpr int kLdS = kTile + 4;     // the score tiles': g * 68 + t
+
+struct Fused {
+  static constexpr int a_tile = kTile * kLdA;
+  static constexpr int a_stage = 4 * a_tile;  // q, k, dout, v chunks
+  static constexpr int b_tile = kTile * kLdB;
+  static constexpr int b_stage = 3 * b_tile;  // dout, q, k chunks
+  static constexpr int ring = 2 * (a_stage > b_stage ? a_stage : b_stage);
+  static constexpr int score = kTile * kLdS;
+  static constexpr size_t bytes =
+      sizeof(float) * ((size_t)ring + 3 * score + 2 * kTile);
+};
+
+// Columns [x0, x0 + CH) of rows [0, 64) of a row-major (rows, d) array
+// into a (64, ld) chunk by cp.async; zeros past `valid` rows or past d.
+template <int CH>
+__device__ __forceinline__ void stage_chunk(float* dst, int ld,
+                                            const float* src, int valid,
+                                            int d, int x0) {
+  constexpr int kPieces = CH / 4;
+  for (int e = threadIdx.x; e < kTile * kPieces; e += kFusedThreads) {
+    const int r = e / kPieces, c = 4 * (e % kPieces);
+    const bool in = r < valid && x0 + c < d;
+    cp_async16(dst + r * ld + c, in ? src + (int64_t)r * d + x0 + c : src,
+               in ? 16 : 0);
+  }
+}
+
+// Grid: one block a (batch, head); sq, sk <= 64.
+__global__ void __launch_bounds__(kFusedThreads, 2)
+    fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ out,
+                 const float* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ dq,
+                 float* __restrict__ dk, float* __restrict__ dv, int sq,
+                 int sk, int d, int causal, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* pt = ring + Fused::ring;   // p^T (keys, queries)
+  float* dst = pt + Fused::score;   // ds^T (keys, queries)
+  float* dss = dst + Fused::score;  // ds (queries, keys)
+  float* lse_s = dss + Fused::score;
+  float* dd_s = lse_s + kTile;
+
+  const int64_t bh = blockIdx.x;
+  const int64_t qoff = bh * sq * d, koff = bh * sk * d;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, half = warp >> 2;
+
+  auto stage_a = [&](int c) {
+    float* st = ring + (c & 1) * Fused::a_stage;
+    const int x0 = c * kChA;
+    stage_chunk<kChA>(st, kLdA, q + qoff, sq, d, x0);
+    stage_chunk<kChA>(st + Fused::a_tile, kLdA, k + koff, sk, d, x0);
+    stage_chunk<kChA>(st + 2 * Fused::a_tile, kLdA, dout + qoff, sq, d, x0);
+    stage_chunk<kChA>(st + 3 * Fused::a_tile, kLdA, v + koff, sk, d, x0);
+  };
+  auto stage_b = [&](int c) {
+    float* st = ring + (c & 1) * Fused::b_stage;
+    const int x0 = c * kChB;
+    stage_chunk<kChB>(st, kLdB, dout + qoff, sq, d, x0);
+    stage_chunk<kChB>(st + Fused::b_tile, kLdB, q + qoff, sq, d, x0);
+    stage_chunk<kChB>(st + 2 * Fused::b_tile, kLdB, k + koff, sk, d, x0);
+  };
+  stage_a(0);
+  cp_async_commit();
+
+  // D = rowsum(dout o out) while the first chunk lands: 4 lanes a row,
+  // 16-byte loads, summed by shuffles; lse of the row (-inf past sq)
+  {
+    const int row = tid >> 2, l4 = tid & 3;
+    float acc = 0.0f;
+    if (row < sq) {
+      const float* o = out + qoff + (int64_t)row * d;
+      const float* g4 = dout + qoff + (int64_t)row * d;
+      for (int c = 4 * l4; c < d; c += 16) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(o + c));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(g4 + c));
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+        acc = fmaf(a.z, b.z, acc);
+        acc = fmaf(a.w, b.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (l4 == 0) {
+      dd_s[row] = acc;
+      lse_s[row] = row < sq ? lse[bh * sq + row] : -CUDART_INF_F;
+    }
+  }
+
+  // phase 1: s and dp for rows 16 rg .. + 15, keys 32 half .. + 31
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+  const int na = (d + kChA - 1) / kChA;
+  for (int c = 0; c < na; ++c) {
+    if (c + 1 < na) stage_a(c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c has landed
+    __syncthreads();
+    const float* qs = ring + (c & 1) * Fused::a_stage;
+    const float* ks = qs + Fused::a_tile;
+    const float* os = ks + Fused::a_tile;
+    const float* vs = os + Fused::a_tile;
+#pragma unroll
+    for (int kk = 0; kk < kChA; kk += 8) {
+      uint32_t qb[4], qsm[4], ob[4], osm[4];
+      load_a(qb, qsm, qs, kLdA, 16 * rg, kk, g, t);
+      load_a(ob, osm, os, kLdA, 16 * rg, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int key = 32 * half + 8 * nt + g;
+        uint32_t bb[2], bs[2];
+        load_b_nk(bb, bs, ks, kLdA, key, kk, t);
+        mma_3xtf32_rn(s[nt], qb, qsm, bb, bs);
+        load_b_nk(bb, bs, vs, kLdA, key, kk, t);
+        mma_3xtf32_rn(dp[nt], ob, osm, bb, bs);
+      }
+    }
+    __syncthreads();  // every warp is done with this slot
+  }
+  stage_b(0);  // the ring is free: phase 2's first chunk lands meanwhile
+  cp_async_commit();
+
+  // p and ds on the fragments: element e of s[nt] is row
+  // 16 rg + g + 8 (e >> 1), key 32 half + 8 nt + 2t + (e & 1)
+  const int off = sk - sq;  // query position p sits at key position p + off
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * rg + g + 8 * (e >> 1);
+      const int key = 32 * half + 8 * nt + 2 * t + (e & 1);
+      const float l = lse_s[r];
+      const bool vis = r < sq && key < sk && (!causal || key <= r + off) &&
+                       l != -CUDART_INF_F;
+      const float p = vis ? expf(s[nt][e] * scale - l) : 0.0f;
+      const float ds = p * (dp[nt][e] - dd_s[r]);
+      pt[key * kLdS + r] = p;
+      dst[key * kLdS + r] = ds;
+      dss[r * kLdS + key] = ds;
+    }
+
+  // phase 2: rows 16 rg .. + 15 of dv, dk (keys) and dq (queries),
+  // columns 16 half .. + 15 of each 32-column chunk
+  const int nb = (d + kChB - 1) / kChB;
+  for (int c = 0; c < nb; ++c) {
+    if (c + 1 < nb) stage_b(c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c has landed (and the score tiles are in)
+    __syncthreads();
+    const float* os = ring + (c & 1) * Fused::b_stage;
+    const float* qs = os + Fused::b_tile;
+    const float* ks = qs + Fused::b_tile;
+    float acc[3][2][4];  // dv, dk, dq
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.0f;
+#pragma unroll 2
+    for (int kb = 0; kb < kTile; kb += 8) {
+      uint32_t pb[4], ps[4], tb[4], ts[4], sb[4], ss[4];
+      load_a(pb, ps, pt, kLdS, 16 * rg, kb, g, t);
+      load_a(tb, ts, dst, kLdS, 16 * rg, kb, g, t);
+      load_a(sb, ss, dss, kLdS, 16 * rg, kb, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = 16 * half + 8 * nt + g;
+        uint32_t bb[2], bs[2];
+        load_b_kn(bb, bs, os, kLdB, kb, n, t);
+        mma_3xtf32(acc[0][nt], pb, ps, bb, bs);  // dv += p^T dout
+        load_b_kn(bb, bs, qs, kLdB, kb, n, t);
+        mma_3xtf32(acc[1][nt], tb, ts, bb, bs);  // dk += ds^T q
+        load_b_kn(bb, bs, ks, kLdB, kb, n, t);
+        mma_3xtf32(acc[2][nt], sb, ss, bb, bs);  // dq += ds k
+      }
+    }
+    // each chunk of dv, dk, dq stored once, from the accumulators
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      float* base = m == 0 ? dv + koff : m == 1 ? dk + koff : dq + qoff;
+      const int valid = m == 2 ? sq : sk;
+      const float f = m == 0 ? 1.0f : scale;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = c * kChB + 16 * half + 8 * nt + 2 * t;
+        if (col >= d) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * rg + g + 8 * h;
+          if (r < valid)
+            *reinterpret_cast<float2*>(base + (int64_t)r * d + col) =
+                make_float2(acc[m][nt][2 * h] * f, acc[m][nt][2 * h + 1] * f);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this slot
+  }
+}
+
+int launch_fused(const float* q, const float* k, const float* v,
+                 const float* out, const float* dout, const float* lse,
+                 float* dq, float* dk, float* dv, int bh, int sq, int sk,
+                 int d, int causal, cudaStream_t stream) {
+  const int err = (int)cudaFuncSetAttribute(
+      fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Fused::bytes);
+  if (err != 0) return err;
+  fused_kernel<<<(unsigned)bh, kFusedThreads, Fused::bytes, stream>>>(
+      q, k, v, out, dout, lse, dq, dk, dv, sq, sk, d, causal,
+      1.0f / sqrtf((float)d));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. q, out, dout, dq (bh, sq, d); k, v, dk,
-// dv (bh, sk, d); lse and the scratch dd (bh, sq); all contiguous f32 on
-// the device of `stream`, 16-byte aligned; bh = batch * heads (one K/V
-// head a query head); 4 <= d <= 256, d % 4 == 0; sq, sk >= 1, ceil(sq /
-// 64) and ceil(sk / 64) at most 65535. Launches dq_kernel, then
-// dkv_kernel (which reads the dd the first wrote). Returns the first CUDA
-// error of the set-up and the two launches.
+// dv (bh, sk, d); lse (bh, sq); all contiguous f32 on the device of
+// `stream`, 16-byte aligned; bh = batch * heads (one K/V head a query
+// head); 4 <= d <= 256, d % 4 == 0; sq, sk >= 1, ceil(sq / 64) and
+// ceil(sk / 64) at most 65535. Where sq <= 64 and sk <= 64, launches
+// fused_kernel (dd is not read and may be null); else the scratch dd
+// (bh, sq) receives D: dq_kernel, then dkv_kernel (which reads it).
+// Returns the first CUDA error of the set-up and the launches.
 extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
                                        const float* v, const float* out,
                                        const float* dout, const float* lse,
@@ -407,6 +687,10 @@ extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
       (sq + kTile - 1) / kTile > 65535 || (sk + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sq <= kTile && sk <= kTile)
+    return launch_fused(q, k, v, out, dout, lse, dq, dk, dv, bh, sq, sk, d,
+                        causal, s);
+  if (dd == nullptr) return (int)cudaErrorInvalidValue;
   if (d <= 64)
     return launch_kd<64>(q, k, v, out, dout, lse, dd, dq, dk, dv, bh, sq, sk,
                          d, causal, s);

@@ -1,10 +1,13 @@
 """Launcher of the CUDA flash attention backward (``flash_attention_bwd.cu``).
 
 ``flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=)`` allocates
-dq, dk, dv and the scratch row sums D = rowsum(dout o out), launches the
-source's two kernels (dq and D over query blocks, then dk and dv over key
-blocks) on the current stream and adds one to ``launches`` for each.
-CUDA tensors only (``ops.FlashAttentionFn`` routes CPU tensors to
+dq, dk and dv and launches the source's kernels on the current stream,
+adding one to ``launches`` for each: where Sq and Sk are at most 64 (the
+encoder's S = 64) one fused kernel a call, one block a (batch, head);
+else two (dq and the row sums D = rowsum(dout o out), written to a
+scratch, over query blocks; then dk and dv over key blocks).
+``kernels_a_call(sq, sk)`` is that choice, by shape alone. CUDA tensors
+only (``ops.FlashAttentionFn`` routes CPU tensors to
 ``ref.flash_attention_bwd_ref``); built on first call, never at import.
 """
 from __future__ import annotations
@@ -19,12 +22,18 @@ from repro_torch.kernels.flash_attention.flash_attention import MAX_HEAD_DIM
 
 SOURCE = Path(__file__).with_name("flash_attention_bwd.cu")
 
-# Kernel launches made by this process (two a backward); callers reset
-# it to 0 to count the launches of one run.
+# Kernel launches made by this process (kernels_a_call a backward);
+# callers reset it to 0 to count the launches of one run.
 launches = 0
-KERNELS_A_CALL = 2
 TILE = 64  # kTile in flash_attention_bwd.cu: query rows and keys a block
 MAX_TILES = 65535  # the grid's y limit, in tiles of Sq or Sk
+
+
+def kernels_a_call(sq: int, sk: int) -> int:
+    """Launches of one backward: 1 (the fused kernel) where the (batch,
+    head) is one tile, Sq and Sk at most 64; else 2 (dq, then dk and
+    dv)."""
+    return 1 if sq <= TILE and sk <= TILE else 2
 
 _fns: dict = {}
 
@@ -67,18 +76,23 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool):
     if dev.type != "cuda" or any(x.device != dev for x in ts):
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors on one "
                          f"device, got {[str(x.device) for x in ts]}")
-    q, k, v, out, dout, lse = (x.contiguous() for x in ts)
+    q, k, v, out, dout, lse = ts = tuple(x.contiguous() for x in ts)
+    if any(x.data_ptr() % 16 for x in ts):
+        raise ValueError("flash_attention_bwd_cuda takes 16-byte aligned tensors")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dd = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    n = kernels_a_call(sq, sk)
+    dd = (torch.empty((b, h, sq), dtype=torch.float32, device=dev) if n == 2
+          else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(*(x.data_ptr() for x in (q, k, v, out, dout, lse, dd, dq,
-                                             dk, dv)),
+        err = _fn()(*(x.data_ptr() for x in (q, k, v, out, dout, lse)),
+                    None if dd is None else dd.data_ptr(),
+                    *(x.data_ptr() for x in (dq, dk, dv)),
                     b * h, sq, sk, d, int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    launches += KERNELS_A_CALL
+    launches += n
     return dq, dk, dv

@@ -1,7 +1,8 @@
 """The profiler arithmetic of ``chip_smoke.py``, on the CPU: device time
 per call from two profiles (one call, ``iters`` calls), counted per
-kernel name, and never a low number from a profile that dropped events;
-and the ptxas report it prints. JAX-free, like the script."""
+kernel name, or from one profile of ``iters`` calls against a launcher's
+own launch counter, and never a low number from a profile that dropped
+events; and the ptxas report it prints. JAX-free, like the script."""
 import sys
 from pathlib import Path
 
@@ -56,6 +57,65 @@ def test_no_device_time_gives_none():
     assert chip_smoke.per_call_device_ms([], [], iters=10) == (None, {})
 
 
+def test_counted_profile_takes_its_launches_from_the_counter():
+    """The training backwards' one-call profile records no launch at all:
+    their launches come from the launcher's counter over the profile of
+    ``iters`` calls, and the call's time is the profile's total over
+    ``iters``, a transpose copy and the kernel alike."""
+    many = [(5 * 5500.0, 5, "(anonymous namespace)::slstm_bwd_kernel<2>(float"),
+            (5 * 40.0, 5, "elementwise_kernel")]
+    ms, dropped = chip_smoke.counted_device_ms(many, 5, ("slstm_bwd_kernel",), 5)
+    assert dropped == {} and ms == pytest.approx(5.540)
+    # a path of two kernels a call, counted as two launches a call
+    many = [(10 * 300.0, 10, "dq_kernel<256>"), (10 * 900.0, 10, "dkv_kernel<256>")]
+    ms, dropped = chip_smoke.counted_device_ms(
+        many, 10, ("fused_kernel", "dq_kernel", "dkv_kernel"), 20)
+    assert dropped == {} and ms == pytest.approx(1.2)
+
+
+@pytest.mark.parametrize("many,launched,dropped", [
+    # a launch lost: the counter saw 10
+    ([(9 * 1300.0, 9, "fused_kernel")], 10,
+     {"fused_kernel+dq_kernel+dkv_kernel": (9, 10), "fused_kernel": (9, 10)}),
+    # the kernel's launches as counted, another name's lost
+    ([(10 * 1300.0, 10, "fused_kernel"), (7.0, 7, "memset")], 10, {"memset": (7, 10)}),
+    # no counter (a library call): each name a whole number a call
+    ([(20 * 100.0, 20, "fmha_bwd"), (11 * 5.0, 11, "fill")], None, {"fill": (11, 20)}),
+])
+def test_counted_profile_that_dropped_a_launch_gives_none(many, launched, dropped):
+    assert chip_smoke.counted_device_ms(
+        many, 10, ("fused_kernel", "dq_kernel", "dkv_kernel"), launched) == (None, dropped)
+
+
+def test_counted_profile_with_no_device_time_gives_none():
+    assert chip_smoke.counted_device_ms([], 10, ("fused_kernel",), 0) == (None, {})
+
+
+def test_flash_bwd_bound_follows_the_engine():
+    """At S <= 64 the fused kernel runs the five products in 3xTF32 on the
+    tensor cores (495 / 3 TFLOP/s), above it the SIMT kernels in f32 (67):
+    at the encoder's (1024, 4, 64, 256) the bytes bound it either way."""
+    mem = 3.35e12
+    ms, by = chip_smoke.flash_bwd_bound_ms(4096, 64, 256, mem)
+    assert by == "bytes" and ms == pytest.approx(4096 * 64 * (8 * 256 + 1) * 4 / mem * 1e3)
+    ops = 4096 * 10 * 64 * 64 * 256
+    assert ops * 3 / chip_smoke.TF32_OPS_PER_S * 1e3 < ms
+    _, by = chip_smoke.flash_bwd_bound_ms(64, 1024, 256, mem)  # SIMT: operations
+    assert by == "operations"
+
+
+def test_slstm_bwd_bound_follows_the_engine():
+    """The BPTT products run in 3xTF32 on the tensor cores: at the stacked
+    training shape their 137 GFLOP take 0.83 ms at 495 / 3 TFLOP/s, under
+    the 0.98 ms of its 3.29 GB, so the bytes bound it (on SIMT f32 the
+    operations did, 2.05 ms)."""
+    ms, by = chip_smoke.slstm_bwd_bound_ms(1024, 16, 4, 64, 256, 3.35e12)
+    nbytes = 1024 * 4 * 64 * 256 * 12 * 4 + 16 * 4 * 256 * 1024 * 4
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    ops = 1024 * 4 * 64 * 2 * 256 * 1024
+    assert 3 * ops / chip_smoke.TF32_OPS_PER_S * 1e3 == pytest.approx(0.833, abs=1e-3)
+
+
 def test_ptxas_summary_reads_registers_and_spills():
     report = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_Z6kernelIfEvv' for 'sm_90a'
@@ -69,3 +129,46 @@ ptxas info    : Function properties for _Z5stepsv
     assert chip_smoke.ptxas_summary(report) == [
         ("_Z6kernelIfEvv", "222 registers; 0 bytes stack frame, 0 bytes "
                            "spill stores, 0 bytes spill loads")]
+
+
+def _fake_profiles(monkeypatch, profiles):
+    """device_kernels replaced by a run of ``run`` that returns the next
+    of ``profiles``."""
+    profiles = iter(profiles)
+
+    def fake(run):
+        run()
+        return next(profiles)
+
+    monkeypatch.setattr(chip_smoke, "device_kernels", fake)
+
+
+class _Launcher:
+    launches = 0
+
+
+def _launch():
+    _Launcher.launches += 1
+
+
+def test_counted_ms_profiles_again_while_a_launch_is_lost(monkeypatch, capsys):
+    _fake_profiles(monkeypatch, [[(900.0, 9, "fused_kernel")],
+                                 [(1000.0, 10, "fused_kernel")]])
+    ms = chip_smoke.counted_ms(_launch, iters=10, launcher=_Launcher,
+                               symbols=("fused_kernel",))
+    assert ms == pytest.approx(0.1)
+    assert "dropped" not in capsys.readouterr().out
+
+
+def test_counted_ms_gives_none_after_its_profiles_all_lose_one(monkeypatch, capsys):
+    _fake_profiles(monkeypatch, [[(900.0, 9, "fused_kernel")]]
+                   * chip_smoke.COUNTED_PROFILES)
+    assert chip_smoke.counted_ms(_launch, iters=10, label="flash", launcher=_Launcher,
+                                 symbols=("fused_kernel",)) is None
+    assert "profiler dropped events (flash)" in capsys.readouterr().out
+
+
+def test_counted_ms_without_a_launcher_needs_whole_launches_a_call(monkeypatch):
+    """A library call (no counter): each name a whole number a call."""
+    _fake_profiles(monkeypatch, [[(2000.0, 20, "fmha_bwd"), (50.0, 10, "fill")]])
+    assert chip_smoke.counted_ms(lambda: None, iters=10) == pytest.approx(0.205)

@@ -845,6 +845,14 @@ def test_slstm_stacked_and_saving_forward_bit_for_bit_on_card(c, b, h, s, hd):
 @pytest.mark.parametrize("c,b,h,s,hd", [
     (1, 2, 4, 64, 256), (1, 64, 4, 64, 256), (3, 5, 2, 17, 16),
     (2, 40, 2, 9, 8), (4, 3, 4, 33, 64),
+    # one and sixteen clients; rows that are not a multiple of the
+    # cluster's rows (37 = 32 + 5, 70 = 2 x 32 + 6 at one client); hd 4,
+    # 64 and 256 (clusters of 1, 2 and 8)
+    (1, 37, 4, 12, 256), (1, 70, 2, 5, 64), (16, 64, 4, 16, 256),
+    (16, 3, 2, 7, 4), (1, 33, 1, 9, 4), (16, 11, 4, 6, 64),
+    # an odd number of units a CTA (4-byte sends): hd 100 (4 x 25), 68
+    # (4 x 17), 196 (8 x 25)
+    (1, 37, 2, 9, 100), (2, 5, 1, 7, 68), (16, 6, 4, 5, 196),
 ])
 def test_slstm_bwd_kernel_matches_plain_on_card(c, b, h, s, hd):
     """The BPTT kernel against the plain backward on the kernel's own
@@ -866,6 +874,32 @@ def test_slstm_bwd_kernel_matches_plain_on_card(c, b, h, s, hd):
     err = (got - want).abs()
     assert bool(torch.isfinite(got).all())
     assert bool((err <= slstm_grad_error_bound(want)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,h,s,hd,repeats", [
+    (16, 64, 4, 64, 256, 200),  # a full-width round's stacked application
+    (1, 37, 4, 12, 256, 1000), (1, 37, 2, 9, 100, 1000),
+    (2, 5, 1, 7, 68, 1000), (16, 3, 2, 7, 4, 1000),
+])
+def test_slstm_bwd_kernel_repeats_bit_for_bit_on_card(c, b, h, s, hd, repeats):
+    """The BPTT kernel's exchange (st.async into per-source slots, counted
+    on mbarriers by parity) sums in a fixed order: launched many times on
+    the same inputs, it gives the same bits every time. A race would show
+    as a differing launch, a lost message as a trapped one (bar_wait)."""
+    _skip_without_card()
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as bwd
+
+    pre, r = _stacked_slstm(c, b, h, s, hd, seed=11 * c + hd)
+    _, saved = slstm_launcher.slstm_cell_cuda(pre, r, save=True)
+    dhs = torch.randn(c * b, h, s, hd, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(hd))
+    first = bwd.slstm_cell_bwd_cuda(saved, r, dhs)
+    before = bwd.launches
+    differ = [i for i in range(repeats)
+              if not torch.equal(bwd.slstm_cell_bwd_cuda(saved, r, dhs), first)]
+    assert bwd.launches == before + repeats
+    assert differ == []
 
 
 @pytest.mark.cuda
@@ -900,11 +934,17 @@ def test_slstm_autograd_on_card_matches_cpu():
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [
     (2, 4, 64, 64, 256, False), (3, 2, 64, 64, 16, False),
     (1, 2, 40, 72, 32, True), (2, 2, 70, 70, 64, False), (1, 1, 5, 3, 8, True),
+    # the fused kernel (Sq, Sk <= 64) at S 13 and 64, d 16, 64 and 256
+    (2, 3, 13, 13, 16, False), (3, 2, 13, 13, 256, True),
+    (2, 2, 64, 64, 64, True), (1, 4, 13, 64, 64, False),
+    # the two-kernel path at S = 65, causal
+    (2, 2, 65, 65, 64, True), (1, 2, 65, 65, 256, True),
 ])
 def test_flash_lse_and_bwd_kernel_match_plain_on_card(b, h, sq, sk, d, causal):
     """The forward's log-sum-exp leaves its output as it was, bit for
-    bit, and matches the plain version's; the two backward kernels match
-    the plain backward on the same inputs (two launches)."""
+    bit, and matches the plain version's; the backward kernels match the
+    plain backward on the same inputs, in the launches the shape rule
+    gives (one fused kernel where Sq, Sk <= 64, else two)."""
     _skip_without_card()
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
@@ -925,8 +965,25 @@ def test_flash_lse_and_bwd_kernel_match_plain_on_card(b, h, sq, sk, d, causal):
     before = fbwd.launches
     got = fbwd.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=causal)
     torch.cuda.synchronize()
-    assert fbwd.launches == before + 2
+    assert fbwd.launches == before + fbwd.kernels_a_call(sq, sk)
+    assert fbwd.kernels_a_call(sq, sk) == (1 if max(sq, sk) <= 64 else 2)
     want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g - w).abs()
         assert bool((err <= flash_grad_error_bound(w)).all()), (name, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_heads,hd", [
+    (64, 64, 256), (64, 4, 256), (2, 4, 256), (37, 4, 256), (3, 32, 4),
+    (11, 64, 64), (1000, 1, 100),
+])
+def test_slstm_bwd_plan_matches_the_kernel_on_card(b, n_heads, hd):
+    """The backward kernel's plan is slstm_cell_bwd.plan at the budget the
+    card gives, and the card holds at least one of its clusters."""
+    _skip_without_card()
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as bwd
+
+    got, budget, active = bwd.kernel_plan(b, n_heads, hd)
+    assert got == bwd.plan(b, n_heads, hd, budget)
+    assert budget >= 1 and active >= 1

@@ -129,3 +129,13 @@ def test_bwd_launcher_refuses_cpu_tensors():
                                                      torch.zeros(1, 2, 5),
                                                      causal=False)
     assert flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("sq,sk,want", [
+    (64, 64, 1), (1, 1, 1), (13, 64, 1), (64, 13, 1),  # one tile: the fused kernel
+    (65, 64, 2), (64, 65, 2), (65, 65, 2), (1024, 1024, 2),  # dq, then dk and dv
+])
+def test_launches_a_call_follow_the_shape(sq, sk, want):
+    """The backward launches one fused kernel where the (batch, head) is a
+    single 64 x 64 tile, else two; by shape alone, never as a fallback."""
+    assert flash_attention_bwd.kernels_a_call(sq, sk) == want

@@ -58,7 +58,8 @@ def test_importing_every_module_loads_no_jax():
                                        ROOT / "tools" / "torch_wire_flips.py",
                                        ROOT / "tools" / "torch_flash_ablation.py",
                                        ROOT / "tools" / "torch_slstm_ablation.py",
-                                       ROOT / "tools" / "torch_mlstm_ablation.py"]))
+                                       ROOT / "tools" / "torch_mlstm_ablation.py",
+                                       ROOT / "tools" / "torch_bwd_ablation.py"]))
 def test_sources_import_no_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -165,6 +166,8 @@ def test_missing_nvcc_raises(monkeypatch):
     assert [p.name for p in _build.sources()] == [
         "blendavg.cu", "flash_attention.cu", "flash_attention_bwd.cu",
         "mlstm_scan.cu", "slstm_cell.cu", "slstm_cell_bwd.cu", "wire_codec.cu"]
+    assert [p.name for p in _build.headers()] == [
+        "cluster.cuh", "cp_async.cuh", "tf32_mma.cuh"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
