@@ -98,12 +98,15 @@ outside a checkout. Phases, each fatal on failure:
    (8, 4, 512, 256), a decode step (S = 1), hd = 100 and a decode step
    at 10 rows, output and final state, then the first two timed;
 15. full-width xlstm-350m serving through ``repro_torch.launch.serve_lm``
-   (24 layers, d_model 1024, random weights from seed 0): prefill of
-   8 x 512 tokens and 32 greedy decode steps, exactly 12 mLSTM + 12 sLSTM
-   launches in prefill and 0 + 12 in each decode step and no other
-   kernel, prefill against ``forward``, a profiled prefill and step;
+   (24 layers, d_model 1024, random weights from seed 0; ``lm_family``,
+   as phases 23 and 25): prefill of 8 x 512 tokens and 32 greedy decode
+   steps, exactly 12 mLSTM + 12 sLSTM launches in prefill and 0 + 12 in
+   each decode step and no other kernel, prefill against ``forward``, a
+   decode step against forward on the extended sequence, a profiled
+   prefill and step;
 16. xlstm-350m card against CPU: prefill of 2 x 128 tokens and 4 decode
-   steps, logits and caches within a stated tolerance;
+   steps fed the CPU's greedy tokens, logits and caches within
+   LM_CPU_TOL;
 17. full-width sampled and strategy rounds: phase 7's federation at K = 4
    of its 16 clients: 3 async BlendAvg rounds (uniform policy; wall time
    beside phase 7's full round, ids, staleness, ``last_round`` moving
@@ -166,7 +169,30 @@ outside a checkout. Phases, each fatal on failure:
    7's blends; no other kernel), a profiled round, ``evaluate_global``;
    then 2 rounds card against CPU on each at phase 8's width and
    tolerances (4 heads of 12, data seed 2), the CPU run's BlendAvg
-   deltas 1e-3 from a tie.
+   deltas 1e-3 from a tie;
+23. full-width phi4-mini-3.8b serving through ``serve_lm`` (32 layers,
+   d_model 3072, vocab 200064, 4,450,424,832 f32 parameters, random
+   from seed 0): init's peak memory, prefill of 8 x 512 tokens and 32
+   greedy decode steps, exactly 32 flash launches a prefill and 32 a
+   step and no other kernel, prefill against ``forward``, a decode step
+   against forward on the extended sequence, a profiled prefill and
+   step;
+24. phi4-mini-3.8b card against CPU: 2 of its layers at full width from
+   the same weights, prefill of 2 x 64 tokens and 4 decode steps fed the
+   CPU's greedy tokens, logits and caches within LM_CPU_TOL;
+25. the other families at full width (FAMILY_RUNS: qwen2-vl-2b with a
+   vision prefix of 1024 patches, hymba-1.5b past its 1024-key ring,
+   whisper-medium on 1500 frames, deepseek-moe-16b at 4 layers,
+   starcoder2-7b, nemotron-4-15b, stablelm-3b and dbrx-132b at 2), each
+   with its launches a stage asserted (flash; the mLSTM scan for hymba's
+   Mamba heads), prefill against ``forward`` (hymba and whisper also a
+   decode step against forward), the tokens the MoE layers drop at
+   capacity, then card against CPU at a cut depth (MoE: the routers'
+   choices equal, the top-k gap at least MOE_GAP).
+
+Phases 10 and 13 also hold the kernels against their plain versions at
+the language models' shapes (FLASH_LM_CASES, a logit cap; MLSTM_HYMBA)
+and time them, flash beside SDPA.
 
 Phase 4's streams are fixed (``MIX_SALT`` stands in for the per-process
 ``hash(mix)``), so every run serves the same requests; its check accepts
@@ -182,6 +208,7 @@ counted per kernel name (``per_call_device_ms``), and None, with a
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -405,12 +432,14 @@ def counted_ms(fn, iters=10, label="", launcher=None, symbols=()):
 def device_breakdown(run, wall_s, top=6, match=()):
     """The device's busy time in one call of ``run`` (kernels and copies),
     its idle share of ``wall_s`` (the same work timed without the
-    profiler), the kernels that take most, and the time and calls of the
-    kernels whose names hold each string of ``match``."""
+    profiler), the kernels and copies it put on the card, the kernels that
+    take most, and the time and calls of the kernels whose names hold
+    each string of ``match``."""
     kernels = device_kernels(run)
     busy_s = sum(k[0] for k in kernels) / 1e6
     return {"busy_ms": busy_s * 1e3, "wall_ms": wall_s * 1e3,
             "idle_share": 1.0 - busy_s / wall_s,
+            "launches": sum(n for _, n, _ in kernels),
             "top": [{"kernel": name[:70], "ms": us / 1e3, "calls": n}
                     for us, n, name in kernels[:top]],
             "matched": {m: {"ms": sum(us for us, _, name in kernels if m in name) / 1e3,
@@ -1317,7 +1346,8 @@ MIX_SALT = {"all_multimodal": 101, "mixed_unimodal": 202, "vfl_heavy": 303}
 
 def print_breakdown(label, bd):
     print(f"{label}: device busy {bd['busy_ms']:.2f} ms of "
-          f"{bd['wall_ms']:.2f} ms wall, idle share {bd['idle_share']:.3f}")
+          f"{bd['wall_ms']:.2f} ms wall, idle share {bd['idle_share']:.3f}, "
+          f"{bd['launches']} kernels and copies")
     for k in bd["top"]:
         print(f"    {k['ms']:9.3f} ms {k['calls']:5d}x {k['kernel']}")
 
@@ -1482,6 +1512,19 @@ FLASH_EDGE_CASES = (
 FLASH_MAIN = (64, 4, 4, 64, 64, 256, False, 0)
 # a long causal GQA case: 8 query heads over 2 K/V heads, 1024 tokens
 FLASH_LONG = (1, 8, 2, 1024, 1024, 128, True, 0)
+# the language models' shapes (phases 23-25, serve_lm at full width):
+# phi4-mini's prefill (8 x 512, 24 query / 8 K/V heads of 128), hymba's
+# (2 x 2048, 25 / 5 heads of 64, window 1024), whisper's
+# cross-attention (4 decoder tokens over 1500 frames), decode (Sq = 1)
+# against 544 keys at query groups of 3 (phi4), 5 (hymba), 6 (qwen2-vl,
+# nemotron, dbrx) and 9 (starcoder2), and stablelm's head dim of 80
+FLASH_LM_CASES = (
+    (8, 24, 8, 512, 512, 128, True, 0), (2, 25, 5, 2048, 2048, 64, True, 1024),
+    (2, 16, 16, 4, 1500, 64, False, 0), (8, 24, 8, 1, 544, 128, False, 0),
+    (2, 25, 5, 1, 544, 64, False, 0), (2, 12, 2, 1, 544, 128, False, 0),
+    (2, 36, 4, 1, 544, 128, False, 0), (2, 32, 32, 128, 128, 80, True, 0))
+# the logit cap (attn_logit_softcap; no config sets it): one case
+FLASH_SOFTCAP = ((2, 8, 2, 96, 96, 64, True, 0), 5.0)
 
 
 def slstm_inputs(torch, b, h, s, hd, seed, dtype=None):
@@ -1553,8 +1596,8 @@ def check_flash(torch, flaunch, fref, q, k, v, causal, window):
     return float(err.max()), got
 
 
-def visible_pairs(sq, sk, causal, window) -> int:
-    """(query, key) pairs of one head that the masks let through."""
+def visible_mask(sq, sk, causal, window):
+    """(Sq, Sk) bool: the keys each query sees, queries end-aligned."""
     qi = np.arange(sq)[:, None] + (sk - sq)
     ki = np.arange(sk)[None, :]
     mask = np.ones((sq, sk), bool)
@@ -1562,7 +1605,12 @@ def visible_pairs(sq, sk, causal, window) -> int:
         mask = ki <= qi
     if window > 0:
         mask &= ki > qi - window
-    return int(mask.sum())
+    return mask
+
+
+def visible_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs of one head that the masks let through."""
+    return int(visible_mask(sq, sk, causal, window).sum())
 
 
 def time_flash(torch, flaunch, fref, case, mem_rate, dtype=None, plain=True):
@@ -1585,13 +1633,18 @@ def time_flash(torch, flaunch, fref, case, mem_rate, dtype=None, plain=True):
     def plain_fn():
         return fref.flash_attention_ref(*nxt(), causal=causal, window=window)
 
-    def sdpa():  # the library yardstick: timed here, never on the path
-        return F.scaled_dot_product_attention(*nxt(), is_causal=causal,
-                                              enable_gqa=hq != hkv)
+    check(not causal or sq == sk,
+          "SDPA's causal mask is end-aligned only when Sq == Sk")
+    # a window goes to SDPA as a boolean mask of the visible keys
+    mask = (torch.from_numpy(visible_mask(sq, sk, causal, window)).cuda()
+            if window > 0 else None)
 
-    check(window == 0 and (not causal or sq == sk),
-          "SDPA's causal mask is end-aligned only when Sq == Sk, no window")
-    out = {"shape": [b, hq, hkv, sq, sk, d], "causal": causal,
+    def sdpa():  # the library yardstick: timed here, never on the path
+        return F.scaled_dot_product_attention(
+            *nxt(), attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=hq != hkv)
+
+    out = {"shape": [b, hq, hkv, sq, sk, d], "causal": causal, "window": window,
            "dtype": str(dtype)[6:], "ms": cuda_time_ms(kern),
            "library_ms": cuda_time_ms(sdpa),
            "device_ms": device_ms(kern, label=f"flash {tag}"),
@@ -1601,11 +1654,12 @@ def time_flash(torch, flaunch, fref, case, mem_rate, dtype=None, plain=True):
         out["plain_device_ms"] = device_ms(plain_fn, label=f"flash plain {tag}")
     # bound: q, k, v read once and the output written once, over the
     # memory rate; 4*d operations (q.k and p*v) for each visible (query,
-    # key) pair, over the peak of the inputs' type (f32 outside the
-    # tensor cores, bf16 on them)
+    # key) pair, on the engine the kernel runs them on: f32 in 3xTF32 on
+    # the tensor cores (three TF32 products for each f32 one, 495 / 3
+    # TFLOP/s), bf16 on them at its own rate
     bytes_ms = nbytes / mem_rate * 1e3
     ops = 4 * d * visible_pairs(sq, sk, causal, window) * b * hq
-    peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    peak = TF32_OPS_PER_S / 3 if dtype == torch.float32 else BF16_OPS_PER_S
     ops_ms = ops / peak * 1e3
     out["bound_ms"] = max(bytes_ms, ops_ms)
     out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1667,13 +1721,16 @@ def slstm_phase(torch, slaunch, sref, mem_rate):
 def flash_phase(torch, flaunch, fref, mem_rate):
     """Phase 10: the flash kernel against its plain version (every mask
     and shape of the CPU tests, the tiling's edges, full width, the long
-    causal GQA case, f32 and bf16, rows without a visible key), then
-    timed at full width (f32, with the plain version; bf16) and at the
-    long causal GQA case (f32, bf16), each beside
-    scaled_dot_product_attention. Returns (max abs err by dtype, the
-    timings, the f32 full-width one first)."""
+    causal GQA case, the language models' shapes, f32 and bf16, rows
+    without a visible key, a logit cap), then timed at full width (f32,
+    with the plain version; bf16), at the long causal GQA case (f32,
+    bf16) and at each language model's shape (f32; phi4-mini's prefill
+    with the plain version), each beside scaled_dot_product_attention.
+    Returns (max abs err by dtype, the timings, the f32 full-width one
+    first)."""
     flash_err, n_cases = {}, 0
-    for case in FLASH_TEST_CASES + FLASH_EDGE_CASES + (FLASH_MAIN, FLASH_LONG):
+    for case in (FLASH_TEST_CASES + FLASH_EDGE_CASES + (FLASH_MAIN, FLASH_LONG)
+                 + FLASH_LM_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(torch, *case[:6], seed=sum(case[:6]), dtype=dtype)
             err, got = check_flash(torch, flaunch, fref, q, k, v, *case[6:])
@@ -1684,20 +1741,38 @@ def flash_phase(torch, flaunch, fref, mem_rate):
             key = str(dtype).replace("torch.", "")
             flash_err[key] = max(flash_err.get(key, 0.0), err)
             n_cases += 1
+    case, cap = FLASH_SOFTCAP
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(torch, *case[:6], seed=7, dtype=dtype)
+        q = q * 3  # scores of several units, so that the cap bends them
+        got = flaunch.flash_attention_cuda(q, k, v, causal=case[6], window=0,
+                                           softcap=cap)
+        want = fref.flash_attention_ref(q, k, v, causal=case[6], softcap=cap)
+        torch.cuda.synchronize()
+        tol = fref.TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= tol + tol * want.float().abs()).all()),
+              f"flash with softcap {cap} beyond {tol}: max err {float(err.max())}")
+        key = "softcap_" + str(dtype).replace("torch.", "")
+        flash_err[key] = float(err.max())
+        n_cases += 1
     del q, k, v, got
     print(f"{n_cases} cases within tolerance of the plain version (f32 2e-5, "
-          f"bf16 2e-2), finite, rows without keys exactly 0; max abs err "
-          f"{flash_err}")
+          f"bf16 2e-2), finite, rows without keys exactly 0; the language "
+          f"models' shapes included; max abs err {flash_err}")
     times = [time_flash(torch, flaunch, fref, FLASH_MAIN, mem_rate),
              time_flash(torch, flaunch, fref, FLASH_MAIN, mem_rate,
                         dtype=torch.bfloat16, plain=False),
              time_flash(torch, flaunch, fref, FLASH_LONG, mem_rate, plain=False),
              time_flash(torch, flaunch, fref, FLASH_LONG, mem_rate,
                         dtype=torch.bfloat16, plain=False)]
+    times += [time_flash(torch, flaunch, fref, case, mem_rate, plain=i == 0)
+              for i, case in enumerate(FLASH_LM_CASES)]
     for t in times:
         plain = (f", plain {t['plain_ms']:.5f} ms (device {t['plain_device_ms']} ms)"
                  if "plain_ms" in t else "")
-        print(f"flash_attention {t['shape']} causal={t['causal']} {t['dtype']}: "
+        print(f"flash_attention {t['shape']} causal={t['causal']} window="
+              f"{t['window']} {t['dtype']}: "
               f"kernel {t['ms']:.5f} ms (device {t['device_ms']} ms){plain}, SDPA "
               f"{t['library_ms']:.5f} ms (device {t['library_device_ms']} ms); "
               f"kernel / SDPA {t['vs_library']:.3f}; bound {t['bound_ms']:.6f} ms "
@@ -1837,6 +1912,9 @@ def variant_cli(sf, slaunch, flaunch, sbwd, fbwd):
 MLSTM_TEST_CASES = ((1, 2, 64, 16, 16, 16), (2, 3, 100, 32, 16, 32),
                     (1, 1, 128, 64, 64, 128), (2, 4, 77, 512, 512, 64))
 MLSTM_MAIN = (8, 4, 512, 512, 512, 64)
+# hymba's Mamba heads (phase 25): 2 x 2048 tokens, 25 heads, dk = ssm_state
+# 16 (padded to 32 by the kernel's plan), dv = 64, normalize off
+MLSTM_HYMBA = (2, 25, 2048, 16, 64, 64)
 # the stateful sLSTM at xlstm-350m's width: prefill of 512 tokens, and a
 # decode step (S = 1), each from a running (non-zero) state (these two
 # are timed); then the partition's edges from a state: hd = 100 (4 CTAs
@@ -1900,12 +1978,10 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate, ptxas):
     shared memory; the built kernel's equal to ``mlstm_scan.plan`` with
     the card's cluster capacities) and its registers, then the mLSTM
     kernel against its plain version (the CPU tests' shapes, a ragged S,
-    full width; normalize on and off; h, C and n), then timed at full
-    width beside the plain version and the bound at both f32-accurate
-    rates: three TF32 products for each f32 one on the tensor cores (495
-    TFLOP/s), as the kernel runs them, which is the lower and so the
-    bound (``bound_ms``), and f32 on SIMT (67 TFLOP/s, ``bound_ms_simt``).
-    Returns (max abs err, errors at full width, timing)."""
+    full width, hymba's Mamba heads; normalize on and off; h, C and n),
+    then timed at full width and at hymba's shape (``time_mlstm``).
+    Returns (max abs err, errors at full width, timing with the hymba
+    one under "hymba")."""
     b, h, s, dk, dv, chunk = MLSTM_MAIN
     plan, active = mlaunch.kernel_plan(b * h, dk, dv, chunk)
     check(plan == mlaunch.plan(b * h, dk, dv, chunk, active)
@@ -1919,7 +1995,7 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate, ptxas):
           f"the card holds {active} clusters of each size at once), TK "
           f"{plan.tk}, {plan.smem} bytes of shared memory; ptxas {regs}")
     worst, n_cases = 0.0, 0
-    for case in MLSTM_TEST_CASES + (MLSTM_MAIN,):
+    for case in MLSTM_TEST_CASES + (MLSTM_MAIN, MLSTM_HYMBA):
         for normalize in (True, False):
             q, k, v, lf = mlstm_inputs(torch, *case[:5], seed=sum(case))
             errs = check_mlstm(torch, mlaunch, mref, q, k, v, lf, case[5], normalize)
@@ -1931,37 +2007,53 @@ def mlstm_phase(torch, mlaunch, mref, mem_rate, ptxas):
     print(f"{n_cases} cases (h, final C and n) within mlstm_error_bound of the "
           f"plain version; max abs err {worst:.3g}; at {MLSTM_MAIN[:5]}: "
           f"{main_errs}")
+    t = time_mlstm(torch, mlaunch, mref, MLSTM_MAIN, True, mem_rate)
+    t.update(engine="tensor cores: mma.sync m16n8k8 TF32, 3xTF32 split",
+             plan=vars(plan), active_clusters=active, ptxas=regs)
+    t["hymba"] = time_mlstm(torch, mlaunch, mref, MLSTM_HYMBA, False, mem_rate)
+    t["hymba"]["plan"] = vars(mlaunch.kernel_plan(
+        MLSTM_HYMBA[0] * MLSTM_HYMBA[1], *MLSTM_HYMBA[3:])[0])
+    return worst, main_errs, t
+
+
+def time_mlstm(torch, mlaunch, mref, case, normalize, mem_rate) -> dict:
+    """The mLSTM kernel at ``case`` beside the plain version and the
+    bound at both f32-accurate rates: three TF32 products for each f32
+    one on the tensor cores (495 TFLOP/s), as the kernel runs them, which
+    is the lower and so the bound (``bound_ms``), and f32 on SIMT (67
+    TFLOP/s, ``bound_ms_simt``)."""
+    b, h, s, dk, dv, chunk = case
     nbytes = 4 * b * h * (s * (2 * dk + 2 * dv + 1) + dk * dv + dk)
     nxt = rotation(lambda: mlstm_inputs(torch, b, h, s, dk, dv, seed=1), nbytes)
 
     def kern():
-        return mlaunch.mlstm_scan_cuda(*nxt(), chunk=chunk, return_state=True)
+        return mlaunch.mlstm_scan_cuda(*nxt(), chunk=chunk, normalize=normalize,
+                                       return_state=True)
 
     def plain():
-        return mref.mlstm_scan_ref(*nxt(), return_state=True)
+        return mref.mlstm_scan_ref(*nxt(), normalize=normalize, return_state=True)
 
     flops = mlstm_flops(b, h, s, dk, dv, chunk)
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = min(3 * flops / TF32_OPS_PER_S, flops / FP32_OPS_PER_S) * 1e3
-    t = {"shape": list(MLSTM_MAIN[:5]), "chunk": chunk,
+    tag = f"{case[:5]}"
+    t = {"shape": list(case[:5]), "chunk": chunk, "normalize": normalize,
          "ms": cuda_time_ms(kern, iters=20, warmup=3),
-         "device_ms": device_ms(kern, iters=10, label="mlstm"),
+         "device_ms": device_ms(kern, iters=10, label=f"mlstm {tag}"),
          "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
-         "plain_device_ms": device_ms(plain, iters=2, label="mlstm plain"),
+         "plain_device_ms": device_ms(plain, iters=2, label=f"mlstm plain {tag}"),
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "bound_ms_simt": max(bytes_ms, flops / FP32_OPS_PER_S * 1e3),
-         "engine": "tensor cores: mma.sync m16n8k8 TF32, 3xTF32 split",
-         "gflop": flops / 1e9, "plan": vars(plan), "active_clusters": active,
-         "ptxas": regs}
-    print(f"mlstm_scan {t['shape']} chunk {chunk}: kernel {t['ms']:.5f} ms "
-          f"(device {t['device_ms']} ms), plain {t['plain_ms']:.5f} ms (device "
-          f"{t['plain_device_ms']} ms); bound {t['bound_ms']:.6f} ms in 3xTF32 "
-          f"on the tensor cores ({t['bound_by']}, {t['gflop']:.2f} GFLOP), "
-          f"{t['bound_ms_simt']:.6f} ms in f32 on SIMT; kernel at "
-          f"{t['bound_ms'] / t['ms']:.3f} / {t['bound_ms_simt'] / t['ms']:.3f} "
-          "of them")
-    return worst, main_errs, t
+         "gflop": flops / 1e9}
+    print(f"mlstm_scan {t['shape']} chunk {chunk} normalize={normalize}: kernel "
+          f"{t['ms']:.5f} ms (device {t['device_ms']} ms), plain "
+          f"{t['plain_ms']:.5f} ms (device {t['plain_device_ms']} ms); bound "
+          f"{t['bound_ms']:.6f} ms in 3xTF32 on the tensor cores "
+          f"({t['bound_by']}, {t['gflop']:.2f} GFLOP), {t['bound_ms_simt']:.6f} "
+          f"ms in f32 on SIMT; kernel at {t['bound_ms'] / t['ms']:.3f} / "
+          f"{t['bound_ms_simt'] / t['ms']:.3f} of them")
+    return t
 
 
 def running_state(torch, b, h, hd, seed):
@@ -2022,31 +2114,185 @@ def slstm_state_phase(torch, slaunch, sref, mem_rate):
     return worst, times
 
 
-def lm_serving(torch, counted) -> dict:
-    """Phase 15: xlstm-350m at full width through serve_lm on the card:
-    prefill of LM_BATCH x LM_PROMPT tokens and LM_GEN greedy decode
-    steps, launches counted per stage (12 mLSTM + 12 sLSTM in prefill,
-    0 + 12 in each decode step, nothing else), prefill against forward,
-    a decode step against forward on the extended sequence, and a
-    profiled prefill and decode step."""
+# Phases 23-25: every language-model family through serve_lm at full
+# width. phi4-mini-3.8b at full depth (32 layers): 8 prompts of 512
+# tokens, 32 greedy decode steps.
+PHI4_BATCH, PHI4_PROMPT, PHI4_GEN = 8, 512, 32
+# The other families (phase 25), each at full width: its depth on the
+# card (None: all of it; deepseek-moe-16b's 28 layers are 67.5 GB in f32,
+# dbrx-132b's 131.6 B parameters fit no card, and nemotron-4-15b's 62.5
+# GB leave no room for init's stacking copy), batch, prompt tokens (and
+# vision patches or audio frames), decode steps, and the cut depth and
+# sizes of its card-vs-CPU run.
+FAMILY_RUNS = (
+    dict(name="qwen2_vl_2b", layers=None, batch=2, prompt=128, patches=1024,
+         gen=8, cpu=dict(layers=2, batch=2, prompt=64, patches=256, gen=2)),
+    dict(name="hymba_1p5b", layers=None, batch=2, prompt=2048, gen=8,
+         cpu=dict(layers=2, batch=2, prompt=128, gen=2)),
+    dict(name="whisper_medium", layers=None, batch=2, prompt=4, frames=1500,
+         gen=8, cpu=dict(layers=2, batch=2, prompt=4, frames=500, gen=2)),
+    dict(name="deepseek_moe_16b", layers=4, batch=4, prompt=512, gen=8,
+         cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
+    dict(name="starcoder2_7b", layers=2, batch=2, prompt=128, gen=2,
+         cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
+    dict(name="nemotron_4_15b", layers=2, batch=2, prompt=128, gen=2,
+         cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
+    dict(name="stablelm_3b", layers=2, batch=2, prompt=128, gen=2,
+         cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
+    dict(name="dbrx_132b", layers=2, batch=2, prompt=128, gen=2,
+         cpu=dict(layers=1, batch=2, prompt=32, gen=2)),
+)
+# MoE card vs CPU: every router call's expert choices equal on both; the
+# CPU run's smallest gap between a token's k-th and (k+1)-th expert
+# probability must be at least this (a smaller gap could let the two
+# devices' last-ulp differences pick other experts): the prompt's seed is
+# the first of MOE_SEEDS whose CPU run keeps it.
+MOE_GAP, MOE_SEEDS = 1e-5, 8
+# A sliding-window model's decode step against forward past its ring's
+# wrap (phase 25): prompts of window - 24 (no wrap), 2 x window (a wrap
+# at a multiple of the ring) and 2 x window + 300 (a wrap that leaves the
+# ring's oldest entry mid-buffer), each from these prompt seeds.
+RING_PROBE_OFFSETS, RING_PROBE_SEEDS = ((1, -24), (2, 0), (2, 300)), (0, 1, 2)
+# the kernels a language model's serving launches, by symbol
+LM_KERNELS = ("flash_kernel", "mlstm_kernel", "slstm_kernel")
+
+
+def cut_cfg(cfg, layers):
+    """``cfg`` at its first ``layers`` layers (every stack of an
+    encoder-decoder); None keeps its depth."""
+    if layers is None:
+        return cfg
+    return (cfg.replace(n_layers=layers, n_enc_layers=layers) if cfg.is_encdec
+            else cfg.replace(n_layers=layers))
+
+
+def cut_depth(params, cfg, layers):
+    """The first ``layers`` layers of a model, as views, and its config at
+    that depth (``cut_cfg``)."""
+    from repro_torch.common.tree import tree_map
+
+    if layers is None:
+        return params, cfg
+    cut = lambda x: x[:layers]  # noqa: E731
+    stacks = ("enc_layers", "dec_layers") if cfg.is_encdec else ("layers",)
+    return (dict(params, **{k: tree_map(cut, params[k]) for k in stacks}),
+            cut_cfg(cfg, layers))
+
+
+def lm_inputs(torch, cfg, batch, prompt, patches=0, frames=0, seed=0,
+              device="cuda"):
+    """(tokens (B, prompt) int32, {patches or frames}) from a seed, on
+    ``device``; the sequence prefill sees is patches + prompt long."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))
+                              .astype(np.int32)).to(device)
+    inputs = {}
+    if patches:
+        inputs["patches"] = rng.standard_normal((batch, patches, cfg.frontend_dim),
+                                                np.float32)
+    if frames:
+        inputs["frames"] = rng.standard_normal((batch, frames, cfg.frontend_dim),
+                                               np.float32)
+    return tokens, {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+
+
+def expected_launches(cfg) -> tuple:
+    """{kernel: launches} a prefill and a decode step of ``cfg``, nothing
+    else: one flash launch an attention (an encoder-decoder's decoder has
+    two, self and cross); one mLSTM scan a hybrid layer's prefill; an
+    xLSTM pair one mLSTM scan and one sLSTM cell a prefill, one sLSTM cell
+    a step."""
+    if cfg.block_type == "xlstm_pair":
+        n = cfg.n_layers // 2
+        return ({"mlstm_scan": n, "slstm_cell": n}, {"slstm_cell": n})
+    if cfg.is_encdec:
+        flash = (cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers)
+    else:
+        flash = (cfg.n_layers, cfg.n_layers)
+    mlstm = (cfg.n_layers, 0) if cfg.block_type == "hybrid" else (0, 0)
+    return ({"flash_attention": flash[0], "mlstm_scan": mlstm[0]},
+            {"flash_attention": flash[1], "mlstm_scan": mlstm[1]})
+
+
+def decode_gap(torch, bb, params, cfg, batch_in, cache, idx, nt) -> float:
+    """Max abs difference between a decode step fed ``nt`` after the
+    prefill that gave (``cache``, ``idx``) and forward's last logits on
+    the extended sequence; checked within LM_DECODE_TOL."""
+    lg, _ = bb.decode_step(params, cfg, nt, cache, idx)
+    ext = dict(batch_in, tokens=torch.cat([batch_in["tokens"], nt], 1))
+    full, _ = bb.forward(params, cfg, ext)
+    err = float((lg[:, 0] - full[:, -1]).abs().max())
+    check(torch.allclose(lg[:, 0], full[:, -1], atol=LM_DECODE_TOL,
+                         rtol=LM_DECODE_TOL),
+          f"{cfg.name} decode step vs forward at {ext['tokens'].shape[1]} "
+          f"tokens: {err}")
+    return err
+
+
+def ring_probe(torch, bb, params, cfg, batch) -> dict:
+    """``decode_gap`` of a sliding-window model at the prompts of
+    RING_PROBE_OFFSETS, each from RING_PROBE_SEEDS: {prompt: [gap a
+    seed]}. A misplaced ring slot would put a wrong key in the window, an
+    error of the logits' own size; rounding stays at one size across
+    wraps and seeds."""
+    out = {}
+    for mult, extra in RING_PROBE_OFFSETS:
+        prompt = mult * cfg.window + extra
+        out[prompt] = []
+        for seed in RING_PROBE_SEEDS:
+            tokens, _ = lm_inputs(torch, cfg, batch, prompt + 1, seed=seed)
+            batch_in = {"tokens": tokens[:, :-1]}
+            _, cache, idx = bb.prefill(params, cfg, batch_in, prompt + 1)
+            out[prompt].append(decode_gap(torch, bb, params, cfg, batch_in,
+                                          cache, idx, tokens[:, -1:]))
+            del cache
+    print(f"{cfg.name}: a decode step vs forward by prompt length (ring "
+          f"{cfg.window}), seeds {RING_PROBE_SEEDS}: " + "; ".join(
+              f"{p}: " + ", ".join(f"{e:.3g}" for e in errs)
+              for p, errs in out.items()) + f" (tol {LM_DECODE_TOL})")
+    return out
+
+
+def lm_family(torch, counted, name, layers=None, batch=2, prompt=128,
+              patches=0, frames=0, gen=8, profile=False) -> tuple:
+    """One family at full width through serve_lm on the card, from random
+    weights of seed 0: init (peak memory), a warm-up, then prefill and
+    ``gen`` greedy decode steps with the launches counted per stage and
+    asserted (``expected_launches``, every other kernel 0); prefill's
+    last logits against ``forward``; a decode step after prefill against
+    forward on the extended sequence, where the two agree by design (not
+    with MoE layers, whose capacity depends on the tokens a call, nor
+    with M-RoPE, whose decode position is the raw index), and for a
+    sliding window at the prompts of ``ring_probe``; with ``profile`` a
+    profiled prefill and decode step. Returns (the record, params,
+    cfg)."""
     from repro_torch.common.tree import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.launch import serve_lm
     from repro_torch.models import backbone as bb
 
-    cfg = get_config("xlstm_350m")
-    n_pairs = bb.n_scan_layers(cfg)
+    cfg = cut_cfg(get_config(name), layers)
+    decode_vs_forward = not cfg.n_experts and cfg.pos != "mrope"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = bb.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                             device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"xlstm-350m: {cfg.n_layers} layers ({n_pairs} pairs), d_model "
+    tokens, inputs = lm_inputs(torch, cfg, batch, prompt, patches, frames)
+    seq = patches + prompt
+    max_len = seq + gen
+    print(f"{cfg.name}: {cfg.n_layers} layers"
+          f"{f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''}, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params} parameters "
-          f"({n_params * 4 / 1e9:.3f} GB f32)")
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
-                              .astype(np.int32)).cuda()
-    max_len = LM_PROMPT + LM_GEN
-    serve_lm.generate(params, cfg, tokens[:, :64], gen=2, max_len=max_len)  # warm-up
+          f"({n_params * 4 / 1e9:.3f} GB f32); init {init_s:.2f} s, peak "
+          f"{init_peak_gb:.3f} GB")
+    warm = {k: v[:, :16] for k, v in inputs.items()}
+    serve_lm.generate(params, cfg, tokens[:, :16], gen=1, max_len=max_len,
+                      inputs=warm)
 
     stages = []
 
@@ -2058,122 +2304,232 @@ def lm_serving(torch, counted) -> dict:
     for m in counted.values():
         m.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    res = serve_lm.generate(params, cfg, tokens, gen=LM_GEN, max_len=max_len,
-                            hook=hook)
+    res = serve_lm.generate(params, cfg, tokens, gen=gen, max_len=max_len,
+                            inputs=inputs, hook=hook)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want_prefill = {k: 0 for k in counted}
-    want_prefill.update(mlstm_scan=n_pairs, slstm_cell=n_pairs)
-    want_decode = dict(want_prefill, mlstm_scan=0)
+    want_p, want_d = expected_launches(cfg)
+    want_prefill = {k: want_p.get(k, 0) for k in counted}
+    want_decode = {k: want_d.get(k, 0) for k in counted}
     check(stages[0] == ("prefill", want_prefill),
-          f"prefill launches {stages[0]}, want {want_prefill}")
-    check(len(stages) == 1 + LM_GEN and all(
+          f"{cfg.name} prefill launches {stages[0]}, want {want_prefill}")
+    check(len(stages) == 1 + gen and all(
         got == ("decode", want_decode) for got in stages[1:]),
-        f"decode launches {stages[1:3]}..., want {want_decode} each step")
-    total = {k: sum(c[k] for _, c in stages) for k in counted}
+        f"{cfg.name} decode launches {stages[1:3]}..., want {want_decode} a step")
+    toks = res["tokens"]
+    check(tuple(toks.shape) == (batch, 1 + gen)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{cfg.name}: generated tokens out of range")
     steps = np.asarray(res["decode_s"])
-    out = {"n_params": n_params, "launches": total,
+    out = {"name": cfg.name, "layers": cfg.n_layers, "n_params": n_params,
+           "batch": batch, "prompt": prompt, "patches": patches, "frames": frames,
+           "gen": gen, "init_s": init_s, "init_peak_gb": init_peak_gb,
+           "launches_prefill": {k: v for k, v in want_prefill.items() if v},
+           "launches_decode_step": {k: v for k, v in want_decode.items() if v},
+           "launches": {k: sum(c[k] for _, c in stages) for k in counted},
            "prefill_ms": res["prefill_s"] * 1e3,
            "decode_ms_per_step": float(steps.mean() * 1e3),
            "decode_ms_median": float(np.median(steps) * 1e3),
-           "tokens_per_s": LM_BATCH * LM_GEN / float(steps.sum()),
+           "tokens_per_s": batch * gen / float(steps.sum()),
+           "prefill_tokens_per_s": batch * seq / res["prefill_s"],
            "peak_gb": peak_gb}
-    toks = res["tokens"]
-    check(tuple(toks.shape) == (LM_BATCH, 1 + LM_GEN)
-          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          "generated tokens out of range")
-    print(f"serve_lm: prefill {LM_PROMPT} tokens x{LM_BATCH} "
-          f"{out['prefill_ms']:.3f} ms; {LM_GEN} decode steps "
-          f"{steps.sum() * 1e3:.3f} ms ({out['tokens_per_s']:.1f} tokens/s, "
-          f"{out['decode_ms_per_step']:.3f} ms a step, median "
-          f"{out['decode_ms_median']:.3f}); peak memory {peak_gb:.3f} GB")
-    print(f"prefill: {stages[0][1]['mlstm_scan']} mlstm_scan + "
-          f"{stages[0][1]['slstm_cell']} slstm_cell launches, nothing else; each "
-          f"decode step: 0 + {n_pairs}")
+    print(f"serve_lm {cfg.name}: prefill {seq} tokens x{batch} "
+          f"{out['prefill_ms']:.3f} ms ({out['prefill_tokens_per_s']:.0f} "
+          f"tokens/s); {gen} decode steps {steps.sum() * 1e3:.3f} ms "
+          f"({out['tokens_per_s']:.1f} tokens/s, {out['decode_ms_per_step']:.3f} "
+          f"ms a step, median {out['decode_ms_median']:.3f}); peak memory "
+          f"{peak_gb:.3f} GB; launches a prefill {out['launches_prefill']}, a "
+          f"step {out['launches_decode_step']}, nothing else")
 
+    batch_in = {"tokens": tokens, **inputs}
     with torch.no_grad():
-        logits, cache, idx = bb.prefill(params, cfg, {"tokens": tokens}, max_len)
-        for m in counted.values():
-            m.launches = 0
-        full, _ = bb.forward(params, cfg, {"tokens": tokens})
-        fwd_launches = {k: m.launches for k, m in counted.items()}
+        logits, cache, idx = bb.prefill(params, cfg, batch_in, max_len)
+        full, _ = bb.forward(params, cfg, batch_in)
         a, b = logits[:, 0], full[:, -1]
         out["prefill_vs_forward"] = float((a - b).abs().max())
-        check(bool(torch.isfinite(full).all()) and torch.allclose(
+        check(bool(torch.isfinite(full[:, -1]).all()) and torch.allclose(
             a, b, atol=LM_PREFILL_TOL, rtol=LM_PREFILL_TOL),
-            f"prefill vs forward: {out['prefill_vs_forward']}")
+            f"{cfg.name} prefill vs forward: {out['prefill_vs_forward']}")
         del full
         nt = toks[:, 1:2]
-        lg2, _ = bb.decode_step(params, cfg, nt, cache, idx)
-        full2, _ = bb.forward(params, cfg, {"tokens": torch.cat([tokens, nt], 1)})
-        out["decode_vs_forward"] = float((lg2[:, 0] - full2[:, -1]).abs().max())
-        check(torch.allclose(lg2[:, 0], full2[:, -1], atol=LM_DECODE_TOL,
-                             rtol=LM_DECODE_TOL),
-              f"decode step vs forward: {out['decode_vs_forward']}")
-        del full2
-    print(f"forward: {fwd_launches['mlstm_scan']} mlstm_scan + "
-          f"{fwd_launches['slstm_cell']} slstm_cell launches")
-    print(f"prefill vs forward last logits: max abs err "
-          f"{out['prefill_vs_forward']:.3g} (tol {LM_PREFILL_TOL}); decode step "
-          f"vs forward on the extended sequence: {out['decode_vs_forward']:.3g} "
-          f"(tol {LM_DECODE_TOL})")
+        if decode_vs_forward:
+            out["decode_vs_forward"] = decode_gap(torch, bb, params, cfg, batch_in,
+                                                  cache, idx, nt)
+    print(f"{cfg.name}: prefill vs forward last logits max abs err "
+          f"{out['prefill_vs_forward']:.3g} (tol {LM_PREFILL_TOL})" + (
+              f"; a decode step vs forward on the extended sequence "
+              f"{out['decode_vs_forward']:.3g} (tol {LM_DECODE_TOL})"
+              if decode_vs_forward else ""))
+    if decode_vs_forward and cfg.attn_kind == "sliding":
+        with torch.no_grad():
+            out["ring_probe"] = ring_probe(torch, bb, params, cfg, batch)
+    if profile:
+        with torch.no_grad():
+            bd_p = device_breakdown(
+                lambda: bb.prefill(params, cfg, batch_in, max_len),
+                res["prefill_s"], top=8, match=LM_KERNELS)
+            bd_d = device_breakdown(
+                lambda: bb.decode_step(params, cfg, nt, cache, idx),
+                float(np.median(steps)), top=8, match=LM_KERNELS)
+        print_breakdown(f"{cfg.name} prefill", bd_p)
+        print_breakdown(f"{cfg.name} decode step", bd_d)
+        for label, bd in (("prefill", bd_p), ("decode step", bd_d)):
+            print(f"    {label}: " + ", ".join(
+                f"{k} {v['ms']:.3f} ms in {v['calls']}"
+                for k, v in bd["matched"].items()))
+        out["breakdown"] = {"prefill": bd_p, "decode": bd_d}
+    del cache, logits
+    return out, params, cfg
 
-    with torch.no_grad():
-        bd_p = device_breakdown(
-            lambda: bb.prefill(params, cfg, {"tokens": tokens}, max_len),
-            res["prefill_s"], match=("mlstm_kernel", "slstm_kernel"))
-        bd_d = device_breakdown(
-            lambda: bb.decode_step(params, cfg, nt, cache, idx),
-            float(np.median(steps)), match=("mlstm_kernel", "slstm_kernel"))
-    print_breakdown("prefill", bd_p)
-    print_breakdown("decode step", bd_d)
-    for label, bd in (("prefill", bd_p), ("decode step", bd_d)):
-        print(f"    {label}: " + ", ".join(
-            f"{k} {v['ms']:.3f} ms in {v['calls']}" for k, v in bd["matched"].items()))
-    out["breakdown"] = {"prefill": bd_p, "decode": bd_d}
-    return out, params
+
+@contextlib.contextmanager
+def moe_recording(fn_name, on=True):
+    """Within the block, each call of ``models.moe.<fn_name>`` appends
+    its outputs to the list yielded (``on`` false: nothing is wrapped)."""
+    from repro_torch.models import moe
+
+    record, orig = [], getattr(moe, fn_name)
+
+    def wrapped(*args):
+        out = orig(*args)
+        record.append(out)
+        return out
+
+    if on:
+        setattr(moe, fn_name, wrapped)
+    try:
+        yield record
+    finally:
+        setattr(moe, fn_name, orig)
 
 
-def lm_card_vs_cpu(torch, params) -> dict:
-    """Phase 16: xlstm-350m at full width on the card and on the CPU from
-    the same weights: prefill of 2 x 128 tokens, then 4 decode steps fed
-    the card's greedy tokens; logits and caches within LM_CPU_TOL."""
-    from repro_torch.common.tree import tree_leaves
-    from repro_torch.configs import get_config
-    from repro_torch.convert import params_from_numpy, params_to_numpy
+def lm_serve_pass(torch, bb, params, cfg, tokens, inputs, gen, feed=None):
+    """Prefill, then ``gen`` decode steps fed ``feed`` (B, gen) or, without
+    it, greedy tokens. Returns ([logits of prefill and each step], caches
+    after prefill and after the last step, the tokens fed)."""
+    seq = tokens.shape[1] + (inputs["patches"].shape[1] if "patches" in inputs
+                             else 0)
+    logits, cache, idx = bb.prefill(params, cfg, {"tokens": tokens, **inputs},
+                                    seq + gen)
+    out, caches, fed = [logits], [cache], []
+    for i in range(gen):
+        nt = (torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+              if feed is None else feed[:, i:i + 1].to(tokens.device))
+        fed.append(nt.cpu())
+        logits, cache = bb.decode_step(params, cfg, nt, cache, idx + i)
+        out.append(logits)
+    caches.append(cache)
+    return out, caches, torch.cat(fed, 1) if fed else None
+
+
+def lm_family_card_vs_cpu(torch, params, cfg, layers, batch, prompt, gen,
+                          patches=0, frames=0, tol=LM_CPU_TOL) -> dict:
+    """The model cut to ``layers`` on the card and on the CPU from the same
+    weights: prefill, then ``gen`` decode steps fed the CPU's greedy
+    tokens; logits and caches within ``tol``. With MoE layers, every
+    router call's expert choices equal on both, and the prompt seed the
+    first whose CPU run keeps each token's top-k / (k+1) probability gap
+    at least MOE_GAP."""
+    from repro_torch.common.tree import tree_leaves, tree_map
     from repro_torch.models import backbone as bb
 
-    cfg = get_config("xlstm_350m")
-    cpu_params = params_from_numpy(params_to_numpy(params), "cpu")
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    sub, scfg = cut_depth(params, cfg, layers)
+    cpu_params = tree_map(lambda x: x.cpu(), sub)
+    moe = scfg.n_experts > 0
     worst = {}
 
-    def compare(name, a, b):
+    def compare(key, a, b):
         for x, y in zip(tree_leaves(a), tree_leaves(b)):
             x, y = x.cpu(), y.cpu()
             err = float((x - y).abs().max())
-            worst[name] = max(worst.get(name, 0.0), err)
-            check(torch.allclose(x, y, atol=LM_CPU_TOL, rtol=LM_CPU_TOL),
-                  f"card vs CPU {name}: max abs err {err}")
+            worst[key] = max(worst.get(key, 0.0), err)
+            check(x.shape == y.shape and torch.allclose(x, y, atol=tol, rtol=tol),
+                  f"{scfg.name} card vs CPU {key}: max abs err {err}")
 
     with torch.no_grad():
-        runs = []
-        for dev, p in (("cuda", params), ("cpu", cpu_params)):
-            toks = torch.from_numpy(tokens).to(dev)
-            runs.append(bb.prefill(p, cfg, {"tokens": toks}, 128 + 4))
-        (lc, cc, idx), (lg, cg, _) = runs
-        compare("logits", lc, lg)
-        compare("cache/m", cc["m"], cg["m"])
-        compare("cache/s", cc["s"], cg["s"])
-        for i in range(4):
-            nt = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
-            lc, cc = bb.decode_step(params, cfg, nt, cc, idx + i)
-            lg, cg = bb.decode_step(cpu_params, cfg, nt.cpu(), cg, idx + i)
-            compare("logits", lc, lg)
-        compare("cache/m", cc["m"], cg["m"])
-        compare("cache/s", cc["s"], cg["s"])
-    print(f"card vs CPU, xlstm-350m, prefill 2 x 128 + 4 decode steps: max abs "
-          f"err {worst} (tol atol = rtol = {LM_CPU_TOL})")
+        for seed in range(MOE_SEEDS if moe else 1):
+            tokens, inputs = lm_inputs(torch, scfg, batch, prompt, patches, frames,
+                                       seed=seed, device="cpu")
+            with moe_recording("_route", moe) as routes:
+                cpu_logits, cpu_caches, fed = lm_serve_pass(
+                    torch, bb, cpu_params, scfg, tokens, inputs, gen)
+            if not moe:
+                break
+            gaps = [float((torch.topk(p, scfg.top_k + 1, dim=-1).values[:, -2]
+                           - torch.topk(p, scfg.top_k + 1, dim=-1).values[:, -1]).min())
+                    for _, _, p in routes]
+            worst["moe_smallest_gap"] = min(gaps)
+            worst["moe_seed"] = seed
+            if min(gaps) >= MOE_GAP:
+                break
+        check(not moe or worst["moe_smallest_gap"] >= MOE_GAP,
+              f"{scfg.name}: no prompt seed of {MOE_SEEDS} keeps the top-k gap "
+              f"{MOE_GAP}: {worst.get('moe_smallest_gap')}")
+        with moe_recording("_route", moe) as card_routes:
+            card_logits, card_caches, _ = lm_serve_pass(
+                torch, bb, sub, scfg, tokens.cuda(),
+                {k: v.cuda() for k, v in inputs.items()}, gen, feed=fed)
+    if moe:
+        check(len(card_routes) == len(routes) and all(
+            torch.equal(torch.sort(a.cpu(), -1).values, torch.sort(b, -1).values)
+            for (_, a, _), (_, b, _) in zip(card_routes, routes)),
+            f"{scfg.name} card vs CPU: the routers chose other experts")
+        worst["router_calls"] = len(routes)
+    for a, b in zip(card_logits, cpu_logits):
+        compare("logits", a, b)
+    for a, b in zip(card_caches, cpu_caches):
+        compare("cache", a, b)
+    print(f"card vs CPU, {scfg.name} at {scfg.n_layers} layers, prefill {batch} x "
+          f"{patches + prompt}{f' ({frames} frames)' if frames else ''} + {gen} "
+          f"decode steps: max abs err {worst} (tol atol = rtol = {tol})")
     return worst
+
+
+def lm_phases(torch, counted) -> dict:
+    """Phases 23-25: phi4-mini-3.8b at full width and depth, then card
+    against CPU at 2 of its layers, then every other family
+    (FAMILY_RUNS). Returns {config name: record}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone as bb
+
+    runs = {}
+    phase("23 full-width phi4-mini-3.8b serving")
+    rec, params, cfg = lm_family(torch, counted, "phi4_mini_3p8b",
+                                 batch=PHI4_BATCH, prompt=PHI4_PROMPT,
+                                 gen=PHI4_GEN, profile=True)
+    runs[cfg.name] = rec
+
+    phase("24 phi4-mini-3.8b card against CPU")
+    rec["card_vs_cpu"] = lm_family_card_vs_cpu(torch, params, cfg, layers=2,
+                                               batch=2, prompt=64, gen=4)
+    del params
+    print("phi4-mini-3.8b serving: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "breakdown"}))
+
+    phase("25 the other families at full width, card against CPU")
+    for run in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        run = dict(run)
+        cpu_run = run.pop("cpu")
+        rec, params, cfg = lm_family(torch, counted, **run)
+        if cfg.n_experts:
+            tokens, _ = lm_inputs(torch, cfg, run["batch"], run["prompt"])
+            with torch.no_grad(), moe_recording("_dispatch_indices") as slots:
+                bb.prefill(params, cfg, {"tokens": tokens}, run["prompt"] + run["gen"])
+            rec["moe_dropped"] = int(sum(int((~keep).sum()) for _, keep in slots))
+            rec["moe_assignments"] = int(sum(keep.numel() for _, keep in slots))
+            print(f"{cfg.name} prefill: {rec['moe_dropped']} of "
+                  f"{rec['moe_assignments']} (token, expert) assignments "
+                  f"dropped at capacity (factor {cfg.capacity_factor})")
+        rec["card_vs_cpu"] = lm_family_card_vs_cpu(torch, params, cfg, **cpu_run)
+        del params
+        torch.cuda.empty_cache()
+        rec["phase_s"] = time.perf_counter() - t0
+        runs[get_config(run["name"]).name] = rec
+        print(f"-- {cfg.name}: {rec['phase_s']:.1f} s")
+    print("lm families: " + json.dumps(
+        {name: {k: v for k, v in r.items() if k != "breakdown"}
+         for name, r in runs.items()}))
+    return runs
 
 
 # Phase 18: the reference's widest BlendFL entry (src/repro/launch/
@@ -3290,10 +3646,14 @@ def main() -> int:
                                                            mem_rate)
 
     phase("15 full-width xlstm-350m serving")
-    lm, lm_params = lm_serving(torch, counted)
+    lm, lm_params, lm_cfg = lm_family(
+        torch, counted, "xlstm_350m", batch=LM_BATCH, prompt=LM_PROMPT,
+        gen=LM_GEN, profile=True)
 
     phase("16 xlstm-350m card against CPU")
-    lm["card_vs_cpu"] = lm_card_vs_cpu(torch, lm_params)
+    lm["card_vs_cpu"] = lm_family_card_vs_cpu(torch, lm_params, lm_cfg,
+                                              layers=None, batch=2, prompt=128,
+                                              gen=4)
     del lm_params
     torch.cuda.empty_cache()
 
@@ -3331,6 +3691,7 @@ def main() -> int:
                   f"{enc_type} card vs CPU: a BlendAvg delta "
                   f"{worst['smallest_delta']} within 1e-3 of a tie")
             trained[enc_type][f"card_vs_cpu_seed{data_seed}"] = worst
+    lm_runs = lm_phases(torch, counted)
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -3449,6 +3810,14 @@ def main() -> int:
     slstm_record["launches_training_round"] = trained["recurrent"]["launches"]["slstm_cell"]
     flash_record["launches_training_round"] = (
         trained["transformer"]["launches"]["flash_attention"])
+    # the language models' serving (phases 23, 25): phi4-mini's prefill and
+    # 32 steps, and each family's
+    flash_record["launches_phi4_serving"] = (
+        lm_runs["phi4-mini-3.8b"]["launches"]["flash_attention"])
+    flash_record["launches_lm_families"] = {
+        name: r["launches"]["flash_attention"] for name, r in lm_runs.items()}
+    mlstm_record["launches_hymba_serving"] = (
+        lm_runs["hymba-1.5b"]["launches"]["mlstm_scan"])
     print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
                                   flash_record, mlstm_record, *bwd_records]}))
     print(smi)

@@ -7,7 +7,10 @@ encoder's ``hidden`` as a list) or the flat ``/``-keyed dict of a
 checkpoint's ``arrays.npz`` (``hidden/0/w``, ...), and returns the
 port's nested dict of tensors on ``device``. ``params_to_numpy`` is its
 inverse, giving back the nested numpy tree. Both carry any tree of
-arrays: stacked client models, global models, wire-codec residuals.
+arrays, lists and tuples kept as they are: stacked client models, global
+models, wire-codec residuals, every language model's parameters and
+decode caches (the hybrid's ``ssm`` (C, n) and the cross-attention
+(k, v) are tuples, as in the reference).
 ``params_to_device`` also takes tensor leaves (initial weights given as
 ``base=``).
 
@@ -68,7 +71,7 @@ def params_from_numpy(tree_or_flat, device):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
+            return type(node)(conv(v) for v in node)
         return torch.from_numpy(np.array(node, copy=True)).to(device)
 
     return conv(tree)
@@ -87,7 +90,7 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_to_numpy(v) for v in tree]
+        return type(tree)(params_to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
 
 

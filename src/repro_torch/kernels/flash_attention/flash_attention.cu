@@ -15,7 +15,10 @@
 // are f32; a row whose visible keys so far are none keeps m = -inf, and
 // exp is taken against safe_m = 0 there, with alpha = 0; the output is
 // acc / max(l, 1e-30), so a row with no visible key at all (causal with
-// sq > sk) is exactly 0. Scores are (q . k) * (1 / sqrt(d)) in f32. Key
+// sq > sk) is exactly 0. Scores are (q . k) * (1 / sqrt(d)) in f32, and
+// with softcap > 0 (the reference's attn_logit_softcap,
+// src/repro/models/attention.py:69) softcap * tanh(s / softcap) before
+// the online max; softcap 0 leaves them as they are. Key
 // tiles that no row of the block can see (past the causal limit, before
 // the window) are skipped: they would leave m, l and acc as they were.
 //
@@ -75,9 +78,10 @@
 //
 // ptxas (sm_90a, -O3), as chip_smoke.py's build phase prints it from the
 // -Xptxas -v report kernels/_build.py keeps: f32 KD=256 255 registers
-// (8 warps at 255 just fit an SM's 65,536), KD=128 128, 64 110, 32 79; bf16
-// KD=256 236 (2 blocks x 4 warps fit), 128 127, 64 95, 32 72; no stack
-// frame and no spills in any instance.
+// (8 warps at 255 just fit an SM's 65,536), KD=128 128 (two blocks an
+// SM), 64 108, 32 79; bf16 KD=256 236 (2 blocks x 4 warps fit), 128 127,
+// 64 95, 32 72; the capped instances f32 255, 156, 108, 74 and bf16 238,
+// 128, 96, 72; no stack frame and no spills in any instance.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -362,13 +366,17 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int KD>
+// kCap: scores pass through softcap * tanh(s / softcap). A separate
+// instance: inlined into the unrolled mask loop, the cap's tanhf takes
+// registers (the f32 KD = 128 instance needs 156 with it and 128 without:
+// one block an SM against two).
+template <typename T, int KD, bool kCap>
 __global__ void __launch_bounds__(kThreads<T>)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int hq,
                  int hkv, int sq, int sk, int d, int causal, int window,
-                 float scale, int vec) {
+                 float scale, float softcap, int vec) {
   using L = Layout<T, KD>;
   constexpr int NK = kKeys<T> / kSplit<T>;  // keys of a tile a warp takes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -473,7 +481,12 @@ __global__ void __launch_bounds__(kThreads<T>)
         bool vis = key < sk;
         if (causal) vis = vis && key <= qi[h];
         if (window > 0) vis = vis && key > qi[h] - window;
-        s[nt][e] = vis ? s[nt][e] * scale : -CUDART_INF_F;
+        if constexpr (kCap) {
+          const float x = s[nt][e] * scale;
+          s[nt][e] = vis ? softcap * tanhf(x / softcap) : -CUDART_INF_F;
+        } else {
+          s[nt][e] = vis ? s[nt][e] * scale : -CUDART_INF_F;
+        }
         mx[h] = fmaxf(mx[h], s[nt][e]);
       }
     float alpha[2], safe_m[2];
@@ -601,33 +614,52 @@ __global__ void __launch_bounds__(kThreads<T>)
   }
 }
 
-template <typename T, int KD>
+template <typename T, int KD, bool kCap>
 int launch_kd(const void* q, const void* k, const void* v, void* out,
               float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
-              int causal, int window, int vec, cudaStream_t stream) {
+              int causal, int window, float softcap, int vec,
+              cudaStream_t stream) {
   using L = Layout<T, KD>;
   // above 48 KB a block's dynamic shared memory needs opting in (on the
   // current device, so at every launch)
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<T, KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, KD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::bytes);
   if (attr != cudaSuccess) return (int)attr;
   const int m_tiles = ((hq / hkv) * sq + kBlockM - 1) / kBlockM;
   const float scale = 1.0f / sqrtf((float)d);
-  flash_kernel<T, KD><<<dim3((unsigned)(batch * hkv), (unsigned)m_tiles),
-                        kThreads<T>, L::bytes, stream>>>(
+  flash_kernel<T, KD, kCap><<<dim3((unsigned)(batch * hkv), (unsigned)m_tiles),
+                              kThreads<T>, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, sq, sk, d,
-      causal, window, scale, vec);
+      causal, window, scale, softcap, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kCap>
+int launch_cap(const void* q, const void* k, const void* v, void* out,
+               float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
+               int causal, int window, float softcap, int vec,
+               cudaStream_t s) {
+  if (d <= 32)
+    return launch_kd<T, 32, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
+                                  d, causal, window, softcap, vec, s);
+  if (d <= 64)
+    return launch_kd<T, 64, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
+                                  d, causal, window, softcap, vec, s);
+  if (d <= 128)
+    return launch_kd<T, 128, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
+                                   d, causal, window, softcap, vec, s);
+  return launch_kd<T, 256, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
+                                 d, causal, window, softcap, vec, s);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
-           int causal, int window, void* stream) {
+           int causal, int window, float softcap, void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 0 ||
-      d < 1 || d > kMaxD || window < 0)
+      d < 1 || d > kMaxD || window < 0 || !(softcap >= 0.0f))
     return (int)cudaErrorInvalidValue;
   const int64_t m_tiles =
       ((int64_t)(hq / hkv) * sq + kBlockM - 1) / kBlockM;
@@ -639,17 +671,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
                                     reinterpret_cast<uintptr_t>(v) |
                                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 32)
-    return launch_kd<T, 32>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                            causal, window, vec, s);
-  if (d <= 64)
-    return launch_kd<T, 64>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                            causal, window, vec, s);
-  if (d <= 128)
-    return launch_kd<T, 128>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                             causal, window, vec, s);
-  return launch_kd<T, 256>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                           causal, window, vec, s);
+  if (softcap > 0.0f)
+    return launch_cap<T, true>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                               causal, window, softcap, vec, s);
+  return launch_cap<T, false>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
+                              causal, window, softcap, vec, s);
 }
 
 }  // namespace
@@ -662,22 +688,23 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // contiguous (batch, hq, sq) f32 array that receives the row log-sum-exp
 // of the scaled scores (-inf for a row with no visible key); out is the
 // same bit for bit either way. causal is 0 or 1; window 0 means no
-// window. Returns the first CUDA error of the attribute call and the
-// launch.
+// window; softcap 0 means no logit cap, else scores are capped to
+// softcap * tanh(s / softcap). Returns the first CUDA error of the
+// attribute call and the launch.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int batch, int hq, int hkv, int sq, int sk,
                                    int d, int causal, int window,
-                                   void* stream) {
+                                   float softcap, void* stream) {
   return launch<float>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
-                       window, stream);
+                       window, softcap, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, float* lse,
                                     int batch, int hq, int hkv, int sq,
                                     int sk, int d, int causal, int window,
-                                    void* stream) {
+                                    float softcap, void* stream) {
   return launch<bf16>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
-                      window, stream);
+                      window, softcap, stream);
 }

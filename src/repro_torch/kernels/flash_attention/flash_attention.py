@@ -1,7 +1,7 @@
 """Launcher of the CUDA flash attention kernel (``flash_attention.cu``).
 
-``flash_attention_cuda(q, k, v, causal=, window=)`` checks its tensors,
-allocates the output (and, with ``return_lse``, each row's log-sum-exp
+``flash_attention_cuda(q, k, v, causal=, window=, softcap=)`` checks its
+tensors, allocates the output (and, with ``return_lse``, each row's log-sum-exp
 for the backward, ``flash_attention_bwd.py``), launches the kernel on
 the current stream and adds one to ``launches``. It takes CUDA tensors only: there is no CPU
 path here (``ops.flash_attention`` routes CPU tensors to ``ref.py``).
@@ -36,22 +36,27 @@ _fns: dict = {}
 
 def _fn(dtype):
     """The C entry point flash_attention_<dtype>: four tensors, the
-    log-sum-exp pointer (null for none), eight ints and the stream."""
+    log-sum-exp pointer (null for none), eight ints, the softcap and the
+    stream."""
     fn = _fns.get(dtype)
     if fn is None:
         fn = getattr(_build.load(SOURCE), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool, window: int, return_lse: bool = False):
+                         causal: bool, window: int, softcap: float = 0.0,
+                         return_lse: bool = False):
     """q (B, Hq, Sq, d), k and v (B, Hkv, Sk, d), one dtype (f32 or bf16),
     contiguous on one CUDA device; Hq % Hkv == 0, d <= 256, (Hq / Hkv) * Sq
     <= MAX_GROUP_ROWS. ``window`` of
-    0 or less means no window, as in the reference. Returns (B, Hq, Sq, d)
+    0 or less means no window, as in the reference; ``softcap`` > 0 caps
+    each scaled score s to softcap * tanh(s / softcap) (0: no cap).
+    Returns (B, Hq, Sq, d)
     in q's dtype, and with ``return_lse`` (f32 only) the (B, Hq, Sq) f32
     log-sum-exp of each row's scaled scores; the output is the same bit
     for bit."""
@@ -81,6 +86,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_cuda takes CUDA tensors on one "
                          f"device, got q on {q.device}, k on {k.device}, "
                          f"v on {v.device}")
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap must be 0 (no cap) or positive, got {softcap}")
     if return_lse and q.dtype != torch.float32:
         raise ValueError(f"the log-sum-exp output takes float32, got {q.dtype}")
     out = torch.empty_like(q)
@@ -94,7 +101,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  b, hq, hkv, sq, sk, d, int(bool(causal)),
-                 max(int(window), 0), stream)
+                 max(int(window), 0), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1

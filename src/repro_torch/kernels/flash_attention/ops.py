@@ -1,16 +1,17 @@
 """Public wrapper of the flash attention kernel.
 
-``flash_attention(q, k, v, causal=, window=)`` takes the interface of
-the reference's ``flash_attention_pallas``: grouped-query heads, causal
-and sliding-window masks, queries end-aligned to the keys. A CUDA tensor
+``flash_attention(q, k, v, causal=, window=, softcap=)`` takes the
+interface of the reference's ``flash_attention_pallas``: grouped-query
+heads, causal and sliding-window masks, queries end-aligned to the keys;
+``softcap`` is the language models' logit cap (``attn_logit_softcap``). A CUDA tensor
 goes through the CUDA kernel; only a CPU tensor takes the plain version.
 
 Where a gradient is wanted (autograd on, an input that requires it) the
 call goes through ``FlashAttentionFn``: the forward also keeps each
 row's log-sum-exp, and the backward runs the CUDA backward kernels
 (``flash_attention_bwd.cu``) or, for CPU tensors, the plain backward.
-That path takes f32 with one K/V head a query head and no window; the
-rest is refused (ROADMAP item 15 trains the language model's attention).
+That path takes f32 with one K/V head a query head, no window and no
+logit cap; the rest is refused (ROADMAP item 15 trains the language model's attention).
 """
 from __future__ import annotations
 
@@ -53,7 +54,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """q (B, Hq, Sq, d); k, v (B, Hkv, Sk, d) -> (B, Hq, Sq, d)."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on CUDA or the CPU, got {q.device}")
@@ -61,15 +63,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         if (q.dtype != torch.float32 or k.dtype != torch.float32
                 or v.dtype != torch.float32 or k.shape[1] != q.shape[1]
-                or window > 0):
+                or window > 0 or softcap):
             raise NotImplementedError(
                 f"the attention backward takes float32 with one K/V head a "
-                f"query head and no window, got {q.dtype}, {q.shape[1]} query "
-                f"/ {k.shape[1]} K/V heads, window {window} (ROADMAP.md item "
-                f"15: training the language model)")
+                f"query head, no window and no logit cap, got {q.dtype}, "
+                f"{q.shape[1]} query / {k.shape[1]} K/V heads, window {window}, "
+                f"softcap {softcap} (ROADMAP.md item 15: training the language "
+                f"model)")
         return FlashAttentionFn.apply(q, k, v, bool(causal))
     if q.device.type == "cuda":
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
-                                    window=window)
-    return flash_attention_ref(q, k, v, causal=causal, window=window)
+                                    window=window, softcap=softcap)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap)

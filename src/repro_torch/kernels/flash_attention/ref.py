@@ -46,11 +46,12 @@ def visible(sq: int, sk: int, causal: bool, window: int, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        softcap: float = 0.0, return_lse: bool = False):
     """q (B, Hq, Sq, d); k, v (B, Hkv, Sk, d); Hq % Hkv == 0. Returns
     (B, Hq, Sq, d) in q's dtype, computed in f32. Queries are end-aligned
     to the keys; ``window > 0`` keeps each query's last ``window`` keys
-    (itself included). With ``return_lse`` also the (B, Hq, Sq) f32
+    (itself included); ``softcap > 0`` caps each scaled score s to
+    softcap * tanh(s / softcap). With ``return_lse`` also the (B, Hq, Sq) f32
     log-sum-exp of each row's scaled scores (-inf with no visible key)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -60,6 +61,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * attention_scale(d)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     mask = visible(sq, sk, causal, window, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)

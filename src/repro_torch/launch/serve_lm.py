@@ -1,18 +1,21 @@
 """Serving driver: prefill + batched greedy decode on one device (port of
 ``src/repro/launch/serve_lm.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch xlstm-350m \
-        --full --batch 8 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch phi4-mini-3.8b \
+        --full --batch 8 --prompt-len 512 --gen 32 --max-len 544
 
-    # the reduced smoke config on the CPU
-    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch xlstm-350m \
+    # a reduced smoke config on the CPU (any of configs.ALIASES)
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch hymba-1.5b \
         --batch 2 --prompt-len 16 --gen 4 --device cpu
 
-Prefill runs the prompt and builds the decode cache (the final mLSTM
-(C, n) and sLSTM (c, n, m, h) of every layer), then ``decode_step``
-extends it one token at a time. The port serves the ``xlstm_pair``
-architectures (xlstm-350m, blendfl-paper); the others raise
-``NotImplementedError``. Weights are random, drawn from ``--seed``.
+Prefill runs the prompt and builds the decode cache (a ring-buffer KV
+cache per attention layer, the cross-attention K/V of an encoder-decoder,
+the final recurrent states of the Mamba heads and of the mLSTM and
+sLSTM), then ``decode_step`` extends it one token at a time. Every
+family of ``configs.ARCH_IDS`` is served: the VLM gets a prefix of
+``vision_tokens`` random patch embeddings and the encoder-decoder 64
+random frames, as the reference's ``main`` builds them. Weights are
+random, drawn from ``--seed``.
 
 ``--device`` defaults to CUDA and raises without it. Times are host
 clock around work that ends in ``torch.cuda.synchronize()``. Greedy
@@ -45,9 +48,11 @@ def _next_tokens(logits, temperature: float, generator):
     return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
 
 
-def generate(params, cfg, tokens, *, gen: int, max_len: int,
+def generate(params, cfg, tokens, *, gen: int, max_len: int, inputs=None,
              temperature: float = 0.0, generator=None, hook=None) -> dict:
-    """Prefill ``tokens`` (B, S) on their device, then ``gen`` decode steps.
+    """Prefill ``tokens`` (B, S) on their device, with the model's other
+    ``inputs`` (``patches`` for a VLM, ``frames`` for an encoder-decoder),
+    then ``gen`` decode steps.
 
     Returns {"tokens": (B, 1 + gen) int32 (the token after the prompt,
     then one per step), "prefill_s", "decode_s": seconds a step}.
@@ -58,7 +63,8 @@ def generate(params, cfg, tokens, *, gen: int, max_len: int,
     with torch.no_grad():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache, index = bb.prefill(params, cfg, {"tokens": tokens},
+        logits, cache, index = bb.prefill(params, cfg,
+                                          {"tokens": tokens, **(inputs or {})},
                                           max_len=max_len)
         nxt = _next_tokens(logits, temperature, generator)
         _sync(device)
@@ -81,7 +87,7 @@ def generate(params, cfg, tokens, *, gen: int, max_len: int,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="prefill + decode an LM")
-    ap.add_argument("--arch", default="xlstm-350m")
+    ap.add_argument("--arch", default="phi4-mini-3.8b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--batch", type=int, default=4)
@@ -103,8 +109,16 @@ def main(argv=None) -> dict:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (args.batch, args.prompt_len))
                               .astype(np.int32)).to(device)
+    inputs = {}
+    if cfg.frontend == "vision_stub":
+        inputs["patches"] = rng.normal(0, 1, (args.batch, cfg.vision_tokens,
+                                              cfg.frontend_dim))
+    if cfg.is_encdec:
+        inputs["frames"] = rng.normal(0, 1, (args.batch, 64, cfg.frontend_dim))
+    inputs = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+              for k, v in inputs.items()}
     res = generate(params, cfg, tokens, gen=args.gen, max_len=args.max_len,
-                   temperature=args.temperature,
+                   inputs=inputs, temperature=args.temperature,
                    generator=torch.Generator(device=device).manual_seed(args.seed + 1))
     print(f"prefill {args.prompt_len} tokens x{args.batch}: "
           f"{res['prefill_s']:.4f}s on {device}")

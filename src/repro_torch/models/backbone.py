@@ -1,19 +1,25 @@
 """Backbone: blocks composed into a language model (port of
-``src/repro/models/backbone.py`` for ``block_type == "xlstm_pair"``).
+``src/repro/models/backbone.py``), for every block type: ``attn``
+(dense, MoE and VLM families), ``hybrid`` (hymba), ``xlstm_pair`` and
+the ``encdec`` encoder-decoder (whisper).
 
     forward(params, cfg, batch)                    full sequence -> logits
     prefill(params, cfg, batch, max_len)           prompt -> logits, decode cache
     decode_step(params, cfg, tokens, cache, index) one-token serve step
 
-plus ``make_serve_step``. Layers are stacked on a leading axis (each
-leaf of ``params["layers"]`` is (n_layers, ...), as the reference's
-``vmap`` init gives them) and walked by a Python loop where the
-reference runs ``lax.scan``; the decode cache is stacked the same way.
+plus ``make_serve_step``. ``batch`` holds ``tokens`` and, by family,
+``patches`` (the VLM's vision prefix) or ``frames`` (the audio
+encoder's input). Layers are stacked on a leading axis (each leaf of
+``params["layers"]`` is (n_layers, ...), as the reference's ``vmap``
+init gives them) and walked by a Python loop where the reference runs
+``lax.scan``; the decode cache is stacked the same way.
 
-Training (``loss_fn``, ``make_train_step``) needs backward kernels for
-the mLSTM and sLSTM scans, and the attention, MoE, hybrid and
-encoder-decoder families, frontends and rope are not ported yet: they
-raise ``NotImplementedError`` naming ROADMAP item 15.
+Not ported, refused with ``NotImplementedError``: training (``loss_fn``,
+``make_train_step``; it needs backward kernels for causal and GQA flash
+attention, the mLSTM scan and the stateful sLSTM: ROADMAP item 15) and
+the grouped MoE dispatch of a multi-device launcher (``moe_groups > 0``:
+item 16). The reference's ``_constrain`` / ``act_shard`` pin activations
+to a mesh and have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -31,24 +37,28 @@ from repro_torch.models.common import (
     rmsnorm_init,
 )
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.frontends import frontend_apply, frontend_init
+from repro_torch.models.rope import mrope_positions, text_positions
+
+MAX_LEARNED_POS = 32768  # whisper-style learned positions
 
 _BLOCK = {
+    "attn": (B.attn_block_init, B.attn_block, B.attn_block_decode,
+             B.attn_block_cache, B.attn_block_prefill),
+    "hybrid": (B.hybrid_block_init, B.hybrid_block, B.hybrid_block_decode,
+               B.hybrid_block_cache, B.hybrid_block_prefill),
     "xlstm_pair": (B.xlstm_pair_init, B.xlstm_pair_block, B.xlstm_pair_decode,
                    B.xlstm_pair_cache, B.xlstm_pair_prefill),
 }
 
 
 def _check(cfg: ArchConfig) -> None:
-    """Refuse what the port does not run yet, before any work."""
-    if cfg.block_type not in _BLOCK:
+    """Refuse what the port does not run, before any work."""
+    if cfg.moe_groups > 0:
         raise NotImplementedError(
-            f"block_type {cfg.block_type!r} ({cfg.name}) is not ported: the "
-            "port runs xlstm_pair; attention, MoE, hybrid and "
-            "encoder-decoder blocks come with ROADMAP item 15")
-    if cfg.frontend != "none" or cfg.pos == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: frontends and learned positions are not ported "
-            "(ROADMAP item 15)")
+            f"{cfg.name}: moe_groups={cfg.moe_groups} asks for the grouped "
+            "(GShard) MoE dispatch over data shards, which is not ported; the "
+            "port runs on one device with moe_groups=0 (ROADMAP item 16)")
 
 
 def n_scan_layers(cfg: ArchConfig) -> int:
@@ -57,6 +67,16 @@ def n_scan_layers(cfg: ArchConfig) -> int:
             raise ValueError(f"xlstm_pair stacks pairs: n_layers {cfg.n_layers} is odd")
         return cfg.n_layers // 2
     return cfg.n_layers
+
+
+def _stack_layers(init_fn, n, gen, cfg, dtype, device):
+    return tree_stack([init_fn(gen, cfg, dtype, device=device) for _ in range(n)])
+
+
+def _learned_pos(gen, cfg, dtype, device):
+    table = torch.randn((MAX_LEARNED_POS, cfg.d_model), generator=gen,
+                        device=gen.device) * 0.02
+    return table.to(device=device, dtype=dtype)
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, *, device=None):
@@ -71,16 +91,42 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device=None):
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
                                   device=device)
-    init_fn = _BLOCK[cfg.block_type][0]
-    p["layers"] = tree_stack([init_fn(gen, cfg, dtype, device=device)
-                              for _ in range(n_scan_layers(cfg))])
+    if cfg.frontend != "none":
+        p["frontend"] = frontend_init(gen, cfg, dtype, device=device)
+    if cfg.pos == "learned":
+        p["pos_emb"] = _learned_pos(gen, cfg, dtype, device)
+    if cfg.is_encdec:
+        p["enc_layers"] = _stack_layers(B.enc_block_init, cfg.n_enc_layers, gen,
+                                        cfg, dtype, device)
+        p["enc_norm"] = rmsnorm_init(cfg.d_model, dtype, device=device)
+        p["dec_layers"] = _stack_layers(B.dec_block_init, cfg.n_layers, gen, cfg,
+                                        dtype, device)
+        if cfg.pos == "learned":
+            p["enc_pos_emb"] = _learned_pos(gen, cfg, dtype, device)
+    else:
+        p["layers"] = _stack_layers(_BLOCK[cfg.block_type][0], n_scan_layers(cfg),
+                                    gen, cfg, dtype, device)
     return p
 
 
+# ------------------------------------------------------------- embedding ----
+
 def _embed_inputs(params, cfg: ArchConfig, batch):
-    """Returns (x (B, S, d), positions, loss_mask): tokens only, and the
-    xlstm_pair blocks read no positions."""
-    return embed(params["embed"], batch["tokens"], cfg.cdtype), None, None
+    """Returns (x (B, S, d), positions). (The reference also returns the
+    VLM's loss mask, which only its training reads.)"""
+    cdt = cfg.cdtype
+    tokens = batch["tokens"]
+    if cfg.frontend == "vision_stub":  # VLM: [patches ; tokens]
+        vis = frontend_apply(params["frontend"], cfg, batch["patches"], cdt)
+        txt = embed(params["embed"], tokens, cdt)
+        x = torch.cat([vis, txt], dim=1)
+        return x, mrope_positions(vis.shape[0], vis.shape[1], txt.shape[1],
+                                  device=x.device)
+    x = embed(params["embed"], tokens, cdt)
+    b, s = tokens.shape
+    if cfg.pos == "learned":
+        return x + params["pos_emb"][:s].to(cdt)[None], None
+    return x, text_positions(b, s, device=x.device)
 
 
 def _lm_logits(params, cfg: ArchConfig, x):
@@ -90,31 +136,86 @@ def _lm_logits(params, cfg: ArchConfig, x):
     return dense(params["lm_head"], x)
 
 
-def _layers(params):
-    n = tree_leaves(params["layers"])[0].shape[0]
-    return [tree_index(params["layers"], i) for i in range(n)]
+def _layers(stacked):
+    n = tree_leaves(stacked)[0].shape[0]
+    return [tree_index(stacked, i) for i in range(n)]
 
+
+# --------------------------------------------------------------- forward ----
 
 def forward(params, cfg: ArchConfig, batch):
     """Full-sequence forward. Returns (logits, aux_loss)."""
     _check(cfg)
-    x, positions, _ = _embed_inputs(params, cfg, batch)
+    if cfg.is_encdec:
+        return _encdec_forward(params, cfg, batch)
+    x, positions = _embed_inputs(params, cfg, batch)
     apply_fn = _BLOCK[cfg.block_type][1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layers(params):
+    for lp in _layers(params["layers"]):
         x, a = apply_fn(lp, cfg, x, positions)
         aux = aux + a
     return _lm_logits(params, cfg, x), aux
 
 
+def _encode(params, cfg: ArchConfig, frames):
+    cdt = cfg.cdtype
+    x = frontend_apply(params["frontend"], cfg, frames, cdt)
+    x = x + params["enc_pos_emb"][:x.shape[1]].to(cdt)[None]
+    for lp in _layers(params["enc_layers"]):
+        x, _ = B.enc_block(lp, cfg, x, None)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _embed_decoder(params, cfg: ArchConfig, tokens):
+    x = embed(params["embed"], tokens, cfg.cdtype)
+    return x + params["pos_emb"][:tokens.shape[1]].to(cfg.cdtype)[None]
+
+
+def _encdec_forward(params, cfg: ArchConfig, batch):
+    enc_out = _encode(params, cfg, batch["frames"])
+    x = _embed_decoder(params, cfg, batch["tokens"])
+    for lp in _layers(params["dec_layers"]):
+        x, _ = B.dec_block(lp, cfg, x, enc_out, None)
+    return _lm_logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                   device=x.device)
+
+
+def _refuse_training(name: str):
+    raise NotImplementedError(
+        f"{name}: training the language model is not ported: it needs "
+        "backward kernels for causal and GQA flash attention, the mLSTM scan "
+        "and the stateful sLSTM (ROADMAP item 15)")
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """Refused: LM training is not ported (ROADMAP item 15)."""
+    _refuse_training("loss_fn")
+
+
+def make_train_step(cfg: ArchConfig, optimizer, microbatches: int = 1):
+    """Refused: LM training is not ported (ROADMAP item 15)."""
+    _refuse_training("make_train_step")
+
+
+# --------------------------------------------------------------- serving ----
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
-               device=None):
+               enc_len: int = 1500, device=None):
     """Decode cache for the whole stack (leading axis = stacked layers),
-    all zeros, as the reference's."""
+    all zeros, as the reference's. enc_len: the encoder output length of
+    the cross-attention cache (encdec)."""
     _check(cfg)
     device = resolve_device(device)
-    single = _BLOCK[cfg.block_type][3](cfg, batch, max_len, dtype or cfg.cdtype,
-                                       device=device)
+    dtype = dtype or cfg.cdtype
+    if cfg.is_encdec:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.hd)
+        single = {"self": B.attn_block_cache(cfg, batch, max_len, dtype,
+                                             device=device),
+                  "cross": (torch.zeros(shape, dtype=dtype, device=device),
+                            torch.zeros(shape, dtype=dtype, device=device))}
+    else:
+        single = _BLOCK[cfg.block_type][3](cfg, batch, max_len, dtype,
+                                           device=device)
     n = n_scan_layers(cfg)
     return tree_map(lambda x: torch.zeros((n,) + tuple(x.shape), dtype=x.dtype,
                                           device=x.device), single)
@@ -125,26 +226,55 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int, cache_dtype=None):
     next_index)."""
     _check(cfg)
     cache_dtype = cache_dtype or cfg.cdtype
-    x, positions, _ = _embed_inputs(params, cfg, batch)
+    if cfg.is_encdec:
+        return _encdec_prefill(params, cfg, batch, max_len, cache_dtype)
+    x, positions = _embed_inputs(params, cfg, batch)
     prefill_fn = _BLOCK[cfg.block_type][4]
     caches = []
-    for lp in _layers(params):
+    for lp in _layers(params["layers"]):
         x, cache_l = prefill_fn(lp, cfg, x, positions, max_len, cache_dtype)
         caches.append(cache_l)
     logits = _lm_logits(params, cfg, x[:, -1:])
     return logits, tree_stack(caches), x.shape[1]
 
 
+def _encdec_prefill(params, cfg, batch, max_len, cache_dtype):
+    enc_out = _encode(params, cfg, batch["frames"])
+    tok = batch["tokens"]  # decoder prompt (e.g. BOS)
+    x = _embed_decoder(params, cfg, tok)
+    caches = []
+    for lp in _layers(params["dec_layers"]):
+        x, cache_l = B.dec_block_prefill(lp, cfg, x, enc_out, None, max_len,
+                                         cache_dtype)
+        caches.append(cache_l)
+    logits = _lm_logits(params, cfg, x[:, -1:])
+    return logits, tree_stack(caches), tok.shape[1]
+
+
 def decode_step(params, cfg: ArchConfig, tokens, cache, index):
     """tokens (B, 1) int; index: count of tokens already in context.
-    Returns (logits (B, 1, V), new cache)."""
+    Returns (logits (B, 1, V), new cache); the cache passed in is left as
+    it was."""
     _check(cfg)
+    index = int(index)
     x = embed(params["embed"], tokens, cfg.cdtype)
-    decode_fn = _BLOCK[cfg.block_type][2]
+    if cfg.pos == "learned":
+        x = x + params["pos_emb"][min(index, MAX_LEARNED_POS - 1)].to(cfg.cdtype)
+    positions = None
+    if cfg.pos == "mrope":  # the raw index on all three axes, as the reference
+        positions = torch.full((tokens.shape[0], 1, 3), index, dtype=torch.int32,
+                               device=x.device)
     new = []
-    for i, lp in enumerate(_layers(params)):
-        x, cache_l = decode_fn(lp, cfg, x, tree_index(cache, i), index, None)
-        new.append(cache_l)
+    if cfg.is_encdec:
+        for i, lp in enumerate(_layers(params["dec_layers"])):
+            x, cache_l = B.dec_block_decode(lp, cfg, x, tree_index(cache, i), index)
+            new.append(cache_l)
+    else:
+        decode_fn = _BLOCK[cfg.block_type][2]
+        for i, lp in enumerate(_layers(params["layers"])):
+            x, cache_l = decode_fn(lp, cfg, x, tree_index(cache, i), index,
+                                   positions)
+            new.append(cache_l)
     return _lm_logits(params, cfg, x), tree_stack(new)
 
 

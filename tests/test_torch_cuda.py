@@ -24,7 +24,9 @@ step recurrence: within ``mlstm_error_bound`` (atol 1e-5 plus 1e-4 of the
 row's largest value: dot products of dk terms summed in another order,
 the decay factored per chunk). The sLSTM from a running state: output
 and final state within ``slstm_error_bound``. The reduced xlstm through
-``serve_lm`` on the card against the CPU: logits within 1e-3.
+``serve_lm`` on the card against the CPU: logits within 1e-3, as every
+reduced family's. The flash kernel's logit cap against the plain
+version's at the f32 / bf16 tolerances.
 """
 import numpy as np
 import pytest
@@ -433,6 +435,52 @@ def test_flash_kernel_tiling_edges_on_card(b, hq, hkv, sq, sk, d, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# the language models' shapes (serve_lm): b, hq, hkv, sq, sk, d, causal, window
+FLASH_LM_CASES = [
+    (8, 24, 8, 512, 512, 128, True, 0),      # phi4-mini prefill
+    (2, 25, 5, 2048, 2048, 64, True, 1024),  # hymba, sliding window
+    (2, 16, 16, 4, 1500, 64, False, 0),      # whisper cross-attention
+    (8, 24, 8, 1, 544, 128, False, 0),       # decode, group 3
+    (2, 25, 5, 1, 544, 64, False, 0),        # decode, group 5
+    (2, 12, 2, 1, 544, 128, False, 0),       # decode, group 6
+    (2, 36, 4, 1, 544, 128, False, 0),       # decode, group 9
+    (2, 32, 32, 128, 128, 80, True, 0),      # stablelm, head dim 80
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", FLASH_LM_CASES)
+def test_flash_kernel_lm_shapes_on_card(b, hq, hkv, sq, sk, d, causal, window):
+    _skip_without_card()
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=hq + sq)
+    got = flash_launcher.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap", [0.0, 5.0, 30.0])
+def test_flash_kernel_softcap_on_card(dtype, softcap):
+    """The logit cap against the plain version; a cap of 0 gives the
+    uncapped kernel's output bit for bit."""
+    _skip_without_card()
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(2, 8, 2, 96, 96, 64, seed=3, dtype=dt)
+    q = q * 3  # scores of several units, so that the cap bends them
+    got = flash_launcher.flash_attention_cuda(q, k, v, causal=True, window=0,
+                                              softcap=softcap)
+    want = flash_attention_ref(q, k, v, causal=True, softcap=softcap)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if not softcap:
+        assert torch.equal(got, flash_launcher.flash_attention_cuda(
+            q, k, v, causal=True, window=0))
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rows_without_keys_are_zero_on_card():
     """Causal with Sq > Sk: the first Sq - Sk query rows see no key and
@@ -485,6 +533,7 @@ def _mlstm_inputs(b, h, s, dk, dv, seed):
 @pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
     (1, 2, 64, 16, 16, 16), (2, 3, 100, 32, 16, 32), (1, 1, 128, 64, 64, 128),
     (2, 4, 77, 512, 512, 64), (1, 2, 12, 64, 100, 64), (2, 4, 512, 512, 512, 64),
+    (2, 25, 2048, 16, 64, 64),  # hymba's Mamba heads
 ])
 def test_mlstm_kernel_matches_plain_on_card(b, h, s, dk, dv, chunk, normalize):
     """h and the final (C, n) within mlstm_error_bound of the step
@@ -675,6 +724,49 @@ def test_serve_lm_on_card_launches_its_kernels():
     assert deltas == [("prefill", 2, 2)] + [("decode", 0, 2)] * 3
     want = serve_lm.generate(params_from_numpy(params_to_numpy(p), "cpu"), cfg,
                              toks, gen=3, max_len=64)
+    torch.testing.assert_close(res["logits"].cpu(), want["logits"], atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flash,mlstm", [
+    ("phi4_mini_3p8b", (2, 2), (0, 0)), ("hymba_1p5b", (2, 2), (2, 0)),
+    ("whisper_medium", (6, 4), (0, 0)), ("qwen2_vl_2b", (2, 2), (0, 0)),
+    ("deepseek_moe_16b", (2, 2), (0, 0)),
+])
+def test_serve_lm_families_on_card(name, flash, mlstm):
+    """Each family reduced through serve_lm on the card: flash (and for
+    hymba mLSTM) launches a prefill and a decode step, and the card's
+    tokens and logits agree with the CPU's."""
+    _skip_without_card()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import backbone as bb
+
+    cfg = get_config(name).reduced()
+    p = bb.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    inputs = {}
+    if cfg.frontend == "vision_stub":
+        inputs["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.frontend_dim)).astype(np.float32))
+    if cfg.is_encdec:
+        inputs["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 40, cfg.frontend_dim)).astype(np.float32))
+    counts = []
+
+    def hook(stage, i):
+        counts.append((flash_launcher.launches, mlstm_launcher.launches))
+
+    start = (flash_launcher.launches, mlstm_launcher.launches)
+    res = serve_lm.generate(p, cfg, toks.cuda(), gen=3, max_len=40, hook=hook,
+                            inputs={k: v.cuda() for k, v in inputs.items()})
+    deltas = [(f - pf, m - pm) for (f, m), (pf, pm) in zip(counts, [start] + counts[:-1])]
+    assert deltas == [(flash[0], mlstm[0])] + [(flash[1], mlstm[1])] * 3
+    want = serve_lm.generate(params_from_numpy(params_to_numpy(p), "cpu"), cfg,
+                             toks, gen=3, max_len=40, inputs=inputs)
     torch.testing.assert_close(res["logits"].cpu(), want["logits"], atol=1e-3,
                                rtol=1e-3)
 

@@ -37,7 +37,10 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.core.federation_sharded",
               "repro_torch.data.pipeline", "repro_torch.data.scenario",
               "repro_torch.data.store", "repro_torch.launch.train_federated",
-              "repro_torch.core.baselines", "repro_torch.launch.serve"):
+              "repro_torch.core.baselines", "repro_torch.launch.serve",
+              "repro_torch.models.attention", "repro_torch.models.rope",
+              "repro_torch.models.mlp", "repro_torch.models.moe",
+              "repro_torch.models.frontends"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -5,12 +5,14 @@ weights and caches carried across, and the ``serve_lm`` driver.
 Only the reduced configs run (``xlstm_350m.reduced()``: one pair, d 128;
 ``blendfl_paper``: two pairs, d 256); the full xlstm-350m is checked by
 arithmetic on shapes, never built. Weights are the reference's init,
-carried across with ``params_from_numpy``. Tolerances: logits and decode
-caches within atol 1e-4 / rtol 1e-4 (f32 sums in another order: the
-port's CPU path runs the step recurrences where the reference runs its
-chunkwise XLA form); greedy tokens equal wherever the reference's top-2
-logit margin exceeds 2e-4. The port's own consistency checks use the
-reference test's tolerances (tests/test_arch_smoke.py).
+carried across with ``params_from_numpy``; the checks against the
+reference are ``tests/_torch_lm_parity.py``'s, which every family's
+tests share. Tolerances: logits and decode caches within atol 1e-4 /
+rtol 1e-4 (f32 sums in another order: the port's CPU path runs the step
+recurrences where the reference runs its chunkwise XLA form); greedy
+tokens equal wherever the reference's top-2 logit margin exceeds 2e-4.
+The port's own consistency checks use the reference test's tolerances
+(tests/test_arch_smoke.py).
 """
 import dataclasses
 
@@ -31,27 +33,14 @@ from repro_torch.launch import serve_lm
 from repro_torch.models import backbone as tbb
 from repro_torch.models import blocks as tblocks
 
-ATOL = RTOL = 1e-4
-MARGIN = 2e-4
+import _torch_lm_parity as P
+
 NAMES = ("xlstm_350m", "blendfl_paper")
 
 
 def _cfgs(name):
     jc, tc = jget(name), get_config(name)
     return (jc.reduced(), tc.reduced()) if name == "xlstm_350m" else (jc, tc)
-
-
-def _close(got, want, atol=ATOL, rtol=RTOL):
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol,
-                               rtol=rtol)
-
-
-def _trees_close(got_np, want, atol=ATOL):
-    g, w = jax.tree.leaves(got_np), jax.tree.leaves(jax.tree.map(np.asarray, want))
-    assert len(g) == len(w)
-    for a, b in zip(g, w):
-        assert a.shape == b.shape
-        _close(a, b, atol=atol)
 
 
 # ---------------------------------------------------------------- configs --
@@ -119,13 +108,25 @@ def test_init_shapes_and_scales_match_reference(name):
     assert bool((p["final_norm"]["g"] == 1).all())
 
 
-def test_other_block_types_refuse():
-    for name in ("phi4_mini_3p8b", "hymba_1p5b", "whisper_medium"):
+def test_training_and_grouped_moe_refuse():
+    """What the port does not run refuses, naming its ROADMAP item: LM
+    training (item 15) for every family, and the grouped MoE dispatch of
+    a multi-device launcher (moe_groups > 0, item 16) at every entry."""
+    for name in ("xlstm_350m", "phi4_mini_3p8b", "whisper_medium"):
         cfg = get_config(name).reduced()
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            tbb.init_params(torch.Generator(), cfg, device="cpu")
+            tbb.loss_fn({}, cfg, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            tbb.forward({}, cfg, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
+            tbb.make_train_step(cfg, None)
+    cfg = get_config("deepseek_moe_16b").reduced().replace(moe_groups=4)
+    toks = torch.zeros(1, 2, dtype=torch.int32)
+    for call in (lambda: tbb.init_params(torch.Generator(), cfg, device="cpu"),
+                 lambda: tbb.forward({}, cfg, {"tokens": toks}),
+                 lambda: tbb.prefill({}, cfg, {"tokens": toks}, 8),
+                 lambda: tbb.decode_step({}, cfg, toks[:, :1], {}, 2),
+                 lambda: tbb.init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+            call()
 
 
 # ------------------------------------------------------ against the JAX --
@@ -133,64 +134,24 @@ def test_other_block_types_refuse():
 @pytest.fixture(scope="module", params=NAMES)
 def lm(request):
     """Reference weights on both sides, a prompt, and the reference's
-    forward / prefill / 4 greedy decode steps."""
-    jc, tc = _cfgs(request.param)
-    jp = jbb.init_params(jax.random.PRNGKey(1), jc)
-    np_p = jax.tree.map(np.asarray, jp)
-    rng = np.random.default_rng(1)
-    toks = rng.integers(0, jc.vocab_size, (2, 12)).astype(np.int32)
-    jl, _ = jbb.forward(jp, jc, {"tokens": jnp.asarray(toks)})
-    plog, pcache, _ = jbb.prefill(jp, jc, {"tokens": jnp.asarray(toks)}, max_len=32)
-    step = jax.jit(jbb.make_serve_step(jc))
-    nxt = jnp.argmax(plog[:, -1], -1)[:, None].astype(jnp.int32)
-    cache, steps = pcache, []
-    for i in range(4):
-        logits, cache = step(jp, nxt, cache, jnp.asarray(12 + i))
-        steps.append((np.array(nxt), np.asarray(logits)))
-        nxt = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
-    return dict(jc=jc, tc=tc, jp=jp, tp=params_from_numpy(np_p, "cpu"),
-                toks=toks, forward=np.asarray(jl), prefill=np.asarray(plog),
-                cache=pcache, steps=steps, last=np.array(nxt))
+    forward / prefill / 4 greedy decode steps (``_torch_lm_parity``)."""
+    return P.reference_run(request.param, reduce=request.param == "xlstm_350m")
 
 
 def test_forward_matches_jax(lm):
-    got, aux = tbb.forward(lm["tp"], lm["tc"], {"tokens": torch.from_numpy(lm["toks"])})
-    assert tuple(got.shape) == lm["forward"].shape and float(aux) == 0.0
-    _close(got.numpy(), lm["forward"])
+    P.check_forward(lm)
 
 
 def test_prefill_logits_and_cache_match_jax(lm):
-    logits, cache, index = tbb.prefill(lm["tp"], lm["tc"],
-                                       {"tokens": torch.from_numpy(lm["toks"])},
-                                       max_len=32)
-    assert index == 12 and tuple(logits.shape) == lm["prefill"].shape
-    _close(logits.numpy(), lm["prefill"])
-    _trees_close(params_to_numpy(cache), lm["cache"])
+    P.check_prefill(lm)
 
 
 def test_greedy_decode_matches_jax(lm):
-    """4 decode steps fed the reference's tokens: logits within
-    tolerance; the port's greedy token is the reference's wherever the
-    reference's top-2 margin exceeds MARGIN."""
-    _, cache, _ = tbb.prefill(lm["tp"], lm["tc"],
-                              {"tokens": torch.from_numpy(lm["toks"])}, max_len=32)
-    for i, (tok, want) in enumerate(lm["steps"]):
-        logits, cache = tbb.decode_step(lm["tp"], lm["tc"], torch.from_numpy(tok),
-                                        cache, 12 + i)
-        _close(logits.numpy(), want)
-        top2 = np.sort(want[:, -1], axis=-1)[:, -2:]
-        sure = top2[:, 1] - top2[:, 0] > MARGIN
-        assert np.array_equal(logits[:, -1].argmax(-1).numpy()[sure],
-                              want[:, -1].argmax(-1)[sure])
+    P.check_greedy_decode(lm)
 
 
 def test_decode_from_the_reference_cache(lm):
-    """The reference's prefill cache carried across (tuples become
-    lists) decodes in the port as it does in the reference."""
-    cache = params_from_numpy(jax.tree.map(np.asarray, lm["cache"]), "cpu")
-    tok, want = lm["steps"][0]
-    logits, _ = tbb.decode_step(lm["tp"], lm["tc"], torch.from_numpy(tok), cache, 12)
-    _close(logits.numpy(), want)
+    P.check_decode_from_reference_cache(lm)
 
 
 def test_blocks_match_jax(lm):
@@ -202,43 +163,24 @@ def test_blocks_match_jax(lm):
     x = rng.standard_normal((2, 9, lm["jc"].d_model)).astype(np.float32)
     want, _ = jblocks.xlstm_pair_block(jlp, lm["jc"], jnp.asarray(x), None)
     got, _ = tblocks.xlstm_pair_block(tlp, lm["tc"], torch.from_numpy(x), None)
-    _close(got.numpy(), want)
+    P.close(got.numpy(), want)
     wy, wst = jblocks.xlstm_pair_prefill(jlp, lm["jc"], jnp.asarray(x), None, 16, None)
     gy, gst = tblocks.xlstm_pair_prefill(tlp, lm["tc"], torch.from_numpy(x), None, 16, None)
-    _close(gy.numpy(), wy)
-    _trees_close(params_to_numpy(gst), wst)
+    P.close(gy.numpy(), wy)
+    P.trees_close(params_to_numpy(gst), wst)
     x1 = x[:, :1]
     wd, wdst = jblocks.xlstm_pair_decode(jlp, lm["jc"], jnp.asarray(x1), wst, 9)
     gd, gdst = tblocks.xlstm_pair_decode(tlp, lm["tc"], torch.from_numpy(x1), gst, 9)
-    _close(gd.numpy(), wd)
-    _trees_close(params_to_numpy(gdst), wdst)
+    P.close(gd.numpy(), wd)
+    P.trees_close(params_to_numpy(gdst), wdst)
 
 
 def test_prefill_matches_forward_and_decode_consistent(lm):
-    """The reference's own consistency checks, on the port: prefill's last
-    logits equal forward's, and a decode step after prefill equals
-    forward on the extended sequence."""
-    p, cfg, toks = lm["tp"], lm["tc"], torch.from_numpy(lm["toks"])
-    lg, cache, idx = tbb.prefill(p, cfg, {"tokens": toks}, max_len=32)
-    full, _ = tbb.forward(p, cfg, {"tokens": toks})
-    _close(lg[:, 0].numpy(), full[:, -1].numpy(), atol=2e-4, rtol=2e-4)
-    nt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 1)).astype(np.int32))
-    lg2, _ = tbb.decode_step(p, cfg, nt, cache, idx)
-    full2, _ = tbb.forward(p, cfg, {"tokens": torch.cat([toks, nt], 1)})
-    _close(lg2[:, 0].numpy(), full2[:, -1].numpy(), atol=5e-4, rtol=5e-4)
+    P.check_prefill_matches_forward(lm, decode=True)
 
 
 def test_serve_lm_generate_matches_jax_greedy(lm):
-    res = serve_lm.generate(lm["tp"], lm["tc"], torch.from_numpy(lm["toks"]),
-                            gen=4, max_len=32)
-    want = np.concatenate([t for t, _ in lm["steps"]] + [lm["last"]], axis=1)
-    margins = [np.diff(np.sort(lg[:, -1], -1)[:, -2:], axis=-1).min()
-               for _, lg in lm["steps"]]
-    sure = 1 + next((i for i, m in enumerate(margins) if m <= MARGIN), 4)
-    assert res["tokens"].shape == (2, 5) and res["tokens"].dtype == torch.int32
-    assert np.array_equal(res["tokens"].numpy()[:, :sure], want[:, :sure])
-    assert len(res["decode_s"]) == 4 and res["prefill_s"] > 0
+    P.check_generate(lm)
 
 
 # ------------------------------------------------------------- the rest --
@@ -261,7 +203,7 @@ def test_convert_carries_lm_tree_and_cache():
         assert np.array_equal(a, b)
     port = tbb.init_cache(get_config("xlstm_350m").reduced(), 2, 16, device="cpu")
     want = jbb.init_cache(jc, 2, 16)
-    _trees_close(params_to_numpy(port), want, atol=0)
+    P.trees_close(params_to_numpy(port), want, atol=0)
 
 
 def test_serve_lm_cli_on_cpu(capsys):
@@ -275,5 +217,13 @@ def test_serve_lm_cli_on_cpu(capsys):
                              "0.7", "--device", "cpu"])
     toks = sampled["tokens"]
     assert bool(((toks >= 0) & (toks < 512)).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        serve_lm.main(["--arch", "phi4-mini-3.8b", "--device", "cpu"])
+    # the default is the reference's, phi4-mini-3.8b; every family serves
+    capsys.readouterr()
+    res = serve_lm.main(["--batch", "2", "--prompt-len", "5", "--gen", "2",
+                         "--device", "cpu"])
+    assert tuple(res["tokens"].shape) == (2, 3)
+    assert res["logits"].shape[-1] == get_config("phi4_mini_3p8b").reduced().vocab_size
+    for arch in ("qwen2-vl-2b", "whisper-medium", "hymba-1.5b", "dbrx-132b"):
+        res = serve_lm.main(["--arch", arch, "--batch", "2", "--prompt-len", "4",
+                             "--gen", "2", "--device", "cpu"])
+        assert tuple(res["tokens"].shape) == (2, 3)

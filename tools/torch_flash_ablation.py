@@ -118,12 +118,13 @@ def main() -> int:
             for name, (lib, _) in built.items():
                 fn = getattr(ctypes.CDLL(str(lib)), "flash_attention_f32"
                              if dtype == torch.float32 else "flash_attention_bf16")
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                               + [ctypes.c_float, ctypes.c_void_p])
 
                 def call(x=None):
                     q, k, v = x or nxt()
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                             None, b, hq, hkv, sq, sk, d, int(causal), 0,
+                             None, b, hq, hkv, sq, sk, d, int(causal), 0, 0.0,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")

@@ -9,7 +9,7 @@ Builds each older source (``git show <commit>:src/repro_torch/kernels/
 ...`` into the gitignored ``build/``), calls its ``slstm_cell_f32`` /
 ``_bf16`` (or, where it has them, ``slstm_cell_stacked_*`` with one client)
 and ``flash_attention_f32`` / ``_bf16`` entry points (with a null
-log-sum-exp pointer where they take one), and holds
+log-sum-exp pointer and a logit cap of 0 where they take them), and holds
 their outputs against the port's launchers as they are: the plain call,
 the saving forward (``save=True``), the stacked form at C = 1 (a 4-d r)
 and the forward that also writes the log-sum-exp (``return_lse=True``),
@@ -72,6 +72,9 @@ def main(argv=None) -> int:
     # whether the older flash entry points take the log-sum-exp pointer
     flash_lse = re.search(r"flash_attention_f32\([^)]*float\* lse",
                           args.flash.read_text()) is not None
+    # and whether they take the logit cap (0: none) before the stream
+    flash_cap = re.search(r"flash_attention_f32\([^)]*float softcap",
+                          args.flash.read_text()) is not None
     stream = torch.cuda.current_stream().cuda_stream
     cases, ok = [], True
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -111,12 +114,13 @@ def main(argv=None) -> int:
         fn = getattr(old_f, "flash_attention_f32" if dname == "float32"
                      else "flash_attention_bf16")
         lse_ptr = [None] if flash_lse else []
+        cap = [0.0] if flash_cap else []
         fn.argtypes = ([ctypes.c_void_p] * (4 + len(lse_ptr)) + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * len(cap) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         old = torch.empty_like(q)
         if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), old.data_ptr(), *lse_ptr,
-              b, hq, hkv, sq, sk, d, int(causal), 0, stream):
+              b, hq, hkv, sq, sk, d, int(causal), 0, *cap, stream):
             raise RuntimeError("old flash_attention launch failed")
         forms = {"plain": flaunch.flash_attention_cuda(q, k, v, causal=causal,
                                                        window=0)}
