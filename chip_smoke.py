@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase4-repeats N]
 
 Runs from the repository root (it imports ``src/repro_torch``) and needs
 one CUDA card; it exits non-zero, printing no result, without one or
@@ -29,7 +29,10 @@ outside a checkout. Phases, each fatal on failure:
    agreement with single-request ``predict`` and with the CPU run of the
    same models, and the wire bytes against the analytic cost; kernel
    launch counts read around this run (3 wire-codec launches a VFL
-   micro-batch, none of any other kernel);
+   micro-batch, none of any other kernel); the host CPU's model and the
+   CPU references' thread count (pinned to CPU_THREADS before the first
+   CPU product), and with ``--phase4-repeats N`` the whole phase N times,
+   each run's card-vs-CPU reading printed;
 5. the CLI: ``repro_torch.launch.serve_federated --selftest`` serving a
    federation it trains inline on the card (2 rounds, 3 clients);
 6. blend kernel against plain: the BlendAvg blend on the card against its
@@ -154,7 +157,12 @@ outside a checkout. Phases, each fatal on failure:
    ``_match_encoder`` on the card against the loop's permutation; then FedAvg,
    FedNova, SplitNN and One-Shot VFL at phase 8's width, card against CPU
    from the same weights (params at phase 8's tolerance, metrics within
-   EVAL_ATOL);
+   EVAL_ATOL); then the seven that train the recurrent and transformer
+   encoders (all but FedMA, which refuses them) once each at full width
+   (4 heads of 256) on 4 of the 16 clients: blend launches against the
+   analytic count, the
+   encoder's forward and backward kernels launched, no other kernel, the
+   six metrics;
 22. training the recurrent and transformer encoders: each backward
    kernel (sLSTM BPTT, flash attention's dq / dk, dv) against its plain
    backward on the same saved inputs at full width, on one client's slice
@@ -188,7 +196,25 @@ outside a checkout. Phases, each fatal on failure:
    Mamba heads), prefill against ``forward`` (hymba and whisper also a
    decode step against forward), the tokens the MoE layers drop at
    capacity, then card against CPU at a cut depth (MoE: the routers'
-   choices equal, the top-k gap at least MOE_GAP).
+   choices equal, the top-k gap at least MOE_GAP);
+26. mLSTM backward against plain: the backward kernel's dq, dk, dv and
+   dlog_f against the plain step-by-step backward within
+   ``mlstm_grad_error_bound`` (ragged chunks, column blocks, normalize on
+   and off, xlstm-350m's training shape (8, 4, 128, 512, 512) and hymba's
+   Mamba heads (2, 25, 2048, 16, 64) without the normalizer), then timed
+   at those two beside the plain backward, an autograd of the plain scan
+   and the bound;
+27. full-width xlstm-350m training through ``launch/train.py`` (24
+   layers, batch 8 x 128, in a child process, ``chip_smoke.py
+   --train-child DIR``): 20 AdamW steps checkpointed every 10, the run
+   resumed from step 10 by a second invocation, finite losses, the
+   resumed losses within LOSS_RTOL of the uninterrupted run's, exactly
+   12 launches a step of each of the mLSTM scan, its backward, the sLSTM
+   cell and its backward; ms a step, peak memory, a profiled step;
+28. xlstm-350m training card against CPU: 2 of its 12 layer pairs at
+   full width, the loss and every gradient of a 2 x 128 batch, then 3
+   AdamW steps (losses, moments, parameters; tolerances at
+   TRAIN_GRAD_REL).
 
 Phases 10 and 13 also hold the kernels against their plain versions at
 the language models' shapes (FLASH_LM_CASES, a logit cap; MLSTM_HYMBA)
@@ -245,6 +271,11 @@ OMEGA_ATOL = 1e-3
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 EVAL_ATOL = 1e-3
 LOSSY_MAX_ABS, LOSSY_SHARE = 2e-2, 0.99
+
+# Threads of the CPU references (torch.set_num_threads), pinned before
+# the first CPU product: the chip machine's core count. A CPU GEMM's sum
+# order may depend on its thread count (ROADMAP fault (n)).
+CPU_THREADS = 8
 
 # Timed kernels read inputs rotated over at least this many bytes, so
 # that a launch finds its input in HBM, not in the 50 MB L2, as a
@@ -2928,6 +2959,9 @@ BASELINE_ORDER = ("fedavg", "fedprox", "fednova", "fedma", "hfcl", "splitnn",
 BASELINE_KEYS = ("multimodal_auroc", "uni_a_auroc", "uni_b_auroc",
                  "multimodal_auprc", "uni_a_auprc", "uni_b_auprc")
 BASELINES_CARD_CPU = ("fedavg", "fednova", "splitnn", "oneshot_vfl")
+# the baselines on the variant encoders run on the first 4 of phase 7's
+# 16 clients (a cut of scale: widths as phase 22's)
+BASELINE_VARIANT_CLIENTS = 4
 
 
 def greedy_match_numpy(ref, cand):
@@ -3467,11 +3501,498 @@ def variant_training(torch, spec, data, counted) -> dict:
     return runs
 
 
+# ------------------------------------------------------ LM training (15a) --
+
+# Phase 26: the mLSTM-scan backward kernel against the plain backward,
+# (B, H, S, dk, dv, normalize): two chunks and a ragged tail, one ragged
+# chunk, three column blocks (the last ragged); then the two it is timed
+# at: xlstm-350m's training shape (8 x 128 tokens, 4 heads of 512) and
+# hymba's Mamba heads (2 x 2048 tokens, 25 heads, dk 16, dv 64, no
+# normalizer).
+MLSTM_BWD_CASES = ((1, 2, 150, 64, 64, True), (1, 2, 150, 64, 64, False),
+                   (2, 3, 37, 16, 24, True), (1, 1, 70, 8, 130, True))
+MLSTM_BWD_XLSTM = (8, 4, 128, 512, 512, True)
+MLSTM_BWD_HYMBA = (2, 25, 2048, 16, 64, False)
+# Phase 27: launch/train.py at full width and depth, its reference
+# defaults' shape (8 x 128 tokens), 20 steps checkpointed every 10, then
+# the run resumed from step 10. The kernels a step launches at one
+# microbatch: one forward and one backward of each cell a layer pair.
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 20, 10, 8, 128
+TRAIN_ARGS = ["--arch", "xlstm-350m", "--full", "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+              "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "5",
+              "--device", "cuda"]
+TRAIN_LAUNCHES = {"mlstm_scan": 12, "mlstm_scan_bwd": 12, "slstm_cell": 12,
+                  "slstm_cell_bwd": 12}
+# Phase 28: training card against CPU, 2 of xlstm-350m's 12 layer pairs
+# at full width, 2 x 128 tokens, 3 steps of the CLI's AdamW. Gradients
+# and the moments (sums of gradients) within TRAIN_GRAD_REL of each
+# leaf's largest |value|: f32 sums in other orders (cuBLAS against the
+# CPU's GEMMs at K = 1024-4096, the kernels' chunkwise and 3xTF32 sums
+# against the plain step recurrences), through 4 layers and back, as
+# LM_CPU_TOL holds the logits. Parameters within ADAM_STEP_BOUND times
+# the summed learning rates: AdamW divides by sqrt(v) + 1e-8, so an
+# entry whose gradient lies within that noise of 0 takes a step whose
+# sign the noise decides, and in the first steps |m^ / sqrt(v^)| is at
+# most 1.01 (by Cauchy-Schwarz over the bias-corrected weights).
+TRAIN_CPU_LAYERS = 4
+TRAIN_GRAD_REL = 1e-3
+ADAM_STEP_BOUND = 2.02
+
+
+class _KernelsOf:
+    """A launcher's counter scaled to the kernels each of its calls
+    launches (``counted_ms`` holds a profile's kernels to it)."""
+
+    def __init__(self, mod, per_call):
+        self.mod, self.per_call = mod, per_call
+
+    @property
+    def launches(self):
+        return self.mod.launches * self.per_call
+
+
+def mlstm_bwd_flops(b, h, s, dk, dv, normalize, chunk=64):
+    """FLOPs the chunkwise backward needs on these shapes (the count of
+    ``mlstm_scan_bwd.cu``): per (b, h), with P = dv + 1 (dv without the
+    normalizer) and chunks of l steps, the two score matrices l(l+1)(P +
+    dk) and the three in-chunk sums l(l+1)(2 dk + dv) a chunk; the three
+    scans' carried-state products (2 l P dk twice, 2 l dk dv) in every
+    chunk but the first of a sweep and their state updates in every chunk
+    but the last; the normalize step's q.n and per-row sums (4 S dk + 4 S
+    dv) and dlog_f's two dot products (4 S dk)."""
+    p = dv + int(normalize)
+    ls = [min(chunk, s - t0) for t0 in range(0, s, chunk)]
+    tri = sum(n * (n + 1) for n in ls)
+    carried = sum(ls[1:]) + sum(ls[:-1])  # one sweep's inter + update rows
+    per = (tri * (p + dk) + tri * (2 * dk + dv)
+           + carried * (4 * p * dk + 2 * dk * dv)
+           + int(normalize) * 4 * s * (dk + dv) + 4 * s * dk)
+    return b * h * per
+
+
+def mlstm_bwd_inputs(torch, mlaunch, b, h, s, dk, dv, normalize, seed):
+    """q, k, v, log_f (the forward tests' distributions), the forward
+    kernel's h and a random output gradient, on the card."""
+    q, k, v, lf = mlstm_inputs(torch, b, h, s, dk, dv, seed)
+    out = mlaunch.mlstm_scan_cuda(q, k, v, lf, normalize=normalize)
+    gen = np.random.default_rng(seed + 1)
+    dh = torch.from_numpy(gen.standard_normal((b, h, s, dv), np.float32)).cuda()
+    return [q, k, v, lf, out, dh]
+
+
+def check_mlstm_bwd(torch, mbwd, mref, xs, normalize) -> dict:
+    """The backward kernel's dq, dk, dv and dlog_f against the plain
+    backward's on the same inputs (the forward kernel's h among them),
+    each within mlstm_grad_error_bound (dq at its summands' scale);
+    returns their max abs errors and shares of the bound."""
+    q, k, v, lf, out, dh = xs
+    got = mbwd.mlstm_scan_bwd_cuda(q, k, v, lf, out, dh, normalize=normalize)
+    want, dq_scale = mref.mlstm_scan_bwd_ref(q, k, v, lf, dh, h=out,
+                                             normalize=normalize, dq_scale=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv", "dlog_f"), got, want):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"mlstm backward {name}: shape or non-finite values")
+        e = (g - w).abs()
+        bound = mref.mlstm_grad_error_bound(w, dq_scale if name == "dq" else None)
+        check(bool((e <= bound).all()),
+              f"mlstm backward {name} at {tuple(q.shape)} beyond its bound: max "
+              f"err {float(e.max())}, {float((e / bound).max()):.3f} of the bound")
+        errs[name] = float(e.max())
+        errs[name + "_share_of_bound"] = float((e / bound).max())
+    return errs
+
+
+def time_mlstm_bwd(torch, mlaunch, mbwd, mref, case, mem_rate) -> dict:
+    """The backward kernel at ``case`` beside the plain backward, a plain
+    autograd of the plain scan (``torch.autograd.grad`` on a kept graph
+    of ``mlstm_scan_ref``, the ROADMAP's comparison) and the bound:
+    operations at the 3xTF32 rate (the least time; ``bound_ms``) and at
+    f32 on SIMT, the engine the kernel runs on (``bound_ms_simt``)."""
+    b, h, s, dk, dv, normalize = case
+    nbytes = 4 * b * h * (s * (2 * dk + dv + 1 + dv + int(normalize) * dv)
+                          + s * (2 * dk + dv + 1))
+    nxt = rotation(lambda: mlstm_bwd_inputs(torch, mlaunch, b, h, s, dk, dv,
+                                            normalize, seed=1), nbytes)
+
+    def kern():
+        return mbwd.mlstm_scan_bwd_cuda(*nxt(), normalize=normalize)
+
+    def plain():
+        q, k, v, lf, out, dh = nxt()
+        return mref.mlstm_scan_bwd_ref(q, k, v, lf, dh, h=out, normalize=normalize)
+
+    q, k, v, lf, _, dh = nxt()
+    xs = [x.clone().requires_grad_() for x in (q, k, v, lf)]
+    graph = mref.mlstm_scan_ref(*xs, normalize=normalize)
+
+    def autograd():
+        return torch.autograd.grad(graph, xs, dh, retain_graph=True)
+
+    flops = mlstm_bwd_flops(b, h, s, dk, dv, normalize)
+    bytes_ms = nbytes / mem_rate * 1e3
+    ops_ms = 3 * flops / TF32_OPS_PER_S * 1e3
+    simt_ms = flops / FP32_OPS_PER_S * 1e3
+    kernels = mbwd.kernel_launches(normalize)
+    tag = f"{case}"
+    t = {"shape": list(case[:5]), "normalize": normalize,
+         "kernels_a_call": kernels,
+         "ms": cuda_time_ms(kern, iters=20, warmup=3),
+         "device_ms": counted_ms(kern, iters=10, label=f"mlstm bwd {tag}",
+                                 launcher=_KernelsOf(mbwd, kernels),
+                                 symbols=mbwd.KERNELS),
+         "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
+         "autograd_ms": cuda_time_ms(autograd, iters=2, warmup=1),
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+         "bound_ms_simt": max(bytes_ms, simt_ms), "gflop": flops / 1e9,
+         "mbytes": nbytes / 1e6}
+    # each kernel's share of a call (one launch of each a call): device ms
+    # a launch by kernel name, over the launches the profile recorded
+    profiled = device_kernels(lambda: [kern() for _ in range(10)])
+    t["device_ms_by_kernel"] = {}
+    for sym in mbwd.KERNELS[3 - kernels:]:
+        us = sum(u for u, _, name in profiled if sym in name)
+        n = sum(c for _, c, name in profiled if sym in name)
+        t["device_ms_by_kernel"][sym] = us / n / 1e3 if n else None
+    del graph, xs
+    print(f"mlstm_scan_bwd {t['shape']} normalize={normalize}: kernel "
+          f"{t['ms']:.5f} ms (device {t['device_ms']} ms, {kernels} kernels a "
+          f"call), plain backward {t['plain_ms']:.3f} ms, autograd of the plain "
+          f"scan {t['autograd_ms']:.3f} ms; bound {t['bound_ms']:.6f} ms at the "
+          f"3xTF32 rate ({t['bound_by']}, {t['gflop']:.3f} GFLOP, "
+          f"{t['mbytes']:.1f} MB), {t['bound_ms_simt']:.6f} ms on SIMT f32; "
+          f"kernel at {t['bound_ms'] / t['ms']:.3f} / "
+          f"{t['bound_ms_simt'] / t['ms']:.3f} of them; device ms a launch by "
+          f"kernel {t['device_ms_by_kernel']}")
+    return t
+
+
+def mlstm_bwd_phase(torch, mlaunch, mbwd, mref, mem_rate) -> tuple:
+    """Phase 26: the backward kernel against the plain backward at
+    MLSTM_BWD_CASES and the two timed shapes, then timed at both
+    (``time_mlstm_bwd``). Returns (max abs err, errors by shape, timings
+    {"xlstm", "hymba"})."""
+    worst, errs = 0.0, {}
+    for case in MLSTM_BWD_CASES + (MLSTM_BWD_XLSTM, MLSTM_BWD_HYMBA):
+        xs = mlstm_bwd_inputs(torch, mlaunch, *case, seed=sum(case[:5]))
+        e = check_mlstm_bwd(torch, mbwd, mref, xs, case[5])
+        errs[str(case)] = e
+        worst = max(worst, *(v for k, v in e.items() if "share" not in k))
+        del xs
+    print(f"{len(errs)} cases (dq, dk, dv, dlog_f) within mlstm_grad_error_bound "
+          f"of the plain backward; max abs err {worst:.3g}; at xlstm-350m's "
+          f"training shape {errs[str(MLSTM_BWD_XLSTM)]}")
+    torch.cuda.empty_cache()
+    times = {"xlstm": time_mlstm_bwd(torch, mlaunch, mbwd, mref, MLSTM_BWD_XLSTM,
+                                     mem_rate)}
+    torch.cuda.empty_cache()
+    times["hymba"] = time_mlstm_bwd(torch, mlaunch, mbwd, mref, MLSTM_BWD_HYMBA,
+                                    mem_rate)
+    torch.cuda.empty_cache()
+    return worst, errs, times
+
+
+def train_child(workdir: str) -> int:
+    """Phase 27's child process (``chip_smoke.py --train-child DIR``):
+    ``launch/train.py`` at full width and depth, TRAIN_STEPS steps
+    checkpointed every TRAIN_CKPT_EVERY into DIR, then the run stopped at
+    its first checkpoint (the later one removed) and resumed by a second
+    invocation; then one more step profiled. Writes DIR/train.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.models import backbone as bb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = os.path.join(workdir, "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+    full_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}"))
+    t0 = time.perf_counter()
+    resumed = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+    resumed_s = time.perf_counter() - t0
+    # where a step's time goes: one more step from the run's final state
+    cfg, params, state = full["cfg"], full["params"], full["opt_state"]
+    del resumed["params"], resumed["opt_state"]
+    opt = optim.adamw(optim.linear_warmup_cosine(3e-4, warmup=10,
+                                                 total_steps=TRAIN_STEPS))
+    step_fn = bb.make_train_step(cfg, opt)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train.build_batch(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, np.random.default_rng(1)).items()}
+
+    def one():
+        step_fn(params, state, batch)
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bd = device_breakdown(one, wall, top=8, match=(
+        "mlstm_kernel", "mlstm_bwd", "slstm_kernel", "slstm_bwd_kernel", "gemm"))
+    out = {"n_params": sum(x.numel() for x in tree_leaves(params)),
+           "full": full["history"], "resumed": resumed["history"],
+           "resumed_start": resumed["start"], "full_s": full_s,
+           "resumed_s": resumed_s, "peak_gb": peak / 1e9,
+           "step_wall_ms": wall * 1e3, "breakdown": bd}
+    with open(os.path.join(workdir, "train.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def train_on_card() -> dict:
+    """Phase 27: ``train_child`` in a child process; its history is held
+    here: steps 1..TRAIN_STEPS, then TRAIN_CKPT_EVERY + 1 .. TRAIN_STEPS
+    after the resume, finite losses, exactly TRAIN_LAUNCHES a step in both
+    runs, the resumed losses within LOSS_RTOL of the uninterrupted run's
+    (the embedding's backward sums its rows with atomics, so the two runs
+    need not agree bit for bit on the card)."""
+    import os
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--train-child", workdir], cwd=ROOT,
+                              capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.splitlines()
+        print("\n".join(ln for ln in lines if ln.startswith(("arch=", "step ",
+                                                             "restored"))))
+        check(proc.returncode == 0, f"the training child failed ({proc.returncode}):"
+              "\n" + "\n".join(lines[-30:]) + proc.stderr[-3000:])
+        with open(os.path.join(workdir, "train.json")) as f:
+            res = json.load(f)
+    full, resumed = res["full"], res["resumed"]
+    check([r["step"] for r in full] == list(range(1, TRAIN_STEPS + 1))
+          and [r["step"] for r in resumed]
+          == list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1))
+          and res["resumed_start"] == TRAIN_CKPT_EVERY, "training steps")
+    check(all(np.isfinite(r["loss"]) for r in full + resumed), "training losses")
+    bad = [r for r in full + resumed if r["launches"] != TRAIN_LAUNCHES]
+    check(not bad, f"launches a step {bad[:2]}, want {TRAIN_LAUNCHES}")
+    want = np.asarray([r["loss"] for r in full[TRAIN_CKPT_EVERY:]])
+    got = np.asarray([r["loss"] for r in resumed])
+    gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(gap <= LOSS_RTOL, f"resumed losses {got} against {want}")
+    secs = [r["seconds"] for r in full[1:]]
+    bd = res["breakdown"]
+    out = {"params": res["n_params"], "ms_a_step_median": float(np.median(secs)) * 1e3,
+           "ms_a_step_mean": float(np.mean(secs)) * 1e3,
+           "first_step_ms": full[0]["seconds"] * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(secs)),
+           "peak_gb": res["peak_gb"], "losses": [r["loss"] for r in full],
+           "resumed_losses": got.tolist(), "resumed_rel_gap": gap,
+           "launches_a_step": TRAIN_LAUNCHES,
+           "launches": {k: sum(r["launches"][k] for r in full) for k in TRAIN_LAUNCHES},
+           "run_s": res["full_s"], "resumed_run_s": res["resumed_s"],
+           "step_wall_ms": res["step_wall_ms"], "breakdown": bd}
+    print(f"xlstm-350m training ({res['n_params']} parameters, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens a step): {out['ms_a_step_median']:.2f} ms a step "
+          f"(median of steps 2-{TRAIN_STEPS}; mean {out['ms_a_step_mean']:.2f}, "
+          f"step 1 {out['first_step_ms']:.1f}), {out['tokens_per_s']:.0f} tokens/s; "
+          f"peak memory {res['peak_gb']:.3f} GB; losses {full[0]['loss']:.4f} -> "
+          f"{full[-1]['loss']:.4f}; resumed from step {TRAIN_CKPT_EVERY}: losses "
+          f"within {gap:.3g} (rtol {LOSS_RTOL}); launches a step {TRAIN_LAUNCHES}; "
+          f"runs {res['full_s']:.1f} s and {res['resumed_s']:.1f} s with checkpoints")
+    print_breakdown("a training step (profiled)", bd)
+    for m, v in bd["matched"].items():
+        print(f"    {m}: {v['ms']:.3f} ms in {v['calls']} launches")
+    return out
+
+
+def train_card_vs_cpu(torch, counted) -> dict:
+    """Phase 28: xlstm-350m at TRAIN_CPU_LAYERS layers (2 of its 12 pairs),
+    full width, from the same weights (seed 0, drawn on the CPU) on the
+    card and on the CPU: the loss and every gradient of one batch of 2 x
+    128 tokens, then 3 steps of the CLI's AdamW (``make_train_step``):
+    losses, moments and parameters (tolerances above); on the card one
+    launch of each cell's forward and backward kernel a layer pair a
+    pass."""
+    from repro_torch import optim
+    from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import backbone as bb
+
+    cfg = get_config("xlstm_350m").replace(n_layers=TRAIN_CPU_LAYERS)
+    pairs = TRAIN_CPU_LAYERS // 2
+    cpu_params = bb.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = {"cpu": cpu_params, "cuda": tree_map(lambda x: x.cuda(), cpu_params)}
+    rng = np.random.default_rng(0)
+    batches = [build_batch(cfg, 2, 128, rng) for _ in range(3)]
+    side = {}
+    for dev in ("cuda", "cpu"):
+        for m in counted.values():
+            m.launches = 0
+        b0 = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(params[dev])]
+        total, _ = bb.loss_fn(tree_unflatten(params[dev], leaves), cfg, b0)
+        grads = [g.cpu() for g in torch.autograd.grad(total, leaves)]
+        opt = optim.adamw(optim.linear_warmup_cosine(3e-4, warmup=10,
+                                                     total_steps=TRAIN_STEPS))
+        step_fn = bb.make_train_step(cfg, opt)
+        p, s, losses = params[dev], opt.init(params[dev]), []
+        for batch in batches:
+            p, s, metrics = step_fn(p, s, {k: torch.from_numpy(v).to(dev)
+                                           for k, v in batch.items()})
+            losses.append(float(metrics["loss"]))
+        side[dev] = {
+            "loss0": float(total.detach()), "grads": grads, "losses": losses,
+            "params": [x.cpu() for x in tree_leaves(p)],
+            "moments": [x.cpu() for x in tree_leaves(s["mu"]) + tree_leaves(s["nu"])],
+            "launches": {k: m.launches for k, m in counted.items()}}
+    lr = optim.linear_warmup_cosine(3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    lr_sum = sum(float(lr(torch.tensor(t, dtype=torch.int32))) for t in (1, 2, 3))
+    card, cpu = side["cuda"], side["cpu"]
+    passes = 1 + len(batches)
+    want = {k: 0 for k in counted}
+    want.update({k: pairs * passes for k in ("mlstm_scan", "mlstm_scan_bwd",
+                                             "slstm_cell", "slstm_cell_bwd")})
+    check(card["launches"] == want, f"card launches {card['launches']}, want {want}")
+
+    def rel_gap(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(a, b))
+
+    g_gap, m_gap = rel_gap(card["grads"], cpu["grads"]), rel_gap(card["moments"],
+                                                                cpu["moments"])
+    l_gap = max(abs(a - b) / abs(b) for a, b in zip([card["loss0"]] + card["losses"],
+                                                    [cpu["loss0"]] + cpu["losses"]))
+    p_err = max(float((x - y).abs().max()) for x, y in zip(card["params"], cpu["params"]))
+    far = sum(int(((x - y).abs() > 1e-6).sum()) for x, y in zip(card["params"],
+                                                                cpu["params"]))
+    n = sum(x.numel() for x in cpu["params"])
+    print(f"training card vs CPU ({pairs} of 12 pairs at full width, 2 x 128 "
+          f"tokens): losses within {l_gap:.3g} (rtol {LOSS_RTOL}); gradients "
+          f"within {g_gap:.3g} of each leaf's largest (tol {TRAIN_GRAD_REL}); "
+          f"moments after 3 AdamW steps within {m_gap:.3g}; parameters max abs "
+          f"{p_err:.3g} (bound {ADAM_STEP_BOUND * lr_sum:.3g}), {far} of {n} "
+          f"more than 1e-6 apart; card launches {card['launches']}")
+    check(l_gap <= LOSS_RTOL, f"losses card {card['losses']} cpu {cpu['losses']}")
+    check(g_gap <= TRAIN_GRAD_REL and m_gap <= TRAIN_GRAD_REL,
+          f"gradients {g_gap} or moments {m_gap} beyond {TRAIN_GRAD_REL}")
+    check(p_err <= ADAM_STEP_BOUND * lr_sum + 1e-6, f"parameters {p_err}")
+    return {"loss_rel_gap": l_gap, "grad_rel_gap": g_gap, "moment_rel_gap": m_gap,
+            "param_max_abs": p_err, "params_beyond_1e-6": far, "n_params": n,
+            "launches": card["launches"]}
+
+
+def baseline_variants(torch, spec, data, counted) -> dict:
+    """Phase 21's second part: the seven baselines that train the
+    recurrent and transformer encoders (all but FedMA, which refuses
+    them, as the reference asserts) once each at full width (d_hidden
+    1024, 4 heads of 256; the first BASELINE_VARIANT_CLIENTS of phase 7's
+    clients, 1 round of 1 local epoch):
+    wall, blend launches against ``baseline_blends`` (counts set to 0
+    just before a run, read just after), forward and backward launches of
+    the encoder's kernels (both > 0, no other kernel but the blend), the
+    six metrics each NaN or in [0, 1]."""
+    import repro_torch.core.baselines as bl
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.encoders import EncoderConfig, init_client_models
+    from repro_torch.core.federation import FedConfig
+
+    clients, va, te = data
+    # 4 of phase 7's 16 clients: the fourteen runs take about 90 s with 16
+    clients = clients[:BASELINE_VARIANT_CLIENTS]
+    cfg = FedConfig(n_clients=len(clients), rounds=1, local_epochs=1, lr=1e-2,
+                    batch_size=64)
+    blaunch = counted["blend_params"]
+    runs = {}
+    for enc_type, (fwd, bwd, _) in VARIANT_KERNELS.items():
+        ecfg = EncoderConfig(d_hidden=1024, n_layers=4, enc_type=enc_type,
+                             n_heads=4)
+        key_leaves = {k: len(tree_leaves(v)) for k, v in init_client_models(
+            torch.Generator().manual_seed(0), spec, ecfg, device="cpu").items()}
+        try:
+            bl.BASELINES["fedma"](torch.Generator(), spec, ecfg, clients, va, te,
+                                  cfg, device="cuda")
+            check(False, f"FedMA trained the {enc_type} encoders")
+        except NotImplementedError as e:
+            check("baselines.py:289" in str(e), f"FedMA's refusal: {e}")
+        for name in BASELINE_ORDER:
+            if name == "fedma":
+                continue
+            torch.cuda.synchronize()
+            for m in counted.values():
+                m.launches = 0
+            t0 = time.perf_counter()
+            res, _ = bl.BASELINES[name](torch.Generator().manual_seed(0), spec,
+                                        ecfg, clients, va, te, cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: m.launches for k, m in counted.items()}
+            blends = baseline_blends(name, clients, key_leaves, cfg.rounds)
+            runs[f"{name}/{enc_type}"] = {"wall_s": wall, "launches": got,
+                                          "metrics": res}
+            print(f"{name} ({enc_type}): {wall:.3f} s wall; launches {got} "
+                  f"(blends want {blends}); "
+                  f"{ {k: round(v, 4) for k, v in res.items()} }")
+            check(got["blend_params"] == blends,
+                  f"{name} ({enc_type}): {got['blend_params']} blends, want {blends}")
+            check(got[fwd] > 0 and got[bwd] > 0
+                  and all(v == 0 for k, v in got.items()
+                          if k not in (fwd, bwd, "blend_params")),
+                  f"{name} ({enc_type}): launches {got}")
+            check(sorted(res) == sorted(BASELINE_KEYS)
+                  and all(np.isnan(v) or 0.0 <= v <= 1.0 for v in res.values()),
+                  f"{name} ({enc_type}): metrics {res}")
+    torch.cuda.empty_cache()
+    return runs
+
+
+def cpu_model(torch) -> str:
+    """The host CPU: its model name where /proc/cpuinfo gives one, its
+    architecture, the vector instructions PyTorch's CPU kernels use, and
+    its core count."""
+    import os
+    import platform
+
+    name = "model name not in /proc/cpuinfo"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return (f"{name}; {platform.machine()}, "
+            f"{torch.backends.cpu.get_cpu_capability()}, {os.cpu_count()} cores")
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--cli-child":
         return cli_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-child":
+        return train_child(sys.argv[2])
+    # --phase4-repeats N: phase 4 served and checked N times (1 as run
+    # with no arguments)
+    repeats = 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase4-repeats":
+        repeats = int(sys.argv[2])
+    elif len(sys.argv) != 1:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
+    # the CPU references' sums depend on the thread count (ROADMAP fault
+    # (n)): fixed before the first CPU product
+    torch.set_num_threads(CPU_THREADS)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
@@ -3490,6 +4011,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.mlstm_scan import mlstm_scan as mlaunch
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as mbwd
     from repro_torch.kernels.mlstm_scan import ref as mref
     from repro_torch.kernels.slstm_cell import ref as sref
     from repro_torch.kernels.slstm_cell import slstm_cell as slaunch
@@ -3559,8 +4081,17 @@ def main() -> int:
     counted = {"wire_codec": launcher, "blend_params": blaunch,
                "slstm_cell": slaunch, "flash_attention": flaunch,
                "mlstm_scan": mlaunch, "slstm_cell_bwd": sbwd,
-               "flash_attention_bwd": fbwd}
+               "flash_attention_bwd": fbwd, "mlstm_scan_bwd": mbwd}
+    print(f"CPU: {cpu_model(torch)}; {torch.get_num_threads()} threads (pinned to "
+          f"{CPU_THREADS}), MKL {torch.backends.mkl.is_available()}")
     serve4 = full_width_serving(torch, spec, ecfg, models, gmv, counted)
+    cpu_local = [serve4["tolerance"]["engine vs cpu (local routes)"]["max_err"]]
+    for _ in range(repeats - 1):  # fault (n): does the CPU's reading move?
+        again = full_width_serving(torch, spec, ecfg, models, gmv, counted)
+        cpu_local.append(again["tolerance"]["engine vs cpu (local routes)"]["max_err"])
+        del again
+    print(f"phase 4 engine vs cpu (local routes) max abs err over {repeats} "
+          f"run(s): {cpu_local}")
     launches = serve4["launches"]["wire_codec"]
     vfl_batches = serve4["batches"]["vfl_fallback"]
     print(f"wire_codec launches {launches} over {vfl_batches} VFL micro-batches")
@@ -3675,6 +4206,7 @@ def main() -> int:
     test = train.pop("test")
     baselines = baselines_phase(torch, spec, ecfg, data + (test,), blaunch, bref)
     torch.cuda.empty_cache()
+    baselines["variants"] = baseline_variants(torch, spec, data + (test,), counted)
 
     phase("22 training the recurrent and transformer encoders")
     bwd_times = backward_kernels(torch, mem_rate)
@@ -3692,6 +4224,17 @@ def main() -> int:
                   f"{worst['smallest_delta']} within 1e-3 of a tie")
             trained[enc_type][f"card_vs_cpu_seed{data_seed}"] = worst
     lm_runs = lm_phases(torch, counted)
+    torch.cuda.empty_cache()
+
+    phase("26 mLSTM backward against plain")
+    mbwd_err, mbwd_errs, mbwd_times = mlstm_bwd_phase(torch, mlaunch, mbwd, mref,
+                                                      mem_rate)
+
+    phase("27 full-width xlstm-350m training through launch/train.py")
+    lm_train = train_on_card()
+
+    phase("28 xlstm-350m training, card against CPU")
+    lm_train["card_vs_cpu"] = train_card_vs_cpu(torch, counted)
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -3818,8 +4361,32 @@ def main() -> int:
         name: r["launches"]["flash_attention"] for name, r in lm_runs.items()}
     mlstm_record["launches_hymba_serving"] = (
         lm_runs["hymba-1.5b"]["launches"]["mlstm_scan"])
+    # xlstm-350m training (phase 27): the 20 steps of the uninterrupted run
+    mlstm_record["launches_lm_training"] = lm_train["launches"]["mlstm_scan"]
+    slstm_record["launches_lm_training"] = lm_train["launches"]["slstm_cell"]
+    bwd_records[0]["launches_lm_training"] = lm_train["launches"]["slstm_cell_bwd"]
+    blend_record["launches_baselines_variants"] = {
+        k: v["launches"]["blend_params"] for k, v in baselines["variants"].items()}
+    t = mbwd_times["xlstm"]
+    mlstm_bwd_record = {
+        "name": "mlstm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_scan/mlstm_scan_bwd.cu",
+        "replaces": "none: the reference differentiates "
+                    "src/repro/models/recurrent.py:28 with jax.grad",
+        "launches": lm_train["launches"]["mlstm_scan_bwd"],
+        "launches_a_step": TRAIN_LAUNCHES["mlstm_scan_bwd"],
+        "kernels_a_call": t["kernels_a_call"], "max_abs_err": mbwd_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "bound_ms_simt": t["bound_ms_simt"],
+        "library_ms": None,  # no single PyTorch call runs the scan's backward
+        "autograd_ms": t["autograd_ms"], "device_ms": t["device_ms"],
+        "shape": t["shape"], "hymba": mbwd_times["hymba"],
+        "max_abs_err_by_shape": mbwd_errs}
+    print("xlstm-350m training: " + json.dumps(
+        {k: v for k, v in lm_train.items() if k != "breakdown"}))
     print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
-                                  flash_record, mlstm_record, *bwd_records]}))
+                                  flash_record, mlstm_record, *bwd_records,
+                                  mlstm_bwd_record]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -27,11 +27,10 @@ takes it) gives them; ``device`` is CUDA when None and raises without it.
 The steps are eager autograd with out-of-place updates; the shuffles are
 the reference's numpy ``default_rng(cfg.seed)`` draws, taken in the same
 order. Aggregation blends through ``core.blendavg.blend_trees``, one
-blend-kernel launch a model tree on the card. The baselines train the
-``mlp`` encoders only: ``Federation`` trains the ``recurrent`` and
-``transformer`` ones too, but each baseline on them needs its own parity
-runs, and the reference's FedMA takes ``mlp`` alone (ROADMAP.md item 17,
-its last part).
+blend-kernel launch a model tree on the card. Every encoder type trains
+(the ``recurrent`` and ``transformer`` ones through the sLSTM and flash
+attention backward kernels on the card), but FedMA's matching takes the
+``mlp`` encoders alone, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -131,13 +130,8 @@ def _evaluate(models: dict, test: SyntheticMultimodal, ecfg, kind) -> dict:
 
 def _init_models(gen, spec, ecfg, base, device) -> dict:
     """The initial models on ``device``: ``base`` if given, else drawn
-    from ``gen``. Refuses an encoder type the baselines do not train."""
+    from ``gen``."""
     check_trainable(ecfg)
-    if ecfg.enc_type != "mlp":
-        raise NotImplementedError(
-            f"the baselines train enc_type='mlp' only, got "
-            f"{ecfg.enc_type!r} (ROADMAP.md item 17, its last part: the "
-            "baselines on the recurrent and transformer encoders)")
     device = resolve_device(device)
     if base is None:
         return init_client_models(gen, spec, ecfg, device=device)
@@ -344,9 +338,13 @@ def _match_encoder(ref_ws, f):
 def run_fedma(gen, spec, ecfg, clients, val, test, cfg: FedConfig, history_test=None,
               *, base=None, device=None):
     """Matched averaging (greedy variant) on the encoder hidden layers.
-    Matching is implemented for the ``mlp`` encoders, the only ones the
-    baselines train."""
+    Matching is implemented for the ``mlp`` encoders alone."""
     del val
+    if ecfg.enc_type != "mlp":
+        raise NotImplementedError(
+            f"FedMA matches the hidden units of the mlp encoders only, as the "
+            f"reference asserts (src/repro/core/baselines.py:289); got "
+            f"enc_type={ecfg.enc_type!r}")
 
     def aggregate(global_m, local, clients_, taus):
         out = dict(global_m)

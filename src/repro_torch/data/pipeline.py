@@ -1,6 +1,7 @@
 """The federated batch loader (port of ``FederatedBatcher`` in
-``src/repro/data/pipeline.py``; its ``Batcher`` and ``token_batches``
-come with the LM-training slice).
+``src/repro/data/pipeline.py``) and ``token_batches``, the reference's
+synthetic LM token stream, drawn with the same numpy calls. (The
+reference's ``Batcher`` has no caller there and is not ported.)
 
 ``FederatedBatcher`` turns C ragged per-client datasets (heterogeneous
 row counts, zero-row modalities included) into the static ``(K, N, ...)``
@@ -41,6 +42,23 @@ import torch
 from repro_torch import resolve_device
 
 _F32 = np.float32
+
+
+def token_batches(vocab_size: int, batch: int, seq: int, n_batches: int,
+                  seed: int = 0):
+    """Synthetic LM token stream with Zipf-ish marginals and a copy
+    structure (even positions repeat the previous token), so that a model
+    can reduce its loss: ``n_batches`` dicts of numpy int32 ``tokens`` and
+    ``labels`` (batch, seq), the reference's integers from the same seed."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n_batches):
+        base = rng.zipf(1.3, size=(batch, seq + 1)).astype(np.int64) % vocab_size
+        base[:, 2::2] = base[:, 1:-1:2]
+        yield {"tokens": base[:, :-1].astype(np.int32),
+               "labels": base[:, 1:].astype(np.int32)}
+
+
+# ------------------------------------------------- federated batch loader --
 
 # per-client dataset keys the loader understands; all optional (missing or
 # zero-row = that client holds no such data)

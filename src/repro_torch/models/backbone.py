@@ -7,26 +7,37 @@ the ``encdec`` encoder-decoder (whisper).
     prefill(params, cfg, batch, max_len)           prompt -> logits, decode cache
     decode_step(params, cfg, tokens, cache, index) one-token serve step
 
-plus ``make_serve_step``. ``batch`` holds ``tokens`` and, by family,
+plus ``make_serve_step``, and training: ``loss_fn`` (cross-entropy over
+the text positions, ``loss_mask``, the router aux term) and
+``make_train_step`` (autograd, microbatch accumulation, an optimizer of
+``repro_torch.optim``). ``batch`` holds ``tokens`` and, by family,
 ``patches`` (the VLM's vision prefix) or ``frames`` (the audio
 encoder's input). Layers are stacked on a leading axis (each leaf of
 ``params["layers"]`` is (n_layers, ...), as the reference's ``vmap``
 init gives them) and walked by a Python loop where the reference runs
 ``lax.scan``; the decode cache is stacked the same way.
 
-Not ported, refused with ``NotImplementedError``: training (``loss_fn``,
-``make_train_step``; it needs backward kernels for causal and GQA flash
-attention, the mLSTM scan and the stateful sLSTM: ROADMAP item 15) and
-the grouped MoE dispatch of a multi-device launcher (``moe_groups > 0``:
-item 16). The reference's ``_constrain`` / ``act_shard`` pin activations
-to a mesh and have no counterpart on one device.
+Training runs the ``xlstm_pair`` block (xlstm-350m, blendfl-paper):
+its gradient goes through the mLSTM-scan and sLSTM backward kernels.
+Every other block type refuses with ``NotImplementedError`` (the causal
+and GQA flash-attention backwards, the MoE aux loss's and the
+frontends' gradients: ROADMAP item 15b), as does the grouped MoE
+dispatch of a multi-device launcher (``moe_groups > 0``: item 16). The
+reference's ``_constrain`` / ``act_shard`` pin activations to a mesh
+and have no counterpart on one device.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.common.tree import tree_index, tree_leaves, tree_map, tree_stack
+from repro_torch.common.tree import (
+    tree_index,
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_unflatten,
+)
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
     dense,
@@ -35,10 +46,12 @@ from repro_torch.models.common import (
     embedding_init,
     rmsnorm,
     rmsnorm_init,
+    softmax_cross_entropy,
 )
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.frontends import frontend_apply, frontend_init
 from repro_torch.models.rope import mrope_positions, text_positions
+from repro_torch.optim import apply_updates
 
 MAX_LEARNED_POS = 32768  # whisper-style learned positions
 
@@ -137,8 +150,11 @@ def _lm_logits(params, cfg: ArchConfig, x):
 
 
 def _layers(stacked):
-    n = tree_leaves(stacked)[0].shape[0]
-    return [tree_index(stacked, i) for i in range(n)]
+    """The per-layer trees of a stacked tree, as views (``unbind``: one
+    stacking node for the gradient of every layer)."""
+    leaves = [x.unbind(0) for x in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [x[i] for x in leaves])
+            for i in range(len(leaves[0]))]
 
 
 # --------------------------------------------------------------- forward ----
@@ -180,21 +196,78 @@ def _encdec_forward(params, cfg: ArchConfig, batch):
                                                    device=x.device)
 
 
-def _refuse_training(name: str):
-    raise NotImplementedError(
-        f"{name}: training the language model is not ported: it needs "
-        "backward kernels for causal and GQA flash attention, the mLSTM scan "
-        "and the stateful sLSTM (ROADMAP item 15)")
+def _check_trainable(cfg: ArchConfig, name: str) -> None:
+    _check(cfg)
+    if cfg.block_type != "xlstm_pair":
+        raise NotImplementedError(
+            f"{name}: training {cfg.name} (block type {cfg.block_type!r}) is "
+            "not ported: it needs the causal and GQA flash-attention "
+            "backwards, the MoE aux loss's and the frontends' gradients "
+            "(ROADMAP item 15b); the xlstm_pair block trains")
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Refused: LM training is not ported (ROADMAP item 15)."""
-    _refuse_training("loss_fn")
+    """Mean next-token cross-entropy (over ``loss_mask`` where given; the
+    text positions of a VLM) plus ``router_aux_weight`` times the aux
+    loss. Returns (total, {"loss", "aux"})."""
+    _check_trainable(cfg, "loss_fn")
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.frontend == "vision_stub":
+        # loss only over the text region (vision tokens have no labels)
+        logits = logits[:, batch["patches"].shape[1]:]
+    ce = softmax_cross_entropy(logits, labels)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = torch.mean(ce)
+    else:
+        loss = torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    total = loss + cfg.router_aux_weight * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+def _value_and_grad(params, cfg: ArchConfig, batch):
+    """(total, metrics, grads) of ``loss_fn`` at ``params``, all detached."""
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    with torch.enable_grad():
+        total, metrics = loss_fn(tree_unflatten(params, leaves), cfg, batch)
+        grads = torch.autograd.grad(total, leaves)
+    return (total.detach(), tree_map(torch.Tensor.detach, metrics),
+            tree_unflatten(params, list(grads)))
 
 
 def make_train_step(cfg: ArchConfig, optimizer, microbatches: int = 1):
-    """Refused: LM training is not ported (ROADMAP item 15)."""
-    _refuse_training("make_train_step")
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), out of place. With ``microbatches`` > 1 the batch's leading
+    axis is cut into that many microbatches, run one after another; the
+    gradients are summed in f32 and divided by ``microbatches``, and the
+    metrics are loss = the mean total and aux = 0, as the reference
+    reports them."""
+    _check_trainable(cfg, "make_train_step")
+
+    def train_step(params, opt_state, batch):
+        if microbatches > 1:
+            parts = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                  + tuple(v.shape[1:])) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            total = torch.zeros((), dtype=torch.float32,
+                                device=tree_leaves(params)[0].device)
+            for i in range(microbatches):
+                t, _, g = _value_and_grad(params, cfg,
+                                          {k: v[i] for k, v in parts.items()})
+                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                total = total + t
+            grads = tree_map(lambda g: g / microbatches, grads)
+            total = total / microbatches
+            metrics = {"loss": total, "aux": torch.zeros_like(total)}
+        else:
+            total, metrics, grads = _value_and_grad(params, cfg, batch)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, dict(metrics, total=total)
+
+    return train_step
 
 
 # --------------------------------------------------------------- serving ----

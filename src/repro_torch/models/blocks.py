@@ -261,7 +261,9 @@ def xlstm_pair_init(gen, cfg, dtype, *, device):
 def xlstm_pair_block(p, cfg, x, positions):
     del positions
     x = mlstm_apply(p["mlstm"], cfg, x)
-    h, _ = slstm_scan(p["slstm"], rmsnorm(p["sln"], x, cfg.norm_eps), cfg.n_heads)
+    # no final state: the sLSTM's gradient path returns none
+    h, _ = slstm_scan(p["slstm"], rmsnorm(p["sln"], x, cfg.norm_eps), cfg.n_heads,
+                      return_state=False)
     return x + dense(p["sdown"], h).to(x.dtype), _no_aux(x)
 
 

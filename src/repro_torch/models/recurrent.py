@@ -7,7 +7,9 @@ mLSTM cell (xlstm-350m),
     n_t = exp(lf_t) n_{t-1} + k_t              (normalizer)
     h_t = q_t C_t  [/ max(|q_t . n_t|, 1)]
 
-run through the port's mLSTM scan kernel; ``gated_linear_step`` is its
+run through the port's mLSTM scan kernel, and differentiable without a
+final state (``return_state=False``): its gradient runs the mLSTM-scan
+backward kernel; ``gated_linear_step`` is its
 one-token decode in plain tensor ops (the reference computes it outside
 any kernel too), and ``gated_linear_scan_ref`` the sequential oracle.
 

@@ -1,5 +1,11 @@
-from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates, sgd
-from repro_torch.optim.schedules import constant, cosine_decay
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    adamw,
+    apply_updates,
+    global_norm_clip,
+    sgd,
+)
+from repro_torch.optim.schedules import constant, cosine_decay, linear_warmup_cosine
 
-__all__ = ["Optimizer", "adamw", "sgd", "apply_updates", "constant",
-           "cosine_decay"]
+__all__ = ["Optimizer", "adamw", "sgd", "apply_updates", "global_norm_clip",
+           "constant", "cosine_decay", "linear_warmup_cosine"]

@@ -33,6 +33,15 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
+def global_norm_clip(grads, max_norm: float):
+    """(grads scaled so that their global L2 norm is at most ``max_norm``,
+    the norm before scaling), the norm summed in f32 leaf by leaf."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in tree_leaves(grads)))
+    scale = torch.clamp_max(max_norm / (gnorm + 1e-9), 1.0)
+    return tree_map(lambda g: g * scale, grads), gnorm
+
+
 def _zeros_f32(tree):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), tree)

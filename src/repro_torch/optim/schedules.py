@@ -18,3 +18,15 @@ def cosine_decay(base_lr: float, total_steps: int, final_frac: float = 0.1):
         return base_lr * (final_frac + (1 - final_frac) * cos)
 
     return fn
+
+
+def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
+                         final_frac: float = 0.1):
+    cos = cosine_decay(base_lr, max(total_steps - warmup, 1), final_frac)
+
+    def fn(step):
+        s = step.float()
+        warm = base_lr * s / max(warmup, 1)
+        return torch.where(s < warmup, warm, cos(torch.clamp_min(step - warmup, 0)))
+
+    return fn

@@ -2,6 +2,23 @@
 ``tests/test_torch_*.py`` files that run both frameworks)."""
 import jax
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch CPU thread for a module's tests (import it into the test
+    module to apply it there). The port's CPU paths of the recurrent
+    kernels are many small ops, step by step: with six test workers on
+    the same cores, each with a thread a core, their threads contend and
+    such a file runs ten to forty times slower than alone. The thread
+    count is restored after the module."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_perms(key, n_clients: int, n_rows: int) -> np.ndarray:
@@ -524,8 +541,9 @@ BASELINE_PARAM_ATOL = 1e-5
 BASELINE_METRIC_ATOL = 1e-3
 
 
-def baseline_setup(jax_side: bool):
-    """(spec, clients, val, test, ecfg, cfg) of one package."""
+def baseline_setup(jax_side: bool, enc_type: str = "mlp"):
+    """(spec, clients, val, test, ecfg, cfg) of one package; ``enc_type``
+    the encoders' (4 heads of 8 for the recurrent and transformer ones)."""
     if jax_side:
         from repro.core.encoders import EncoderConfig
         from repro.core.federation import FedConfig
@@ -539,11 +557,12 @@ def baseline_setup(jax_side: bool):
     spec = make_task("smnist")
     tr, va, te = train_val_test(spec, 300, 200, 200, seed=0)
     return (spec, partition(tr, 3, seed=1), va, te,
-            EncoderConfig(d_hidden=32, n_layers=2, enc_type="mlp"),
+            EncoderConfig(d_hidden=32, n_layers=2, enc_type=enc_type),
             FedConfig(n_clients=3, rounds=2, lr=1e-2, batch_size=64, seed=0))
 
 
-def baseline_pair(monkeypatch, name, history: bool = False):
+def baseline_pair(monkeypatch, name, history: bool = False,
+                  enc_type: str = "mlp"):
     """One baseline run by both packages from the reference's
     ``init_client_models(PRNGKey(0), ...)`` weights. Returns ((metrics,
     history, final models) of the reference, the same of the port); the
@@ -570,7 +589,7 @@ def baseline_pair(monkeypatch, name, history: bool = False):
             return _evaluate(models, *a, **k)
 
         monkeypatch.setattr(mod, "_evaluate", recording)
-        spec, clients, va, te, ecfg, cfg = baseline_setup(jax_side)
+        spec, clients, va, te, ecfg, cfg = baseline_setup(jax_side, enc_type)
         kw = {"history_test": te} if history else {}
         if jax_side:
             base = jax.tree.map(np.asarray, init_client_models(

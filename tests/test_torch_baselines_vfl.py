@@ -1,7 +1,8 @@
 """The port's VFL baselines and centralized training
 (``repro_torch.core.baselines``: SplitNN, One-Shot VFL, centralized)
 against the reference's on the CPU; the aligned vertical rows bit for
-bit; every baseline's refusal of the encoders training does not run.
+bit; every baseline on the recurrent and transformer encoders, FedMA's
+refusal of them.
 
 Both sides start from the reference's ``init_client_models(PRNGKey(0),
 ...)`` weights and draw the same numpy shuffles. Tolerances: final
@@ -14,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_baseline_close, baseline_pair, baseline_setup
+from _torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
+    assert_baseline_close, baseline_pair, baseline_setup,
+    one_torch_thread,
+)
 from repro_torch.core import baselines as tb
 from repro_torch.core.encoders import EncoderConfig
 
@@ -50,9 +54,21 @@ def test_aligned_vertical_rows_without_fragments():
 @pytest.mark.parametrize("enc_type", ["recurrent", "transformer"])
 @pytest.mark.parametrize("name", sorted(tb.BASELINES))
 def test_non_mlp_encoders_are_refused(name, enc_type):
+    """FedMA refuses the recurrent and transformer encoders, naming the
+    reference's assert; every other baseline trains them (a short CPU
+    run, d_hidden 8, one layer, 4 heads of 2) and returns every metric
+    key, each NaN or in [0, 1]."""
     spec, clients, va, te, _, cfg = baseline_setup(False)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tb.BASELINES[name](torch.Generator(), spec,
-                           EncoderConfig(d_hidden=8, n_layers=1, enc_type=enc_type),
-                           clients, va, te, cfg, device="cpu")
-
+    ecfg = EncoderConfig(d_hidden=8, n_layers=1, enc_type=enc_type)
+    run = lambda: tb.BASELINES[name](torch.Generator(), spec, ecfg, clients, va,
+                                     te, cfg, device="cpu")
+    if name == "fedma":
+        with pytest.raises(NotImplementedError, match="baselines.py:289"):
+            run()
+        return
+    res, hist = run()
+    assert sorted(res) == sorted(f"{m}_{k}" for m in ("multimodal", "uni_a", "uni_b")
+                                 for k in ("auroc", "auprc"))
+    assert hist == []
+    for v in res.values():
+        assert np.isnan(v) or 0.0 <= v <= 1.0

@@ -172,3 +172,29 @@ def test_counted_ms_without_a_launcher_needs_whole_launches_a_call(monkeypatch):
     """A library call (no counter): each name a whole number a call."""
     _fake_profiles(monkeypatch, [[(2000.0, 20, "fmha_bwd"), (50.0, 10, "fill")]])
     assert chip_smoke.counted_ms(lambda: None, iters=10) == pytest.approx(0.205)
+
+
+def test_mlstm_bwd_flops():
+    """The backward's operation count: one chunk has no carried state
+    (only the scores, the in-chunk sums and the row terms); two chunks
+    add each sweep's carried-state products once and its state update
+    once; xlstm-350m's training shape gives the source's 7.16 GFLOP."""
+    one = chip_smoke.mlstm_bwd_flops(1, 1, 64, 8, 4, True)
+    assert one == 64 * 65 * (5 + 8) + 64 * 65 * (16 + 4) + 4 * 64 * 12 + 4 * 64 * 8
+    two = chip_smoke.mlstm_bwd_flops(1, 1, 128, 8, 4, False)
+    assert two == (2 * 64 * 65 * (4 + 8) + 2 * 64 * 65 * 20
+                   + 128 * (4 * 4 * 8 + 2 * 8 * 4) + 4 * 128 * 8)
+    ragged = chip_smoke.mlstm_bwd_flops(1, 1, 70, 8, 4, False)
+    assert ragged == ((64 * 65 + 6 * 7) * 32 + (6 + 64) * (4 * 4 * 8 + 2 * 8 * 4)
+                      + 4 * 70 * 8)
+    assert round(chip_smoke.mlstm_bwd_flops(8, 4, 128, 512, 512, True) / 1e9, 2) == 7.16
+
+
+def test_kernels_of_scales_a_launcher_counter():
+    class Launcher:
+        launches = 5
+
+    scaled = chip_smoke._KernelsOf(Launcher, 3)
+    assert scaled.launches == 15
+    Launcher.launches = 6
+    assert scaled.launches == 18

@@ -22,7 +22,11 @@ against its plain version: 2e-5 in f32 and 2e-2 in bf16, the reference's
 kernel-test tolerances. The mLSTM scan's h and final (C, n) against the
 step recurrence: within ``mlstm_error_bound`` (atol 1e-5 plus 1e-4 of the
 row's largest value: dot products of dk terms summed in another order,
-the decay factored per chunk). The sLSTM from a running state: output
+the decay factored per chunk). The mLSTM backward kernel against the
+plain step-by-step backward, fed the same h: within
+``mlstm_grad_error_bound`` (atol 1e-5 plus 1e-4 of the row's largest
+gradient; for dq, of its row's largest summand, as dq is a difference of
+two larger terms). The sLSTM from a running state: output
 and final state within ``slstm_error_bound``. The reduced xlstm through
 ``serve_lm`` on the card against the CPU: logits within 1e-3, as every
 reduced family's. The flash kernel's logit cap against the plain
@@ -1079,3 +1083,75 @@ def test_slstm_bwd_plan_matches_the_kernel_on_card(b, n_heads, hd):
     got, budget, active = bwd.kernel_plan(b, n_heads, hd)
     assert got == bwd.plan(b, n_heads, hd, budget)
     assert budget >= 1 and active >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dk,dv,normalize", [
+    (1, 2, 150, 64, 64, True),     # two chunks and a ragged tail
+    (1, 2, 150, 64, 64, False),
+    (2, 3, 37, 16, 24, True),      # one ragged chunk, dv + 1 < 64 columns
+    (2, 4, 128, 512, 512, True),   # xlstm-350m's heads (dv + 1 = 513: 17 tiles)
+    (2, 25, 256, 16, 64, False),   # hymba's Mamba heads
+    (1, 1, 70, 8, 130, True),      # three column blocks, the last ragged
+])
+def test_mlstm_bwd_kernel_matches_plain_on_card(b, h, s, dk, dv, normalize):
+    """The backward kernel's dq, dk, dv and dlog_f within
+    mlstm_grad_error_bound of the plain backward on the same inputs, h
+    among them (1e-5 plus 1e-4 of the row's largest |gradient|; for dq,
+    of its row's largest summand), one launch counted a call; a repeat
+    gives the same bits (no atomics)."""
+    _skip_without_card()
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as bwd
+    from repro_torch.kernels.mlstm_scan.ref import (mlstm_grad_error_bound,
+                                                    mlstm_scan_bwd_ref)
+
+    q, k, v, lf = _mlstm_inputs(b, h, s, dk, dv, seed=s + dk + dv)
+    dh = torch.randn(b, h, s, dv, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(s))
+    out = mlstm_scan_ref(q, k, v, lf, normalize=normalize)
+    before = bwd.launches
+    got = bwd.mlstm_scan_bwd_cuda(q, k, v, lf, out, dh, normalize=normalize)
+    again = bwd.mlstm_scan_bwd_cuda(q, k, v, lf, out, dh, normalize=normalize)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2
+    want, dq_scale = mlstm_scan_bwd_ref(q, k, v, lf, dh, h=out, normalize=normalize,
+                                        dq_scale=True)
+    for name, g, a, w in zip(("dq", "dk", "dv", "dlog_f"), got, again, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        assert torch.equal(g, a), name
+        err = (g - w).abs()
+        bound = mlstm_grad_error_bound(w, dq_scale if name == "dq" else None)
+        assert bool((err <= bound).all()), (name, float(err.max()))
+
+
+@pytest.mark.cuda
+def test_mlstm_scan_with_grad_on_card_has_grad_fn():
+    """Fault (m): a CUDA scan that wants a gradient goes through
+    MLSTMScanFn (the forward and backward kernels, one launch each) and
+    its gradients match the plain backward's; what the backward does not
+    take refuses, naming ROADMAP item 15b."""
+    _skip_without_card()
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as bwd
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.kernels.mlstm_scan.ref import (mlstm_grad_error_bound,
+                                                    mlstm_scan_bwd_ref)
+
+    q, k, v, lf = _mlstm_inputs(2, 2, 100, 32, 32, seed=11)
+    xs = [x.clone().requires_grad_() for x in (q, k, v, lf)]
+    f0, b0 = mlstm_launcher.launches, bwd.launches
+    out = mlstm_scan(*xs)
+    assert out.grad_fn is not None and "MLSTMScanFn" in type(out.grad_fn).__name__
+    w = torch.randn_like(out)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (mlstm_launcher.launches, bwd.launches) == (f0 + 1, b0 + 1)
+    want, dq_scale = mlstm_scan_bwd_ref(q, k, v, lf, w, h=out.detach(),
+                                        dq_scale=True)
+    for i, (x, g) in enumerate(zip(xs, want)):
+        err = (x.grad - g).abs()
+        bound = mlstm_grad_error_bound(g, dq_scale if i == 0 else None)
+        assert bool((err <= bound).all()), float(err.max())
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        mlstm_scan(*xs, return_state=True)
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        mlstm_scan(*[x.detach().half().requires_grad_() for x in xs])

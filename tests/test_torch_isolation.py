@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.core.baselines", "repro_torch.launch.serve",
               "repro_torch.models.attention", "repro_torch.models.rope",
               "repro_torch.models.mlp", "repro_torch.models.moe",
-              "repro_torch.models.frontends"):
+              "repro_torch.models.frontends", "repro_torch.launch.train",
+              "repro_torch.kernels.mlstm_scan.mlstm_scan_bwd",
+              "repro_torch.optim.schedules"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -121,6 +123,10 @@ def test_entry_points_need_cuda_without_device():
         backbone.init_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):  # the LM driver's default
         serve_lm.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    from repro_torch.launch import train as train_lm
+
+    with pytest.raises(RuntimeError, match="CUDA"):  # the LM trainer's default
+        train_lm.main(["--steps", "1", "--batch", "1", "--seq", "2"])
     from repro_torch.core.federation_sharded import ShardedFedSpec, init_round_state
     from repro_torch.launch import train_federated
 
@@ -168,7 +174,8 @@ def test_missing_nvcc_raises(monkeypatch):
 
     assert [p.name for p in _build.sources()] == [
         "blendavg.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "mlstm_scan.cu", "slstm_cell.cu", "slstm_cell_bwd.cu", "wire_codec.cu"]
+        "mlstm_scan.cu", "mlstm_scan_bwd.cu", "slstm_cell.cu",
+        "slstm_cell_bwd.cu", "wire_codec.cu"]
     assert [p.name for p in _build.headers()] == [
         "cluster.cuh", "cp_async.cuh", "tf32_mma.cuh"]
     monkeypatch.delenv("CUDA_HOME", raising=False)
