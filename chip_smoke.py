@@ -211,10 +211,35 @@ outside a checkout. Phases, each fatal on failure:
    resumed losses within LOSS_RTOL of the uninterrupted run's, exactly
    12 launches a step of each of the mLSTM scan, its backward, the sLSTM
    cell and its backward; ms a step, peak memory, a profiled step;
-28. xlstm-350m training card against CPU: 2 of its 12 layer pairs at
-   full width, the loss and every gradient of a 2 x 128 batch, then 3
+28. xlstm-350m training card against CPU: 1 of its 12 layer pairs at
+   full width (2 before phases 29-32 came), the loss and every gradient of a 2 x 128 batch, then 3
    AdamW steps (losses, moments, parameters; tolerances at
-   TRAIN_GRAD_REL).
+   TRAIN_GRAD_REL);
+29. flash backward against plain at the attention families' training
+   shapes (FLASH_BWD_LM_CASES: grouped K/V heads at G 3, 5, 6, 9,
+   hymba's window of 1024 at 2 x 2048 tokens, qwen2-vl's 1152 positions,
+   stablelm's d = 80, whisper's cross attention, a logit cap of 50):
+   the forward's lse against plain, dq, dk, dv within
+   ``flash_grad_error_bound``, two calls bit for bit, then timed beside
+   the plain backward, the bound and SDPA's memory-efficient backward;
+30. full-width hymba-1.5b training through ``launch/train.py`` (32
+   layers, d 1600, 2 x 2048 tokens, ``chip_smoke.py --train-child DIR
+   hymba-1.5b``): 12 AdamW steps checkpointed every 6 (about 17 GB a
+   checkpoint, the free disk printed first), resumed from step 6, finite
+   losses, the resumed losses within LOSS_RTOL, exactly
+   ``train_launches`` a step (flash 32, its backward 64 kernels, the
+   mLSTM scan 32, its backward 32 calls); ms a step, tokens/s, peak
+   memory, a profiled step;
+31. the other attention families' training at full width
+   (FAMILY_TRAIN_RUNS: qwen2-vl-2b and whisper-medium whole,
+   phi4-mini-3.8b at 8 layers on 8 x 128 tokens, stablelm-3b at 4,
+   starcoder2-7b and deepseek-moe-16b at 2): 3 AdamW steps each, finite
+   losses, ``train_launches`` a step, ms a step, peak memory;
+32. every attention family's training card against CPU
+   (CARD_CPU_TRAIN: narrow widths keeping each family's group G, hymba's
+   window binding, 2 layers, 2 x 128 tokens): the loss and every
+   gradient, then 3 AdamW steps, at phase 28's tolerances, MoE routers'
+   choices equal.
 
 Phases 10 and 13 also hold the kernels against their plain versions at
 the language models' shapes (FLASH_LM_CASES, a logit cap; MLSTM_HYMBA)
@@ -3518,26 +3543,83 @@ MLSTM_BWD_HYMBA = (2, 25, 2048, 16, 64, False)
 # the run resumed from step 10. The kernels a step launches at one
 # microbatch: one forward and one backward of each cell a layer pair.
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 20, 10, 8, 128
-TRAIN_ARGS = ["--arch", "xlstm-350m", "--full", "--batch", str(TRAIN_BATCH),
-              "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-              "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "5",
-              "--device", "cuda"]
-TRAIN_LAUNCHES = {"mlstm_scan": 12, "mlstm_scan_bwd": 12, "slstm_cell": 12,
+TRAIN_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
+                  "mlstm_scan": 12, "mlstm_scan_bwd": 12, "slstm_cell": 12,
                   "slstm_cell_bwd": 12}
-# Phase 28: training card against CPU, 2 of xlstm-350m's 12 layer pairs
+# Phase 30: hymba-1.5b the same way at full width and depth (32 layers,
+# d 1600), 2 x 2048 tokens (its window of 1024 binds), 12 steps
+# checkpointed every 6 (parameters and two moments, about 17 GB a
+# checkpoint), then resumed from step 6. A step launches the flash
+# forward and the mLSTM scan (the Mamba heads) once a layer, and their
+# backwards once a layer: kernels_a_call(2048, 2048, 5) = 2 flash
+# backward kernels, counted each, and one mLSTM backward call of
+# kernel_launches(False) = 2 kernels, counted once (``train_launches``).
+HYMBA_STEPS, HYMBA_CKPT_EVERY, HYMBA_BATCH, HYMBA_SEQ = 12, 6, 2, 2048
+TRAIN_RUNS = {
+    "xlstm-350m": dict(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                       batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       match=("mlstm_kernel", "mlstm_bwd", "slstm_kernel",
+                              "slstm_bwd_kernel", "gemm")),
+    "hymba-1.5b": dict(steps=HYMBA_STEPS, ckpt_every=HYMBA_CKPT_EVERY,
+                       batch=HYMBA_BATCH, seq=HYMBA_SEQ,
+                       match=("flash_kernel", "dq_kernel", "dkv_kernel",
+                              "mlstm_kernel", "mlstm_bwd", "gemm")),
+}
+
+# Phase 28: training card against CPU, 1 of xlstm-350m's 12 layer pairs
 # at full width, 2 x 128 tokens, 3 steps of the CLI's AdamW. Gradients
 # and the moments (sums of gradients) within TRAIN_GRAD_REL of each
 # leaf's largest |value|: f32 sums in other orders (cuBLAS against the
 # CPU's GEMMs at K = 1024-4096, the kernels' chunkwise and 3xTF32 sums
-# against the plain step recurrences), through 4 layers and back, as
+# against the plain step recurrences), through 2 layers and back, as
 # LM_CPU_TOL holds the logits. Parameters within ADAM_STEP_BOUND times
 # the summed learning rates: AdamW divides by sqrt(v) + 1e-8, so an
 # entry whose gradient lies within that noise of 0 takes a step whose
 # sign the noise decides, and in the first steps |m^ / sqrt(v^)| is at
 # most 1.01 (by Cauchy-Schwarz over the bias-corrected weights).
-TRAIN_CPU_LAYERS = 4
+TRAIN_CPU_LAYERS = 2
 TRAIN_GRAD_REL = 1e-3
 ADAM_STEP_BOUND = 2.02
+
+
+def train_args(arch: str) -> list:
+    """The CLI's arguments of TRAIN_RUNS[arch], at full width and depth."""
+    run = TRAIN_RUNS[arch]
+    return ["--arch", arch, "--full", "--batch", str(run["batch"]),
+            "--seq", str(run["seq"]), "--steps", str(run["steps"]),
+            "--ckpt-every", str(run["ckpt_every"]), "--log-every", "2",
+            "--device", "cuda"]
+
+
+def train_launches(cfg, seq: int, patches: int = 0, frames: int = 0) -> dict:
+    """{kernel: launches} of one training pass (forward and backward) of
+    ``cfg`` at ``seq`` text tokens (after ``patches`` vision patches;
+    ``frames`` encoder frames), as each launcher counts them: one flash
+    forward an attention and ``kernels_a_call(Sq, Sk, G)`` backward
+    kernels (the flash backward's counter counts kernels); a hybrid
+    layer's Mamba heads one mLSTM scan and one call of its backward (the
+    mLSTM backward's counter counts calls, of ``kernel_launches`` kernels
+    each); an xLSTM pair one mLSTM scan, one sLSTM cell and one call of
+    each backward."""
+    from repro_torch.kernels.flash_attention.flash_attention_bwd import (
+        kernels_a_call)
+
+    out = dict.fromkeys(TRAIN_LAUNCHES, 0)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if cfg.block_type == "xlstm_pair":
+        n = cfg.n_layers // 2
+        return dict(out, mlstm_scan=n, mlstm_scan_bwd=n, slstm_cell=n,
+                    slstm_cell_bwd=n)
+    if cfg.is_encdec:  # encoder self, decoder self, cross
+        attns = ([(frames, frames)] * cfg.n_enc_layers
+                 + [(seq, seq), (seq, frames)] * cfg.n_layers)
+    else:
+        attns = [(patches + seq, patches + seq)] * cfg.n_layers
+    out["flash_attention"] = len(attns)
+    out["flash_attention_bwd"] = sum(kernels_a_call(a, b, g) for a, b in attns)
+    if cfg.block_type == "hybrid":
+        out["mlstm_scan"] = out["mlstm_scan_bwd"] = cfg.n_layers
+    return out
 
 
 class _KernelsOf:
@@ -3695,12 +3777,15 @@ def mlstm_bwd_phase(torch, mlaunch, mbwd, mref, mem_rate) -> tuple:
     return worst, errs, times
 
 
-def train_child(workdir: str) -> int:
-    """Phase 27's child process (``chip_smoke.py --train-child DIR``):
-    ``launch/train.py`` at full width and depth, TRAIN_STEPS steps
-    checkpointed every TRAIN_CKPT_EVERY into DIR, then the run stopped at
-    its first checkpoint (the later one removed) and resumed by a second
-    invocation; then one more step profiled. Writes DIR/train.json."""
+def train_child(workdir: str, arch: str = "xlstm-350m") -> int:
+    """Phases 27 and 30's child process (``chip_smoke.py --train-child DIR
+    [ARCH]``): ``launch/train.py`` at full width and depth as TRAIN_RUNS
+    [ARCH] sets it, checkpointed into DIR, then the run stopped at its
+    first checkpoint (the later one removed) and resumed by a second
+    invocation, which writes no checkpoint of its own (the first run's
+    writes are the ones timed and sized); then one more step profiled.
+    Prints the free disk before the first checkpoint and the
+    checkpoints' size. Writes DIR/train.json."""
     sys.path.insert(0, str(ROOT / "src"))
     import os
     import shutil
@@ -3712,26 +3797,38 @@ def train_child(workdir: str) -> int:
     from repro_torch.launch import train
     from repro_torch.models import backbone as bb
 
+    run = TRAIN_RUNS[arch]
+    args = train_args(arch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ckpt = os.path.join(workdir, "ckpt")
+    print(f"disk free under {workdir}: {shutil.disk_usage(workdir).free / 1e9:.1f} GB",
+          flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    full = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+    full = train.main(args + ["--ckpt-dir", ckpt])
     full_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}"))
+    last = os.path.join(ckpt, f"step_{run['steps']:08d}")
+    ckpt_gb = sum(e.stat().st_size for e in os.scandir(last)) / 1e9
+    print(f"checkpoint: {ckpt_gb:.2f} GB a step; disk free "
+          f"{shutil.disk_usage(workdir).free / 1e9:.1f} GB", flush=True)
+    shutil.rmtree(last)
+    cfg, full_hist = full["cfg"], full["history"]
+    del full  # its state: the resumed run needs the card's memory
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    resumed = train.main(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+    resumed = train.main(args + ["--ckpt-dir", ckpt, "--ckpt-every",
+                                 str(run["steps"] + 1)])
     resumed_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
     # where a step's time goes: one more step from the run's final state
-    cfg, params, state = full["cfg"], full["params"], full["opt_state"]
-    del resumed["params"], resumed["opt_state"]
+    params, state = resumed.pop("params"), resumed.pop("opt_state")
     opt = optim.adamw(optim.linear_warmup_cosine(3e-4, warmup=10,
-                                                 total_steps=TRAIN_STEPS))
+                                                 total_steps=run["steps"]))
     step_fn = bb.make_train_step(cfg, opt)
     batch = {k: torch.from_numpy(v).cuda() for k, v in train.build_batch(
-        cfg, TRAIN_BATCH, TRAIN_SEQ, np.random.default_rng(1)).items()}
+        cfg, run["batch"], run["seq"], np.random.default_rng(1)).items()}
 
     def one():
         step_fn(params, state, batch)
@@ -3742,153 +3839,460 @@ def train_child(workdir: str) -> int:
     one()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    bd = device_breakdown(one, wall, top=8, match=(
-        "mlstm_kernel", "mlstm_bwd", "slstm_kernel", "slstm_bwd_kernel", "gemm"))
+    bd = device_breakdown(one, wall, top=8, match=run["match"])
     out = {"n_params": sum(x.numel() for x in tree_leaves(params)),
-           "full": full["history"], "resumed": resumed["history"],
+           "full": full_hist, "resumed": resumed["history"],
            "resumed_start": resumed["start"], "full_s": full_s,
-           "resumed_s": resumed_s, "peak_gb": peak / 1e9,
-           "step_wall_ms": wall * 1e3, "breakdown": bd}
+           "resumed_s": resumed_s, "peak_gb": peak / 1e9, "ckpt_gb": ckpt_gb,
+           "step_wall_ms": wall * 1e3, "breakdown": bd,
+           "launches_a_step": train_launches(cfg, run["seq"])}
     with open(os.path.join(workdir, "train.json"), "w") as f:
         json.dump(out, f)
     return 0
 
 
-def train_on_card() -> dict:
-    """Phase 27: ``train_child`` in a child process; its history is held
-    here: steps 1..TRAIN_STEPS, then TRAIN_CKPT_EVERY + 1 .. TRAIN_STEPS
-    after the resume, finite losses, exactly TRAIN_LAUNCHES a step in both
-    runs, the resumed losses within LOSS_RTOL of the uninterrupted run's
-    (the embedding's backward sums its rows with atomics, so the two runs
-    need not agree bit for bit on the card)."""
+def train_on_card(arch: str = "xlstm-350m") -> dict:
+    """Phases 27 and 30: ``train_child`` in a child process; its history
+    is held here: steps 1..steps, then ckpt_every + 1 .. steps after the
+    resume, finite losses, exactly ``train_launches`` a step in both runs,
+    the resumed losses within LOSS_RTOL of the uninterrupted run's (the
+    embedding's backward sums its rows with atomics, so the two runs need
+    not agree bit for bit on the card)."""
     import os
     import tempfile
 
+    run = TRAIN_RUNS[arch]
+    steps, every = run["steps"], run["ckpt_every"]
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
         proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--train-child", workdir], cwd=ROOT,
+                               "--train-child", workdir, arch], cwd=ROOT,
                               capture_output=True, text=True, timeout=900)
         lines = proc.stdout.splitlines()
-        print("\n".join(ln for ln in lines if ln.startswith(("arch=", "step ",
-                                                             "restored"))))
+        print("\n".join(ln for ln in lines if ln.startswith(
+            ("arch=", "step ", "restored", "disk free", "checkpoint:"))))
         check(proc.returncode == 0, f"the training child failed ({proc.returncode}):"
               "\n" + "\n".join(lines[-30:]) + proc.stderr[-3000:])
         with open(os.path.join(workdir, "train.json")) as f:
             res = json.load(f)
     full, resumed = res["full"], res["resumed"]
-    check([r["step"] for r in full] == list(range(1, TRAIN_STEPS + 1))
-          and [r["step"] for r in resumed]
-          == list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1))
-          and res["resumed_start"] == TRAIN_CKPT_EVERY, "training steps")
+    want_launches = res["launches_a_step"]
+    check([r["step"] for r in full] == list(range(1, steps + 1))
+          and [r["step"] for r in resumed] == list(range(every + 1, steps + 1))
+          and res["resumed_start"] == every, "training steps")
     check(all(np.isfinite(r["loss"]) for r in full + resumed), "training losses")
-    bad = [r for r in full + resumed if r["launches"] != TRAIN_LAUNCHES]
-    check(not bad, f"launches a step {bad[:2]}, want {TRAIN_LAUNCHES}")
-    want = np.asarray([r["loss"] for r in full[TRAIN_CKPT_EVERY:]])
+    bad = [r for r in full + resumed if r["launches"] != want_launches]
+    check(not bad, f"launches a step {bad[:2]}, want {want_launches}")
+    want = np.asarray([r["loss"] for r in full[every:]])
     got = np.asarray([r["loss"] for r in resumed])
     gap = float(np.max(np.abs(got - want) / np.abs(want)))
     check(gap <= LOSS_RTOL, f"resumed losses {got} against {want}")
     secs = [r["seconds"] for r in full[1:]]
+    tokens = run["batch"] * run["seq"]
     bd = res["breakdown"]
     out = {"params": res["n_params"], "ms_a_step_median": float(np.median(secs)) * 1e3,
            "ms_a_step_mean": float(np.mean(secs)) * 1e3,
            "first_step_ms": full[0]["seconds"] * 1e3,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.median(secs)),
-           "peak_gb": res["peak_gb"], "losses": [r["loss"] for r in full],
+           "tokens_per_s": tokens / float(np.median(secs)),
+           "peak_gb": res["peak_gb"], "ckpt_gb": res["ckpt_gb"],
+           "losses": [r["loss"] for r in full],
            "resumed_losses": got.tolist(), "resumed_rel_gap": gap,
-           "launches_a_step": TRAIN_LAUNCHES,
-           "launches": {k: sum(r["launches"][k] for r in full) for k in TRAIN_LAUNCHES},
+           "launches_a_step": want_launches,
+           "launches": {k: sum(r["launches"][k] for r in full) for k in want_launches},
            "run_s": res["full_s"], "resumed_run_s": res["resumed_s"],
            "step_wall_ms": res["step_wall_ms"], "breakdown": bd}
-    print(f"xlstm-350m training ({res['n_params']} parameters, {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens a step): {out['ms_a_step_median']:.2f} ms a step "
-          f"(median of steps 2-{TRAIN_STEPS}; mean {out['ms_a_step_mean']:.2f}, "
+    print(f"{arch} training ({res['n_params']} parameters, {run['batch']} x "
+          f"{run['seq']} tokens a step): {out['ms_a_step_median']:.2f} ms a step "
+          f"(median of steps 2-{steps}; mean {out['ms_a_step_mean']:.2f}, "
           f"step 1 {out['first_step_ms']:.1f}), {out['tokens_per_s']:.0f} tokens/s; "
           f"peak memory {res['peak_gb']:.3f} GB; losses {full[0]['loss']:.4f} -> "
-          f"{full[-1]['loss']:.4f}; resumed from step {TRAIN_CKPT_EVERY}: losses "
-          f"within {gap:.3g} (rtol {LOSS_RTOL}); launches a step {TRAIN_LAUNCHES}; "
-          f"runs {res['full_s']:.1f} s and {res['resumed_s']:.1f} s with checkpoints")
-    print_breakdown("a training step (profiled)", bd)
+          f"{full[-1]['loss']:.4f}; resumed from step {every}: losses "
+          f"within {gap:.3g} (rtol {LOSS_RTOL}); launches a step {want_launches}; "
+          f"runs {res['full_s']:.1f} s and {res['resumed_s']:.1f} s with checkpoints "
+          f"of {res['ckpt_gb']:.2f} GB")
+    print_breakdown(f"a {arch} training step (profiled)", bd)
     for m, v in bd["matched"].items():
         print(f"    {m}: {v['ms']:.3f} ms in {v['calls']} launches")
     return out
 
 
-def train_card_vs_cpu(torch, counted) -> dict:
-    """Phase 28: xlstm-350m at TRAIN_CPU_LAYERS layers (2 of its 12 pairs),
-    full width, from the same weights (seed 0, drawn on the CPU) on the
-    card and on the CPU: the loss and every gradient of one batch of 2 x
-    128 tokens, then 3 steps of the CLI's AdamW (``make_train_step``):
-    losses, moments and parameters (tolerances above); on the card one
-    launch of each cell's forward and backward kernel a layer pair a
-    pass."""
+# ------------------------------------------------------ LM training (15b) --
+
+# Phase 29: the flash backward against the plain backward at the
+# attention families' training shapes, (B, Hq, Hkv, Sq, Sk, d, causal,
+# window, softcap): phi4-mini's (8 x 128 tokens), hymba's (2 x 2048, its
+# window of 1024), qwen2-vl's (1024 patches + 128 tokens), starcoder2's,
+# stablelm's (d = 80: the KD = 128 instance), whisper's cross attention
+# (128 decoder queries against 64 frames), and phi4-mini's with a logit
+# cap of 50 (no config sets one; the reference takes it).
+FLASH_BWD_LM_CASES = (
+    ("phi4-mini", (8, 24, 8, 128, 128, 128, True, 0, 0.0)),
+    ("hymba", (2, 25, 5, 2048, 2048, 64, True, 1024, 0.0)),
+    ("qwen2-vl", (2, 12, 2, 1152, 1152, 128, True, 0, 0.0)),
+    ("starcoder2", (2, 36, 4, 128, 128, 128, True, 0, 0.0)),
+    ("stablelm", (2, 32, 32, 128, 128, 80, True, 0, 0.0)),
+    ("whisper cross", (2, 16, 16, 128, 64, 64, False, 0, 0.0)),
+    ("phi4-mini softcap 50", (8, 24, 8, 128, 128, 128, True, 0, 50.0)),
+)
+
+
+def flash_bwd_lm_bound_ms(case, mem_rate) -> dict:
+    """The backward's bound at ``case``: q, out, dout and the lse read
+    once, k and v read once at K/V-head width, dq, dk and dv written once,
+    over the memory rate; and the five products' 2 d operations for each
+    visible (query, key) pair of each query head (the masks decide how
+    many: this run's work, not the full S^2), at the 3xTF32 rate (495 / 3
+    TFLOP/s, the least for f32 data) and at SIMT f32 (67), the engine the
+    two kernels run them on."""
+    b, hq, hkv, sq, sk, d, causal, window, _ = case
+    nbytes = 4 * (b * hq * sq * (4 * d + 1) + b * hkv * sk * 4 * d)
+    ops = 10 * d * visible_pairs(sq, sk, causal, window) * b * hq
+    bytes_ms = nbytes / mem_rate * 1e3
+    tc_ms, simt_ms = ops / (TF32_OPS_PER_S / 3) * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, tc_ms),
+            "bound_by": "bytes" if bytes_ms >= tc_ms else "operations",
+            "bound_ms_simt": max(bytes_ms, simt_ms), "gflop": ops / 1e9,
+            "mbytes": nbytes / 1e6}
+
+
+def flash_bwd_phase(torch, flaunch, fbwd, fref, mem_rate) -> dict:
+    """Phase 29: at each FLASH_BWD_LM_CASES shape, the forward with its
+    lse against the plain forward, then the backward kernels against the
+    plain backward on the same inputs within ``flash_grad_error_bound``
+    and two calls equal bit for bit; timed (CUDA events and device time,
+    inputs rotated over ROTATE_BYTES) beside the plain backward, the
+    bound and SDPA's memory-efficient backward (K/V repeated to the query
+    heads in its graph, as that kernel takes no grouped heads, and the
+    repeat's backward summing dk and dv; a window as a boolean mask; no
+    logit cap, so none at the capped case): a yardstick, timed here and
+    never on the path. Returns {label: record}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    F = torch.nn.functional
+    out = {}
+    for label, case in FLASH_BWD_LM_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, softcap = case
+        form = dict(causal=causal, window=window, softcap=softcap)
+        group = hq // hkv
+
+        def make(seed=sq + d + hq):
+            q, k, v = flash_inputs(torch, b, hq, hkv, sq, sk, d, seed=seed)
+            o, lse = flaunch.flash_attention_cuda(q, k, v, return_lse=True, **form)
+            dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+                (b, hq, sq, d), np.float32)).cuda()
+            return [q, k, v, o, dout, lse]
+
+        xs = make()
+        q, k, v, o, dout, lse = xs
+        want_o, want_lse = fref.flash_attention_ref(q, k, v, return_lse=True, **form)
+        tol = fref.TOL[torch.float32]
+        fin = torch.isfinite(want_lse)
+        check(torch.equal(fin, torch.isfinite(lse))
+              and bool(((o - want_o).abs() <= tol + tol * want_o.abs()).all())
+              and bool(((lse - want_lse)[fin].abs()
+                        <= tol + tol * want_lse[fin].abs()).all()),
+              f"flash forward with lse at {label} {case}: beyond {tol}")
+        del want_o, want_lse
+        before = fbwd.launches
+        got = fbwd.flash_attention_bwd_cuda(*xs, **form)
+        again = fbwd.flash_attention_bwd_cuda(*xs, **form)
+        torch.cuda.synchronize()
+        n = fbwd.kernels_a_call(sq, sk, group)
+        check(fbwd.launches - before == 2 * n,
+              f"flash backward at {label}: {fbwd.launches - before} launches, "
+              f"want {2 * n}")
+        want = fref.flash_attention_bwd_ref(*xs, **form)
+        errs, shares = {}, {}
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            err = (g - w).abs()
+            bound = fref.flash_grad_error_bound(w)
+            check(g.shape == w.shape and bool(torch.isfinite(g).all())
+                  and bool((err <= bound).all()),
+                  f"flash backward {name} at {label} {case} beyond its bound: max "
+                  f"err {float(err.max())}")
+            check(torch.equal(g, a), f"flash backward {name} at {label}: two calls "
+                                     "differ")
+            errs[name] = float(err.max())
+            shares[name] = float((err / bound).max())
+        del got, again, want
+        torch.cuda.empty_cache()
+        per_set = sum(x.numel() for x in xs) * 4
+        nxt = rotation(make, per_set)
+
+        def kern():
+            return fbwd.flash_attention_bwd_cuda(*nxt(), **form)
+
+        def plain():
+            return fref.flash_attention_bwd_ref(*nxt(), **form)
+
+        t = {"shape": list(case[:6]), "causal": causal, "window": window,
+             "softcap": softcap, "kernels_a_call": n, "max_abs_err": errs,
+             "share_of_bound": shares, "deterministic": True,
+             "ms": cuda_time_ms(kern, iters=10, warmup=2),
+             "device_ms": counted_ms(kern, iters=5, label=f"flash bwd {label}",
+                                     launcher=fbwd, symbols=FLASH_BWD_SYMBOLS),
+             "plain_ms": cuda_time_ms(plain, iters=3, warmup=1)}
+        t.update(flash_bwd_lm_bound_ms(case, mem_rate))
+        t["library_ms"] = t["library_device_ms"] = t["library_max_abs_err"] = None
+        if not softcap:  # SDPA takes no logit cap
+            mask = (torch.from_numpy(visible_mask(sq, sk, causal, window)).cuda()
+                    if window > 0 or (causal and sq != sk) else None)
+            qg, kg, vg = (x.detach().requires_grad_() for x in xs[:3])
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                # the memory-efficient kernel takes one K/V head a query
+                # head: K/V repeated in the graph, whose backward sums dk
+                # and dv over each group (timed with SDPA's)
+                lo = F.scaled_dot_product_attention(
+                    qg, kg.repeat_interleave(group, 1), vg.repeat_interleave(group, 1),
+                    attn_mask=mask, is_causal=causal and mask is None)
+            check("EfficientAttention" in lo.grad_fn.name(),
+                  f"SDPA took {lo.grad_fn.name()}, not the memory-efficient kernel")
+
+            def library():
+                return torch.autograd.grad(lo, (qg, kg, vg), dout, retain_graph=True)
+
+            lib = library()
+            w_plain = fref.flash_attention_bwd_ref(*xs, **form)
+            t["library_max_abs_err"] = max(float((g - w).abs().max())
+                                           for g, w in zip(lib, w_plain))
+            del lib, w_plain
+            t["library_ms"] = cuda_time_ms(library, iters=10, warmup=2)
+            t["library_device_ms"] = counted_ms(library, iters=5,
+                                                label=f"SDPA backward {label}")
+            del lo, qg, kg, vg
+        print(f"flash backward, {label} {case}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']} ms, {n} kernels a call), plain {t['plain_ms']:.3f} "
+              f"ms, SDPA efficient backward "
+              f"{None if t['library_ms'] is None else round(t['library_ms'], 4)} ms "
+              f"(device {t['library_device_ms']}, max abs diff to plain "
+              f"{t['library_max_abs_err']}); bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB; "
+              f"{t['bound_ms_simt']:.4f} ms on SIMT f32); kernel at "
+              f"{t['bound_ms'] / t['ms']:.3f} / {t['bound_ms_simt'] / t['ms']:.3f} "
+              f"of them; max abs err {errs}, share of the bound {shares}; two "
+              f"calls bit for bit")
+        out[label] = t
+        del xs, nxt
+        torch.cuda.empty_cache()
+    return out
+
+
+# Phase 31: the other attention families at full width, 3 AdamW steps
+# each (the CLI's optimizer and batches), at the depth the training state
+# (16 B a parameter: parameters, gradients, two moments) leaves room for
+# on an 80 GB card with about 10 GB for activations and AdamW's
+# out-of-place copies: (config, layers (None: all), batch, text tokens).
+# qwen2-vl's batches carry its 1024 patches, whisper's its 64 frames.
+# nemotron-4-15b (one full-width layer and its 256k vocabulary already
+# about 56 GB before AdamW's copies) and dbrx-132b (72 GB) train only in
+# phase 32.
+FAMILY_TRAIN_RUNS = (
+    ("qwen2_vl_2b", None, 2, 128),
+    ("whisper_medium", None, 2, 128),
+    ("stablelm_3b", 4, 2, 128),
+    ("phi4_mini_3p8b", 8, 8, 128),
+    ("starcoder2_7b", 2, 2, 128),
+    ("deepseek_moe_16b", 2, 2, 128),
+)
+FAMILY_TRAIN_STEPS = 3
+
+
+def family_training(torch, counted) -> dict:
+    """Phase 31: each FAMILY_TRAIN_RUNS model from random weights (seed
+    0, drawn on the card), FAMILY_TRAIN_STEPS steps of ``make_train_step``
+    with the CLI's AdamW on ``launch/train.py``'s batches: finite losses,
+    ``train_launches`` a step, ms a step (the last steps), tokens/s, peak
+    memory."""
     from repro_torch import optim
-    from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.common.tree import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.launch.train import build_batch
     from repro_torch.models import backbone as bb
 
-    cfg = get_config("xlstm_350m").replace(n_layers=TRAIN_CPU_LAYERS)
-    pairs = TRAIN_CPU_LAYERS // 2
+    runs = {}
+    for name, layers, batch, seq in FAMILY_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        cfg = cut_cfg(get_config(name), layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = bb.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                device="cuda")
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        opt = optim.adamw(optim.linear_warmup_cosine(3e-4, warmup=10,
+                                                     total_steps=FAMILY_TRAIN_STEPS))
+        step_fn = bb.make_train_step(cfg, opt)
+        state = opt.init(params)
+        rng = np.random.default_rng(0)
+        patches = cfg.vision_tokens if cfg.frontend == "vision_stub" else 0
+        want = train_launches(cfg, seq, patches=patches, frames=64)
+        losses, secs = [], []
+        for _ in range(FAMILY_TRAIN_STEPS):
+            b = {k: torch.from_numpy(v).cuda()
+                 for k, v in build_batch(cfg, batch, seq, rng).items()}
+            for m in counted.values():
+                m.launches = 0
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            params, state, metrics = step_fn(params, state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ts)
+            losses.append(float(metrics["loss"]))
+            got = {k: m.launches for k, m in counted.items()}
+            check(got == dict.fromkeys(counted, 0) | want,
+                  f"{cfg.name} training launches {got}, want {want}")
+        check(all(np.isfinite(x) for x in losses), f"{cfg.name} losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        tokens = batch * (seq + patches)
+        ms = float(np.median(secs[1:])) * 1e3
+        runs[cfg.name] = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+                          "params": n_params, "batch": batch, "seq": seq,
+                          "patches": patches, "ms_a_step": ms,
+                          "first_step_ms": secs[0] * 1e3,
+                          "tokens_per_s": tokens / ms * 1e3,
+                          "peak_gb": peak / 1e9, "losses": losses,
+                          "launches_a_step": want,
+                          "phase_s": time.perf_counter() - t0}
+        print(f"{cfg.name} training at {cfg.n_layers} layers"
+              f"{f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''} "
+              f"({n_params} parameters), {batch} x {seq + patches} tokens: "
+              f"{ms:.1f} ms a step (median of steps 2-{FAMILY_TRAIN_STEPS}; step 1 "
+              f"{secs[0] * 1e3:.1f}), {tokens / ms * 1e3:.0f} tokens/s; peak memory "
+              f"{peak / 1e9:.2f} GB; losses {[round(x, 4) for x in losses]}; "
+              f"launches a step {want}; {runs[cfg.name]['phase_s']:.1f} s")
+        del params, state, step_fn, b, metrics
+    torch.cuda.empty_cache()
+    return runs
+
+
+# Phase 32: every attention family, card against CPU, at narrow widths
+# that keep its group G = Hq / Hkv (d_model 256, head dim 32; stablelm's
+# 80) and, for hymba, a window of 64 that binds at 2 x 128 tokens; 2
+# layers (whisper 2 + 2; qwen2-vl 64 patches), ``reduced()``'s vocabulary
+# and experts; the loss and every gradient of one batch, then 3 steps of
+# the CLI's AdamW, held to phase 28's tolerances.
+CARD_CPU_TRAIN = {
+    "phi4_mini_3p8b": dict(n_heads=6, n_kv_heads=2),
+    "hymba_1p5b": dict(n_heads=5, n_kv_heads=1, window=64),
+    "qwen2_vl_2b": dict(n_heads=6, n_kv_heads=1, mrope_sections=(4, 6, 6),
+                        vision_tokens=64),
+    "starcoder2_7b": dict(n_heads=9, n_kv_heads=1),
+    "nemotron_4_15b": dict(n_heads=6, n_kv_heads=1),
+    "dbrx_132b": dict(n_heads=6, n_kv_heads=1),
+    "stablelm_3b": dict(n_heads=4, n_kv_heads=4, head_dim=80),
+    "deepseek_moe_16b": dict(n_heads=4, n_kv_heads=4),
+    "whisper_medium": dict(n_heads=4, n_kv_heads=4),
+}
+CARD_CPU_BATCH, CARD_CPU_SEQ = 2, 128
+
+
+def card_cpu_train_cfg(name):
+    """Phase 32's config of ``name``: ``reduced()`` at d_model 256, head
+    dim 32, with CARD_CPU_TRAIN's heads."""
+    from repro_torch.configs import get_config
+
+    return get_config(name).reduced().replace(
+        **dict(dict(d_model=256, head_dim=32), **CARD_CPU_TRAIN[name]))
+
+
+def lm_train_card_vs_cpu(torch, counted, cfg) -> dict:
+    """Phases 28 and 32: ``cfg`` from the same weights (seed 0, drawn on
+    the CPU) on the card and on the CPU; the loss and every gradient of
+    one batch of CARD_CPU_BATCH x CARD_CPU_SEQ tokens, then 3 steps of
+    the CLI's AdamW (``make_train_step``): losses within LOSS_RTOL,
+    gradients and moments within TRAIN_GRAD_REL of each leaf's largest,
+    parameters within ADAM_STEP_BOUND times the summed learning rates;
+    on the card ``train_launches`` a pass. With MoE layers every router
+    call's choices equal on both, the batches' seed the first of
+    MOE_SEEDS whose CPU run keeps each token's top-k / (k+1) gap at least
+    MOE_GAP."""
+    from repro_torch import optim
+    from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import backbone as bb
+
+    moe = cfg.n_experts > 0
     cpu_params = bb.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     params = {"cpu": cpu_params, "cuda": tree_map(lambda x: x.cuda(), cpu_params)}
-    rng = np.random.default_rng(0)
-    batches = [build_batch(cfg, 2, 128, rng) for _ in range(3)]
-    side = {}
-    for dev in ("cuda", "cpu"):
+    lr = optim.linear_warmup_cosine(3e-4, warmup=10, total_steps=TRAIN_STEPS)
+
+    def run(dev, batches):
         for m in counted.values():
             m.launches = 0
-        b0 = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
-        leaves = [x.detach().requires_grad_() for x in tree_leaves(params[dev])]
-        total, _ = bb.loss_fn(tree_unflatten(params[dev], leaves), cfg, b0)
-        grads = [g.cpu() for g in torch.autograd.grad(total, leaves)]
-        opt = optim.adamw(optim.linear_warmup_cosine(3e-4, warmup=10,
-                                                     total_steps=TRAIN_STEPS))
-        step_fn = bb.make_train_step(cfg, opt)
-        p, s, losses = params[dev], opt.init(params[dev]), []
-        for batch in batches:
-            p, s, metrics = step_fn(p, s, {k: torch.from_numpy(v).to(dev)
-                                           for k, v in batch.items()})
-            losses.append(float(metrics["loss"]))
-        side[dev] = {
-            "loss0": float(total.detach()), "grads": grads, "losses": losses,
-            "params": [x.cpu() for x in tree_leaves(p)],
-            "moments": [x.cpu() for x in tree_leaves(s["mu"]) + tree_leaves(s["nu"])],
-            "launches": {k: m.launches for k, m in counted.items()}}
-    lr = optim.linear_warmup_cosine(3e-4, warmup=10, total_steps=TRAIN_STEPS)
-    lr_sum = sum(float(lr(torch.tensor(t, dtype=torch.int32))) for t in (1, 2, 3))
-    card, cpu = side["cuda"], side["cpu"]
-    passes = 1 + len(batches)
-    want = {k: 0 for k in counted}
-    want.update({k: pairs * passes for k in ("mlstm_scan", "mlstm_scan_bwd",
-                                             "slstm_cell", "slstm_cell_bwd")})
-    check(card["launches"] == want, f"card launches {card['launches']}, want {want}")
+        with moe_recording("_route", moe) as routes:
+            b0 = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+            leaves = [x.detach().requires_grad_() for x in tree_leaves(params[dev])]
+            total, _ = bb.loss_fn(tree_unflatten(params[dev], leaves), cfg, b0)
+            grads = [g.cpu() for g in torch.autograd.grad(total, leaves)]
+            opt = optim.adamw(lr)
+            step_fn = bb.make_train_step(cfg, opt)
+            p, s, losses = params[dev], opt.init(params[dev]), []
+            for batch in batches:
+                p, s, metrics = step_fn(p, s, {k: torch.from_numpy(v).to(dev)
+                                               for k, v in batch.items()})
+                losses.append(float(metrics["loss"]))
+        return {"loss0": float(total.detach()), "grads": grads, "losses": losses,
+                "params": [x.cpu() for x in tree_leaves(p)],
+                "moments": [x.cpu() for x in tree_leaves(s["mu"]) + tree_leaves(s["nu"])],
+                "launches": {k: m.launches for k, m in counted.items()},
+                "routes": [idx.cpu() for _, idx, _ in routes],
+                "gap": min((float((torch.topk(pr.detach(), cfg.top_k + 1, dim=-1).values[:, -2]
+                                   - torch.topk(pr.detach(), cfg.top_k + 1, dim=-1).values[:, -1]
+                                   ).min()) for _, _, pr in routes), default=None)}
+
+    for seed in range(MOE_SEEDS if moe else 1):
+        batches = [build_batch(cfg, CARD_CPU_BATCH, CARD_CPU_SEQ,
+                               np.random.default_rng(seed)) for _ in range(3)]
+        cpu = run("cpu", batches)
+        if not moe or cpu["gap"] >= MOE_GAP:
+            break
+    check(not moe or cpu["gap"] >= MOE_GAP,
+          f"{cfg.name}: no batch seed of {MOE_SEEDS} keeps the top-k gap {MOE_GAP}: "
+          f"{cpu['gap']}")
+    card = run("cuda", batches)
+    if moe:
+        check(len(card["routes"]) == len(cpu["routes"]) and all(
+            torch.equal(torch.sort(a, -1).values, torch.sort(b, -1).values)
+            for a, b in zip(card["routes"], cpu["routes"])),
+            f"{cfg.name} card vs CPU: the routers chose other experts")
+    patches = cfg.vision_tokens if cfg.frontend == "vision_stub" else 0
+    per = train_launches(cfg, CARD_CPU_SEQ, patches=patches, frames=64)
+    want = dict.fromkeys(counted, 0) | {k: v * (1 + len(batches)) for k, v in per.items()}
+    check(card["launches"] == want, f"{cfg.name} card launches {card['launches']}, "
+          f"want {want}")
 
     def rel_gap(a, b):
         return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
                    for x, y in zip(a, b))
 
-    g_gap, m_gap = rel_gap(card["grads"], cpu["grads"]), rel_gap(card["moments"],
-                                                                cpu["moments"])
+    lr_sum = sum(float(lr(torch.tensor(t, dtype=torch.int32))) for t in (1, 2, 3))
+    g_gap = rel_gap(card["grads"], cpu["grads"])
+    m_gap = rel_gap(card["moments"], cpu["moments"])
     l_gap = max(abs(a - b) / abs(b) for a, b in zip([card["loss0"]] + card["losses"],
                                                     [cpu["loss0"]] + cpu["losses"]))
     p_err = max(float((x - y).abs().max()) for x, y in zip(card["params"], cpu["params"]))
     far = sum(int(((x - y).abs() > 1e-6).sum()) for x, y in zip(card["params"],
                                                                 cpu["params"]))
-    n = sum(x.numel() for x in cpu["params"])
-    print(f"training card vs CPU ({pairs} of 12 pairs at full width, 2 x 128 "
+    rec = {"loss_rel_gap": l_gap, "grad_rel_gap": g_gap, "moment_rel_gap": m_gap,
+           "param_max_abs": p_err, "param_bound": ADAM_STEP_BOUND * lr_sum,
+           "params_beyond_1e-6": far,
+           "n_params": sum(x.numel() for x in cpu["params"]),
+           "group": cfg.n_heads // cfg.n_kv_heads, "launches": card["launches"],
+           "moe_smallest_gap": cpu["gap"], "moe_seed": seed if moe else None}
+    print(f"{cfg.name} training card vs CPU (G {rec['group']}, {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {CARD_CPU_BATCH} x {CARD_CPU_SEQ + patches} "
           f"tokens): losses within {l_gap:.3g} (rtol {LOSS_RTOL}); gradients "
-          f"within {g_gap:.3g} of each leaf's largest (tol {TRAIN_GRAD_REL}); "
-          f"moments after 3 AdamW steps within {m_gap:.3g}; parameters max abs "
-          f"{p_err:.3g} (bound {ADAM_STEP_BOUND * lr_sum:.3g}), {far} of {n} "
-          f"more than 1e-6 apart; card launches {card['launches']}")
-    check(l_gap <= LOSS_RTOL, f"losses card {card['losses']} cpu {cpu['losses']}")
+          f"{g_gap:.3g} of each leaf's largest, moments {m_gap:.3g} (tol "
+          f"{TRAIN_GRAD_REL}); parameters max abs {p_err:.3g} (bound "
+          f"{ADAM_STEP_BOUND * lr_sum:.3g}), {far} of {rec['n_params']} more than "
+          f"1e-6 apart; card launches {card['launches']}"
+          + (f"; routers equal, smallest top-k gap {cpu['gap']:.3g} (seed {seed})"
+             if moe else ""))
+    check(l_gap <= LOSS_RTOL, f"{cfg.name} losses card {card['losses']} cpu "
+          f"{cpu['losses']}")
     check(g_gap <= TRAIN_GRAD_REL and m_gap <= TRAIN_GRAD_REL,
-          f"gradients {g_gap} or moments {m_gap} beyond {TRAIN_GRAD_REL}")
-    check(p_err <= ADAM_STEP_BOUND * lr_sum + 1e-6, f"parameters {p_err}")
-    return {"loss_rel_gap": l_gap, "grad_rel_gap": g_gap, "moment_rel_gap": m_gap,
-            "param_max_abs": p_err, "params_beyond_1e-6": far, "n_params": n,
-            "launches": card["launches"]}
+          f"{cfg.name} gradients {g_gap} or moments {m_gap} beyond {TRAIN_GRAD_REL}")
+    check(p_err <= ADAM_STEP_BOUND * lr_sum + 1e-6, f"{cfg.name} parameters {p_err}")
+    return rec
 
 
 def baseline_variants(torch, spec, data, counted) -> dict:
@@ -3980,8 +4384,8 @@ def main() -> int:
 
     if len(sys.argv) == 3 and sys.argv[1] == "--cli-child":
         return cli_child(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--train-child":
-        return train_child(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--train-child":
+        return train_child(*sys.argv[2:])
     # --phase4-repeats N: phase 4 served and checked N times (1 as run
     # with no arguments)
     repeats = 1
@@ -4002,6 +4406,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch.configs import get_config
     from repro_torch.core import encoders as enc
     from repro_torch.data.synthetic import TaskSpec
     from repro_torch.kernels import _build
@@ -4234,7 +4639,23 @@ def main() -> int:
     lm_train = train_on_card()
 
     phase("28 xlstm-350m training, card against CPU")
-    lm_train["card_vs_cpu"] = train_card_vs_cpu(torch, counted)
+    lm_train["card_vs_cpu"] = lm_train_card_vs_cpu(
+        torch, counted, get_config("xlstm_350m").replace(n_layers=TRAIN_CPU_LAYERS))
+    torch.cuda.empty_cache()
+
+    phase("29 flash backward against plain at the training shapes")
+    fbwd_lm = flash_bwd_phase(torch, flaunch, fbwd, fref, mem_rate)
+
+    phase("30 full-width hymba-1.5b training through launch/train.py")
+    hymba_train = train_on_card("hymba-1.5b")
+
+    phase("31 the other attention families' training at full width")
+    family_train = family_training(torch, counted)
+
+    phase("32 every attention family's training, card against CPU")
+    family_card_cpu = {name: lm_train_card_vs_cpu(torch, counted,
+                                                  card_cpu_train_cfg(name))
+                       for name in CARD_CPU_TRAIN}
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -4365,6 +4786,19 @@ def main() -> int:
     mlstm_record["launches_lm_training"] = lm_train["launches"]["mlstm_scan"]
     slstm_record["launches_lm_training"] = lm_train["launches"]["slstm_cell"]
     bwd_records[0]["launches_lm_training"] = lm_train["launches"]["slstm_cell_bwd"]
+    # the attention families' training (phases 29-31): the backward at
+    # their shapes, and its launches in hymba's 12 steps and a step of each
+    bwd_records[1]["lm_training_shapes"] = fbwd_lm
+    bwd_records[1]["max_abs_err"] = max(
+        bwd_records[1]["max_abs_err"],
+        *(e for t in fbwd_lm.values() for e in t["max_abs_err"].values()))
+    bwd_records[1]["launches_hymba_training"] = hymba_train["launches"][
+        "flash_attention_bwd"]
+    bwd_records[1]["launches_a_step_families"] = {
+        name: r["launches_a_step"]["flash_attention_bwd"]
+        for name, r in family_train.items()}
+    flash_record["launches_hymba_training"] = hymba_train["launches"]["flash_attention"]
+    mlstm_record["launches_hymba_training"] = hymba_train["launches"]["mlstm_scan"]
     blend_record["launches_baselines_variants"] = {
         k: v["launches"]["blend_params"] for k, v in baselines["variants"].items()}
     t = mbwd_times["xlstm"]
@@ -4381,9 +4815,14 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call runs the scan's backward
         "autograd_ms": t["autograd_ms"], "device_ms": t["device_ms"],
         "shape": t["shape"], "hymba": mbwd_times["hymba"],
-        "max_abs_err_by_shape": mbwd_errs}
+        "max_abs_err_by_shape": mbwd_errs,
+        "launches_hymba_training": hymba_train["launches"]["mlstm_scan_bwd"]}
     print("xlstm-350m training: " + json.dumps(
         {k: v for k, v in lm_train.items() if k != "breakdown"}))
+    print("hymba-1.5b training: " + json.dumps(
+        {k: v for k, v in hymba_train.items() if k != "breakdown"}))
+    print("attention families' training: " + json.dumps(family_train))
+    print("attention families' training card vs CPU: " + json.dumps(family_card_cpu))
     print(json.dumps({"kernels": [wire_record, blend_record, slstm_record,
                                   flash_record, mlstm_record, *bwd_records,
                                   mlstm_bwd_record]}))

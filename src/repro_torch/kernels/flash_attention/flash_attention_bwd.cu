@@ -3,18 +3,26 @@
 // probabilities recomputed.
 //
 // Replaces no TPU kernel: the reference differentiates the XLA form of
-// its encoder's attention (jax.grad through the einsum softmax,
-// src/repro/core/encoders.py:76-78) and has no Pallas backward. It was
-// added so that the federated trainer's transformer encoders carry their
-// gradients through kernels on the card.
+// its attentions (jax.grad through the einsum softmax of
+// src/repro/core/encoders.py:76-78 and of the language models'
+// gqa_sdpa / chunked_gqa_sdpa, src/repro/models/attention.py:58, 82) and
+// has no Pallas backward. It carries the gradients of the federated
+// trainer's transformer encoders and of every language model's attention
+// through kernels on the card.
 //
 // With s = (q . k) * scale (scale = 1 / sqrtf(d) in f32, as the forward
-// multiplies), p = exp(s - lse) on the visible keys, D = rowsum(dout o out):
-//   dv = p^T dout;  dp = dout v^T;  ds = p (dp - D);
-//   dq = scale * ds k;  dk = scale * ds^T q.
-// Scope: f32, as many K/V heads as query heads, no window; causal masks
-// with queries end-aligned to the keys as the forward's. The head dim is a
-// multiple of 4 (16-byte loads), at most 256. No atomics, deterministic.
+// multiplies), s_c = cap * tanh(s / cap) under a logit cap (s without),
+// p = exp(s_c - lse) on the visible keys, D = rowsum(dout o out):
+//   dv = p^T dout;  dp = dout v^T;  ds = p (dp - D) (1 - (s_c / cap)^2);
+//   dq = scale * ds k;  dk = scale * ds^T q
+// (the last factor of ds only under a cap); dk and dv summed over the
+// query heads of a K/V head.
+// Scope: f32; every form the forward takes: grouped K/V heads (Hq a
+// multiple of Hkv), causal and sliding-window masks with queries
+// end-aligned to the keys (Sq != Sk), the logit cap (an instance of its
+// own, as the forward's). The head dim is a multiple of 4 (16-byte
+// loads), at most 256 (d = 80 runs the KD = 128 instance). No atomics,
+// deterministic.
 //
 // Bound: at the transformer encoder's training shape (C*B = 1024, H = 4,
 // S = 64, d = 256) the call reads q, k, v, out, dout and lse and writes
@@ -24,12 +32,13 @@
 // at 495 TFLOP/s. So bytes bound it. (The two SIMT kernels' f32 products
 // would take 0.64 ms at 67 TFLOP/s.)
 //
-// Two paths, chosen by shape alone (kernels_a_call in
+// Two paths, chosen by shape and group alone (kernels_a_call in
 // flash_attention_bwd.py mirrors the choice):
 //
-// 1. Sq <= 64 and Sk <= 64 (the encoder's S = 64): fused_kernel, one
-//    block a (batch, head), one launch a call. The (batch, head) is a
-//    single 64 x 64 score tile, so one block forms s and dp once and
+// 1. Sq <= 64 and Sk <= 64 with one K/V head a query head (the encoder's
+//    S = 64): fused_kernel, one block a (batch, head), one launch a call.
+//    The (batch, head) is a single 64 x 64 score tile, so one block forms
+//    s and dp once and
 //    derives dq, dk and dv from them, each written once:
 //    - phase 1: s = q k^T and dp = dout v^T over d in 16-column chunks of
 //      q, k, dout and v, staged by 16-byte cp.async into a double-buffered
@@ -63,12 +72,18 @@
 //      dq, dk, dv is stored from the accumulators once.
 //    That is the bound's 5 products, one pass over the inputs from HBM,
 //    one launch. Shared memory 114,176 B: two blocks an SM.
-// 2. Otherwise: the two SIMT kernels of the first design, unchanged:
-//    dq_kernel, a block a (batch, head, 64 query rows), forms D for its
-//    rows (written for dkv_kernel), then loops over 64-key tiles;
-//    dkv_kernel, a block a (batch, head, 64 keys), loops over 64-row
-//    query tiles with dk and dv in registers. Each forms s and dp itself
-//    (7 products of S^2 d in all). SIMT f32 FMAs, register-blocked: a
+// 2. Otherwise (longer sequences, or grouped K/V heads at any length):
+//    the two SIMT kernels of the first design:
+//    dq_kernel, a block a (batch, query head, 64 query rows), forms D for
+//    its rows (written for dkv_kernel), then loops over the 64-key tiles
+//    its rows can see (causal: none past the last row's position; window:
+//    none wholly before the first row's band);
+//    dkv_kernel, a block a (batch, K/V head, 64 keys), loops over the
+//    64-row query tiles of each of the K/V head's G query heads in turn,
+//    skipping tiles wholly outside the band, with dk and dv in registers.
+//    Partial tiles are masked as the plain backward masks. Each kernel
+//    forms s and dp itself (7 products of S^2 d in all, over the visible
+//    tiles). SIMT f32 FMAs, register-blocked: a
 //    64 x 64 score tile gives each of 256 threads 4 query rows x 4 keys;
 //    the d axis is staged in 32-column chunks transposed, so that 4
 //    float4 loads feed 32 FMAs; the output products take 4 rows (or keys)
@@ -84,7 +99,15 @@
 // 0.346 at one client's (64, 4, 64, 256). With one TF32 product in place
 // of three it takes 1.21 ms, with no product at all 1.21: staging and the
 // HBM pass, not the tensor cores, set its pace. ptxas: 128 registers, no
-// spills (two blocks an SM).
+// spills (two blocks an SM). At the language models' training shapes
+// (chip_smoke.py phase 29, the same card), the two SIMT kernels: hymba's
+// (2, 25 / 5, 2048, 2048, 64) with its window of 1024 3.57 ms a call
+// against 4.76 ms of SDPA's memory-efficient backward on K/V repeated to
+// the query heads; qwen2-vl's causal (2, 12 / 2, 1152, 1152, 128) 4.38
+// ms against 0.96: dkv_kernel's 72 blocks (one a K/V head and 64 keys,
+// walking 6 heads' query tiles) leave most of the 132 SMs idle.
+// ptxas: dkv_kernel 127 / 169 / 237 registers at KD = 64 / 128 / 256,
+// dq_kernel 115-173, no spills.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -200,14 +223,39 @@ __device__ __forceinline__ void tile_scores(float (&s)[4][4],
   }
 }
 
-// p = exp(s * scale - lse) where the key is visible, else 0, and
-// ds = p (dp - D), in place: row 4tq+i is query position q0 + 4tq + i
-// among the keys (causal: visible while key <= position), key k0 + 4tk + j.
+// Whether query row r (at key position pos) sees `key`: in range, the
+// causal mask (key <= pos), the window (key > pos - window), a finite lse.
+__device__ __forceinline__ bool visible(int r, int valid, int key, int sk,
+                                        int pos, int causal, int window,
+                                        float lse) {
+  return r < valid && key < sk && (!causal || key <= pos) &&
+         (window <= 0 || key > pos - window) && lse != -CUDART_INF_F;
+}
+
+// p from a raw product x = q . k: s = x * scale, capped under CAP to
+// s_c = cap * tanh(s / cap), p = exp(s_c - lse) where visible, else 0;
+// ds = p (dp - D), times ds_c / ds = 1 - (s_c / cap)^2 under CAP.
+template <bool CAP>
+__device__ __forceinline__ void grad_score(float& x, float& dp, bool vis,
+                                           float lse, float dd, float scale,
+                                           float cap) {
+  float sc = x * scale;
+  if constexpr (CAP) sc = cap * tanhf(sc / cap);
+  const float p = vis ? expf(sc - lse) : 0.0f;
+  float ds = p * (dp - dd);
+  if constexpr (CAP) ds *= 1.0f - (sc / cap) * (sc / cap);
+  x = p;
+  dp = ds;
+}
+
+// p and ds (grad_score) in place: row 4tq+i is query position
+// qpos0 + 4tq + i among the keys, key k0 + 4tk + j.
+template <bool CAP>
 __device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
                                       const float* lse_s, const float* dd_s,
                                       int tq, int tk, int qpos0, int qv,
-                                      int k0, int sk, int causal,
-                                      float scale) {
+                                      int k0, int sk, int causal, int window,
+                                      float scale, float cap) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * tq + i;
@@ -215,11 +263,8 @@ __device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int key = k0 + 4 * tk + j;
-      const bool vis = r < qv && key < sk && (!causal || key <= qpos0 + r) &&
-                       lse != -CUDART_INF_F;
-      const float p = vis ? expf(s[i][j] * scale - lse) : 0.0f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dd);
+      const bool vis = visible(r, qv, key, sk, qpos0 + r, causal, window, lse);
+      grad_score<CAP>(s[i][j], dp[i][j], vis, lse, dd, scale, cap);
     }
   }
 }
@@ -284,13 +329,16 @@ __device__ __forceinline__ void zero_acc(float4 (&acc)[4][KD / 64]) {
       acc[i][u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-template <int KD>
+// Grid: (batch * Hq, query tiles); the block's K/V head is its query
+// head's group, bh / group.
+template <int KD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ out,
               const float* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ dd_out, float* __restrict__ dq, int sq,
-              int sk, int d, int causal, float scale) {
+              int sk, int d, int group, int causal, int window, float scale,
+              float cap) {
   using S = Smem<KD>;
   extern __shared__ __align__(16) float smem[];
   float* kf = smem;                 // (64, ld): the key tile, row-major
@@ -302,12 +350,12 @@ __global__ void __launch_bounds__(kThreads)
   float* lse_s = dst + S::score;
   float* dd_s = lse_s + kTile;
 
-  const int64_t bh = blockIdx.x;
+  const int64_t bh = blockIdx.x, bkv = bh / group;
   const int m0 = blockIdx.y * kTile;
   const int qv = min(kTile, sq - m0);
   const int64_t qoff = (bh * sq + m0) * d;
-  const float* kp = k + bh * sk * d;
-  const float* vp = v + bh * sk * d;
+  const float* kp = k + bkv * sk * d;
+  const float* vp = v + bkv * sk * d;
   const int tid = threadIdx.x;
   // D = rowsum(dout o out): 4 lanes a row, summed by shuffles
   {
@@ -327,17 +375,21 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int tq = tid / 16, tk = tid % 16;  // score tile: 4 rows x 4 keys
   const int off = sk - sq;  // query position p sits at key position p + off
+  // the key tiles any of the block's rows sees: [k_lo, k_hi)
   const int k_hi = causal ? min(sk, m0 + qv - 1 + off + 1) : sk;
+  const int k_lo = window > 0 ? max(0, m0 + off - window + 1) / kTile * kTile
+                              : 0;
 
   float4 acc[4][KD / 64];
   zero_acc<KD>(acc);
-  for (int k0 = 0; k0 < k_hi; k0 += kTile) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += kTile) {
     const int kv = min(kTile, sk - k0);
     float s[4][4], dp[4][4];
     tile_scores(s, dp, q + qoff, dout + qoff, kp + (int64_t)k0 * d,
                 vp + (int64_t)k0 * d, qv, kv, d, qt, dot, kt, vt, tq, tk);
     load_full(kf, S::ld, kp + (int64_t)k0 * d, kv, d);
-    probs(s, dp, lse_s, dd_s, tq, tk, m0 + off, qv, k0, sk, causal, scale);
+    probs<CAP>(s, dp, lse_s, dd_s, tq, tk, m0 + off, qv, k0, sk, causal,
+               window, scale, cap);
 #pragma unroll
     for (int j = 0; j < 4; ++j)  // ds^T: key 4tk+j, query rows 4tq..4tq+3
       *reinterpret_cast<float4*>(dst + (4 * tk + j) * kLdt + 4 * tq) =
@@ -348,13 +400,17 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<KD>(dq + qoff, acc, scale, tq, tk, qv, d);
 }
 
-template <int KD>
+// Grid: (batch * Hkv, key tiles); the block walks the query tiles of
+// each of its K/V head's `group` query heads in turn, with dk and dv
+// summed in registers (no atomics: the same bits on every run).
+template <int KD, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ dd,
                float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-               int d, int causal, float scale) {
+               int d, int group, int causal, int window, float scale,
+               float cap) {
   using S = Smem<KD>;
   extern __shared__ __align__(16) float smem[];
   float* qf = smem;                 // (64, ld): the query tile, row-major
@@ -368,20 +424,27 @@ __global__ void __launch_bounds__(kThreads)
   float* lse_s = ds_s + S::score;
   float* dd_s = lse_s + kTile;
 
-  const int64_t bh = blockIdx.x;
+  const int64_t bkv = blockIdx.x;
   const int n0 = blockIdx.y * kTile;
   const int kv = min(kTile, sk - n0);
-  const int64_t koff = (bh * sk + n0) * d;
+  const int64_t koff = (bkv * sk + n0) * d;
   const int tid = threadIdx.x;
   const int tq = tid / 16, tk = tid % 16;
   const int off = sk - sq;
-  // causal: the query tiles whose last position reaches key n0
+  // the query tiles that see a key of [n0, n0 + kv): from the first whose
+  // last position reaches n0 (causal) to the last whose positions p have
+  // n0 + kv - 1 > p + off - window (window)
   const int m_lo = causal ? max(0, n0 - off) / kTile * kTile : 0;
+  const int m_hi = window > 0 ? min(sq, n0 + kv - 1 - off + window) : sq;
 
   float4 acc_k[4][KD / 64], acc_v[4][KD / 64];
   zero_acc<KD>(acc_k);
   zero_acc<KD>(acc_v);
-  for (int m0 = m_lo; m0 < sq; m0 += kTile) {
+  const int tiles = m_hi > m_lo ? (m_hi - m_lo + kTile - 1) / kTile : 0;
+  // step t: query head bkv * group + t / tiles, its query tile t % tiles
+  for (int t = 0; t < group * tiles; ++t) {
+    const int64_t bh = bkv * group + t / tiles;
+    const int m0 = m_lo + (t % tiles) * kTile;
     const int qv = min(kTile, sq - m0);
     const int64_t qoff = (bh * sq + m0) * d;
     float s[4][4], dp[4][4];
@@ -394,7 +457,8 @@ __global__ void __launch_bounds__(kThreads)
     load_full(dof, S::ld, dout + qoff, qv, d);
     tile_scores(s, dp, q + qoff, dout + qoff, k + koff, v + koff, qv, kv, d,
                 qt, dot, kt, vt, tq, tk);
-    probs(s, dp, lse_s, dd_s, tq, tk, m0 + off, qv, n0, sk, causal, scale);
+    probs<CAP>(s, dp, lse_s, dd_s, tq, tk, m0 + off, qv, n0, sk, causal,
+               window, scale, cap);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // query row 4tq+i, keys 4tk..4tk+3
       *reinterpret_cast<float4*>(p_s + (4 * tq + i) * kLdt + 4 * tk) =
@@ -411,29 +475,51 @@ __global__ void __launch_bounds__(kThreads)
   store_tile<KD>(dk + koff, acc_k, scale, tq, tk, kv, d);
 }
 
-template <int KD>
+// bhq = batch * Hq query heads, bhkv = batch * Hkv K/V heads.
+template <int KD, bool CAP>
 int launch_kd(const float* q, const float* k, const float* v,
               const float* out, const float* dout, const float* lse,
-              float* dd, float* dq, float* dk, float* dv, int bh, int sq,
-              int sk, int d, int causal, cudaStream_t stream) {
+              float* dd, float* dq, float* dk, float* dv, int bhq, int bhkv,
+              int sq, int sk, int d, int causal, int window, float cap,
+              cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)d);
+  const int group = bhq / bhkv;
   int err = (int)cudaFuncSetAttribute(
-      dq_kernel<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_kernel<KD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Smem<KD>::dq_bytes);
   if (err != 0) return err;
   err = (int)cudaFuncSetAttribute(
-      dkv_kernel<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_kernel<KD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Smem<KD>::dkv_bytes);
   if (err != 0) return err;
-  dq_kernel<KD><<<dim3((unsigned)bh, (unsigned)((sq + kTile - 1) / kTile)),
-                  kThreads, Smem<KD>::dq_bytes, stream>>>(
-      q, k, v, out, dout, lse, dd, dq, sq, sk, d, causal, scale);
+  dq_kernel<KD, CAP>
+      <<<dim3((unsigned)bhq, (unsigned)((sq + kTile - 1) / kTile)), kThreads,
+         Smem<KD>::dq_bytes, stream>>>(q, k, v, out, dout, lse, dd, dq, sq,
+                                       sk, d, group, causal, window, scale,
+                                       cap);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dkv_kernel<KD><<<dim3((unsigned)bh, (unsigned)((sk + kTile - 1) / kTile)),
-                   kThreads, Smem<KD>::dkv_bytes, stream>>>(
-      q, k, v, dout, lse, dd, dk, dv, sq, sk, d, causal, scale);
+  dkv_kernel<KD, CAP>
+      <<<dim3((unsigned)bhkv, (unsigned)((sk + kTile - 1) / kTile)), kThreads,
+         Smem<KD>::dkv_bytes, stream>>>(q, k, v, dout, lse, dd, dk, dv, sq, sk,
+                                        d, group, causal, window, scale, cap);
   return (int)cudaGetLastError();
+}
+
+template <bool CAP>
+int launch_pair(const float* q, const float* k, const float* v,
+                const float* out, const float* dout, const float* lse,
+                float* dd, float* dq, float* dk, float* dv, int bhq,
+                int bhkv, int sq, int sk, int d, int causal, int window,
+                float cap, cudaStream_t stream) {
+  if (d <= 64)
+    return launch_kd<64, CAP>(q, k, v, out, dout, lse, dd, dq, dk, dv, bhq,
+                              bhkv, sq, sk, d, causal, window, cap, stream);
+  if (d <= 128)
+    return launch_kd<128, CAP>(q, k, v, out, dout, lse, dd, dq, dk, dv, bhq,
+                               bhkv, sq, sk, d, causal, window, cap, stream);
+  return launch_kd<256, CAP>(q, k, v, out, dout, lse, dd, dq, dk, dv, bhq,
+                             bhkv, sq, sk, d, causal, window, cap, stream);
 }
 
 
@@ -473,14 +559,17 @@ __device__ __forceinline__ void stage_chunk(float* dst, int ld,
   }
 }
 
-// Grid: one block a (batch, head); sq, sk <= 64.
+// Grid: one block a (batch, head); sq, sk <= 64; one K/V head a query
+// head. CAP: the logit cap's instance (grad_score).
+template <bool CAP>
 __global__ void __launch_bounds__(kFusedThreads, 2)
     fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ out,
                  const float* __restrict__ dout,
                  const float* __restrict__ lse, float* __restrict__ dq,
                  float* __restrict__ dk, float* __restrict__ dv, int sq,
-                 int sk, int d, int causal, float scale) {
+                 int sk, int d, int causal, int window, float scale,
+                 float cap) {
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* pt = ring + Fused::ring;   // p^T (keys, queries)
@@ -585,13 +674,11 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
       const int r = 16 * rg + g + 8 * (e >> 1);
       const int key = 32 * half + 8 * nt + 2 * t + (e & 1);
       const float l = lse_s[r];
-      const bool vis = r < sq && key < sk && (!causal || key <= r + off) &&
-                       l != -CUDART_INF_F;
-      const float p = vis ? expf(s[nt][e] * scale - l) : 0.0f;
-      const float ds = p * (dp[nt][e] - dd_s[r]);
-      pt[key * kLdS + r] = p;
-      dst[key * kLdS + r] = ds;
-      dss[r * kLdS + key] = ds;
+      const bool vis = visible(r, sq, key, sk, r + off, causal, window, l);
+      grad_score<CAP>(s[nt][e], dp[nt][e], vis, l, dd_s[r], scale, cap);
+      pt[key * kLdS + r] = s[nt][e];
+      dst[key * kLdS + r] = dp[nt][e];
+      dss[r * kLdS + key] = dp[nt][e];
     }
 
   // phase 2: rows 16 rg .. + 15 of dv, dk (keys) and dq (queries),
@@ -653,50 +740,57 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   }
 }
 
+template <bool CAP>
 int launch_fused(const float* q, const float* k, const float* v,
                  const float* out, const float* dout, const float* lse,
                  float* dq, float* dk, float* dv, int bh, int sq, int sk,
-                 int d, int causal, cudaStream_t stream) {
+                 int d, int causal, int window, float cap,
+                 cudaStream_t stream) {
   const int err = (int)cudaFuncSetAttribute(
-      fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Fused::bytes);
   if (err != 0) return err;
-  fused_kernel<<<(unsigned)bh, kFusedThreads, Fused::bytes, stream>>>(
-      q, k, v, out, dout, lse, dq, dk, dv, sq, sk, d, causal,
-      1.0f / sqrtf((float)d));
+  fused_kernel<CAP><<<(unsigned)bh, kFusedThreads, Fused::bytes, stream>>>(
+      q, k, v, out, dout, lse, dq, dk, dv, sq, sk, d, causal, window,
+      1.0f / sqrtf((float)d), cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. q, out, dout, dq (bh, sq, d); k, v, dk,
-// dv (bh, sk, d); lse (bh, sq); all contiguous f32 on the device of
-// `stream`, 16-byte aligned; bh = batch * heads (one K/V head a query
-// head); 4 <= d <= 256, d % 4 == 0; sq, sk >= 1, ceil(sq / 64) and
-// ceil(sk / 64) at most 65535. Where sq <= 64 and sk <= 64, launches
+// Plain C entry point for ctypes. q, out, dout, dq (batch, hq, sq, d); k,
+// v, dk, dv (batch, hkv, sk, d); lse (batch, hq, sq); all contiguous f32
+// on the device of `stream`, 16-byte aligned; hq a multiple of hkv;
+// 4 <= d <= 256, d % 4 == 0; sq, sk >= 1, ceil(sq / 64) and ceil(sk / 64)
+// at most 65535; window 0 (none) or the forward's; softcap 0 (none) or
+// the forward's cap. Where sq <= 64, sk <= 64 and hq == hkv, launches
 // fused_kernel (dd is not read and may be null); else the scratch dd
-// (bh, sq) receives D: dq_kernel, then dkv_kernel (which reads it).
-// Returns the first CUDA error of the set-up and the launches.
+// (batch, hq, sq) receives D: dq_kernel, then dkv_kernel (which reads
+// it). Returns the first CUDA error of the set-up and the launches.
 extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
                                        const float* v, const float* out,
                                        const float* dout, const float* lse,
                                        float* dd, float* dq, float* dk,
-                                       float* dv, int bh, int sq, int sk,
-                                       int d, int causal, void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || d < 4 || d > kMaxD || d % 4 != 0 ||
+                                       float* dv, int batch, int hq, int hkv,
+                                       int sq, int sk, int d, int causal,
+                                       int window, float softcap,
+                                       void* stream) {
+  if (batch < 1 || hkv < 1 || hq < hkv || hq % hkv != 0 || sq < 1 ||
+      sk < 1 || d < 4 || d > kMaxD || d % 4 != 0 || window < 0 ||
+      !(softcap >= 0.0f) || (int64_t)batch * hq > 0x7fffffff ||
       (sq + kTile - 1) / kTile > 65535 || (sk + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sq <= kTile && sk <= kTile)
-    return launch_fused(q, k, v, out, dout, lse, dq, dk, dv, bh, sq, sk, d,
-                        causal, s);
+  const int bhq = batch * hq, bhkv = batch * hkv;
+  const bool cap = softcap > 0.0f;
+  if (sq <= kTile && sk <= kTile && hq == hkv)
+    return cap ? launch_fused<true>(q, k, v, out, dout, lse, dq, dk, dv, bhq,
+                                    sq, sk, d, causal, window, softcap, s)
+               : launch_fused<false>(q, k, v, out, dout, lse, dq, dk, dv, bhq,
+                                     sq, sk, d, causal, window, 0.0f, s);
   if (dd == nullptr) return (int)cudaErrorInvalidValue;
-  if (d <= 64)
-    return launch_kd<64>(q, k, v, out, dout, lse, dd, dq, dk, dv, bh, sq, sk,
-                         d, causal, s);
-  if (d <= 128)
-    return launch_kd<128>(q, k, v, out, dout, lse, dd, dq, dk, dv, bh, sq, sk,
-                          d, causal, s);
-  return launch_kd<256>(q, k, v, out, dout, lse, dd, dq, dk, dv, bh, sq, sk,
-                        d, causal, s);
+  return cap ? launch_pair<true>(q, k, v, out, dout, lse, dd, dq, dk, dv, bhq,
+                                 bhkv, sq, sk, d, causal, window, softcap, s)
+             : launch_pair<false>(q, k, v, out, dout, lse, dd, dq, dk, dv, bhq,
+                                  bhkv, sq, sk, d, causal, window, 0.0f, s);
 }

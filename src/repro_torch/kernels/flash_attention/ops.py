@@ -10,8 +10,9 @@ Where a gradient is wanted (autograd on, an input that requires it) the
 call goes through ``FlashAttentionFn``: the forward also keeps each
 row's log-sum-exp, and the backward runs the CUDA backward kernels
 (``flash_attention_bwd.cu``) or, for CPU tensors, the plain backward.
-That path takes f32 with one K/V head a query head, no window and no
-logit cap; the rest is refused (ROADMAP item 15 trains the language model's attention).
+That path takes every form the forward takes (grouped K/V heads, causal
+and sliding-window masks, the logit cap, Sq != Sk) in f32; other dtypes
+are refused (ROADMAP item 15c: bf16 and stateful gradients).
 """
 from __future__ import annotations
 
@@ -28,19 +29,21 @@ from repro_torch.kernels.flash_attention.ref import (
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """softmax(q k^T / sqrt(d)) v with its gradient for q, k and v (f32,
-    Hq == Hkv, no window)."""
+    """softmax(cap(q k^T / sqrt(d))) v over the visible keys, with its
+    gradient for q, k and v (f32; K/V heads grouped, the window and the
+    cap as in ``flash_attention``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
         if q.device.type == "cuda":
             out, lse = flash_attention_cuda(q.contiguous(), k.contiguous(),
                                             v.contiguous(), causal=causal,
-                                            window=0, return_lse=True)
+                                            window=window, softcap=softcap,
+                                            return_lse=True)
         else:
-            out, lse = flash_attention_ref(q, k, v, causal=causal,
-                                           return_lse=True)
-        ctx.causal = causal
+            out, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                           softcap=softcap, return_lse=True)
+        ctx.form = dict(causal=causal, window=window, softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -49,8 +52,8 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = (flash_attention_bwd_cuda if q.device.type == "cuda"
                else flash_attention_bwd_ref)
-        dq, dk, dv = bwd(q, k, v, out, dout, lse, causal=ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, **ctx.form)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -61,16 +64,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on CUDA or the CPU, got {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if (q.dtype != torch.float32 or k.dtype != torch.float32
-                or v.dtype != torch.float32 or k.shape[1] != q.shape[1]
-                or window > 0 or softcap):
+        if any(x.dtype != torch.float32 for x in (q, k, v)):
             raise NotImplementedError(
-                f"the attention backward takes float32 with one K/V head a "
-                f"query head, no window and no logit cap, got {q.dtype}, "
-                f"{q.shape[1]} query / {k.shape[1]} K/V heads, window {window}, "
-                f"softcap {softcap} (ROADMAP.md item 15: training the language "
-                f"model)")
-        return FlashAttentionFn.apply(q, k, v, bool(causal))
+                f"the attention backward takes float32, got {q.dtype}, "
+                f"{k.dtype}, {v.dtype} (ROADMAP.md item 15c: bf16 and stateful "
+                f"gradients)")
+        return FlashAttentionFn.apply(q, k, v, bool(causal), max(int(window), 0),
+                                      float(softcap))
     if q.device.type == "cuda":
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,

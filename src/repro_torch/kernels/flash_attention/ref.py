@@ -10,7 +10,9 @@ softmax gives NaN.
 ``flash_attention_bwd_ref`` is the plain backward (the CPU path of
 ``ops.FlashAttentionFn`` and the oracle of ``flash_attention_bwd.cu``,
 within ``flash_grad_error_bound``): the gradients from the output, the
-row log-sum-exp and the gradient of the output, as the kernel forms them.
+row log-sum-exp and the gradient of the output, as the kernel forms them,
+for every form the forward takes (grouped K/V heads, causal and
+sliding-window masks, the logit cap).
 """
 from __future__ import annotations
 
@@ -76,23 +78,43 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype), lse
 
 
-def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = False):
-    """The plain backward, f32, one K/V head a query head, no window: q,
-    out, dout (B, H, Sq, d), k, v (B, H, Sk, d), lse (B, H, Sq) as the
-    forward gives them. With p = exp(s * scale - lse) on the visible keys
-    and D = rowsum(dout o out): dv = p^T dout, ds = p (dout v^T - D),
-    dq = scale ds k, dk = scale ds^T q. Returns (dq, dk, dv)."""
-    sq, d = q.shape[2], q.shape[3]
-    sk = k.shape[2]
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = False,
+                            window: int = 0, softcap: float = 0.0):
+    """The plain backward, f32: q, out, dout (B, Hq, Sq, d), k, v (B, Hkv,
+    Sk, d) with Hq % Hkv == 0, lse (B, Hq, Sq) as the forward gives them;
+    the forward's masks (queries end-aligned, ``window``) and logit cap.
+    With s = (q . k) * scale, s_c = softcap * tanh(s / softcap) (s itself
+    without a cap), p = exp(s_c - lse) on the visible keys and D =
+    rowsum(dout o out): dv = p^T dout, ds = p (dout v^T - D) (times 1 -
+    (s_c / softcap)^2 under a cap), dq = scale ds k, dk = scale ds^T q;
+    dk and dv summed over the query heads of each K/V head. Returns (dq,
+    dk, dv)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} K/V heads")
+    group = hq // hkv
     scale = attention_scale(d)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    mask = visible(sq, sk, causal, 0, q.device) & torch.isfinite(lse)[..., None]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = (visible(sq, sk, causal, window, q.device)
+            & torch.isfinite(lse)[..., None])
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
     dout = dout.float()
     dv = p.transpose(-1, -2) @ dout
     dd = (dout * out.float()).sum(dim=-1, keepdim=True)
-    ds = p * (dout @ v.float().transpose(-1, -2) - dd)
-    return ds @ k.float() * scale, ds.transpose(-1, -2) @ q.float() * scale, dv
+    ds = p * (dout @ vf.transpose(-1, -2) - dd)
+    if softcap:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dk = ds.transpose(-1, -2) @ q.float() * scale
+
+    def per_kv_head(x):  # (B, Hq, Sk, d) -> (B, Hkv, Sk, d)
+        return x.reshape(b, hkv, group, sk, d).sum(dim=2)
+
+    return ds @ kf * scale, per_kv_head(dk), per_kv_head(dv)
 
 
 def flash_grad_error_bound(want: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ Where a gradient is wanted (autograd on, an input that requires it) the
 call goes through ``MLSTMScanFn``: the forward kernel, then the backward
 kernel (``mlstm_scan_bwd.cu``) or, for CPU tensors, the plain version
 and the plain backward. That path takes f32 and returns no final state:
-a state's gradient is refused (ROADMAP item 15b), so no call returns a
+a state's gradient is refused (ROADMAP item 15c: bf16 and stateful
+gradients), so no call returns a
 tensor without a ``grad_fn`` while an input requires grad.
 """
 from __future__ import annotations
@@ -59,7 +60,7 @@ def mlstm_scan(q, k, v, log_f, *, chunk: int = 64, normalize: bool = True,
         if return_state or any(x.dtype != torch.float32 for x in ins):
             raise NotImplementedError(
                 "the mLSTM scan's backward takes float32 and returns no state "
-                "(ROADMAP.md item 15b); got "
+                "(ROADMAP.md item 15c: bf16 and stateful gradients); got "
                 f"{', '.join(str(x.dtype) for x in ins)}, "
                 f"return_state={return_state}")
         return MLSTMScanFn.apply(q, k, v, log_f, chunk, normalize)

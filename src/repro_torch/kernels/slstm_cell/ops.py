@@ -12,7 +12,7 @@ step's gate sums and state, and the backward runs the BPTT kernel
 (``slstm_cell_bwd.cu``) or, for CPU tensors, the plain backward; the
 gradient of r is one batched product after either. That path takes f32
 from the zero state and returns no final state: a state's gradient is
-refused (ROADMAP item 15 trains the language model).
+refused (ROADMAP item 15c: bf16 and stateful gradients).
 """
 from __future__ import annotations
 
@@ -65,8 +65,8 @@ def slstm_cell(pre_x: torch.Tensor, r: torch.Tensor, initial_state=None,
                 or pre_x.dtype != torch.float32 or r.dtype != torch.float32):
             raise NotImplementedError(
                 "the sLSTM backward takes float32 from the zero state and "
-                "returns no state (ROADMAP.md item 15: training the language "
-                "model); got "
+                "returns no state (ROADMAP.md item 15c: bf16 and stateful "
+                "gradients); got "
                 f"{pre_x.dtype}, initial_state "
                 f"{'given' if initial_state is not None else 'None'}, "
                 f"return_state={return_state}")

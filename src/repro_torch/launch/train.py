@@ -12,10 +12,10 @@ The reference's flags and defaults: ``--reduced`` is the default and
 warmup of 10 steps into a cosine decay over ``--steps``; weights random
 from seed 0 (a ``torch.Generator``: the values differ from JAX's);
 batches from ``build_batch`` and ``numpy.random.default_rng(0)``, the
-reference's integers. Training runs the ``xlstm_pair`` block type
-(xlstm-350m, blendfl-paper); the attention families refuse (ROADMAP
-item 15b). ``--model-parallel`` above 1 refuses: the port runs on one
-device and has no mesh or sharding rules (ROADMAP item 16).
+reference's integers. Every config of ``repro_torch.configs`` trains:
+the attention families (dense, MoE, VLM, hybrid, encoder-decoder) and
+the xLSTM pairs. ``--model-parallel`` above 1 refuses: the port runs on
+one device and has no mesh or sharding rules (ROADMAP item 16).
 ``--device`` defaults to CUDA and raises without it.
 
 Checkpoints hold {params, opt_state} (``repro_torch.checkpoint``, the
@@ -44,6 +44,8 @@ import torch
 from repro_torch import optim, resolve_device
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import ALIASES, get_config
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels.mlstm_scan import mlstm_scan as _mlstm
 from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as _mlstm_bwd
 from repro_torch.kernels.slstm_cell import slstm_cell as _slstm
@@ -51,7 +53,8 @@ from repro_torch.kernels.slstm_cell import slstm_cell_bwd as _slstm_bwd
 from repro_torch.models import backbone as bb
 
 # The CUDA kernels a training step launches, by name: their launch counters.
-KERNELS = {"mlstm_scan": _mlstm, "mlstm_scan_bwd": _mlstm_bwd,
+KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
+           "mlstm_scan": _mlstm, "mlstm_scan_bwd": _mlstm_bwd,
            "slstm_cell": _slstm, "slstm_cell_bwd": _slstm_bwd}
 
 

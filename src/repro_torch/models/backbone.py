@@ -17,14 +17,17 @@ encoder's input). Layers are stacked on a leading axis (each leaf of
 init gives them) and walked by a Python loop where the reference runs
 ``lax.scan``; the decode cache is stacked the same way.
 
-Training runs the ``xlstm_pair`` block (xlstm-350m, blendfl-paper):
-its gradient goes through the mLSTM-scan and sLSTM backward kernels.
-Every other block type refuses with ``NotImplementedError`` (the causal
-and GQA flash-attention backwards, the MoE aux loss's and the
-frontends' gradients: ROADMAP item 15b), as does the grouped MoE
-dispatch of a multi-device launcher (``moe_groups > 0``: item 16). The
-reference's ``_constrain`` / ``act_shard`` pin activations to a mesh
-and have no counterpart on one device.
+Training runs every block type. Its gradient goes through the
+hand-written backward kernels where the forward runs a kernel: the
+flash-attention backward (every attention: causal, grouped K/V heads,
+the sliding window, the logit cap, cross-attention), the mLSTM-scan
+backward (the mLSTM and hymba's Mamba heads) and the sLSTM's BPTT; the
+rest (MoE dispatch and aux loss, the stub frontends, RoPE / M-RoPE, the
+norms and MLPs) is autograd of plain tensor ops. The grouped MoE
+dispatch of a multi-device launcher (``moe_groups > 0``) refuses at
+every entry (ROADMAP item 16). The reference's ``_constrain`` /
+``act_shard`` pin activations to a mesh and have no counterpart on one
+device.
 """
 from __future__ import annotations
 
@@ -196,21 +199,11 @@ def _encdec_forward(params, cfg: ArchConfig, batch):
                                                    device=x.device)
 
 
-def _check_trainable(cfg: ArchConfig, name: str) -> None:
-    _check(cfg)
-    if cfg.block_type != "xlstm_pair":
-        raise NotImplementedError(
-            f"{name}: training {cfg.name} (block type {cfg.block_type!r}) is "
-            "not ported: it needs the causal and GQA flash-attention "
-            "backwards, the MoE aux loss's and the frontends' gradients "
-            "(ROADMAP item 15b); the xlstm_pair block trains")
-
-
 def loss_fn(params, cfg: ArchConfig, batch):
     """Mean next-token cross-entropy (over ``loss_mask`` where given; the
     text positions of a VLM) plus ``router_aux_weight`` times the aux
     loss. Returns (total, {"loss", "aux"})."""
-    _check_trainable(cfg, "loss_fn")
+    _check(cfg)
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
@@ -243,7 +236,7 @@ def make_train_step(cfg: ArchConfig, optimizer, microbatches: int = 1):
     gradients are summed in f32 and divided by ``microbatches``, and the
     metrics are loss = the mean total and aux = 0, as the reference
     reports them."""
-    _check_trainable(cfg, "make_train_step")
+    _check(cfg)
 
     def train_step(params, opt_state, batch):
         if microbatches > 1:

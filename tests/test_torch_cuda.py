@@ -1069,6 +1069,125 @@ def test_flash_lse_and_bwd_kernel_match_plain_on_card(b, h, sq, sk, d, causal):
         assert bool((err <= flash_grad_error_bound(w)).all()), (name, float(err.max()))
 
 
+# The language models' forms of the flash backward: (B, Hq, Hkv, Sq, Sk,
+# d, causal, window, softcap). Grouped K/V heads at G = 3, 5, 9 (the
+# two-kernel path at any length), windows that bind inside and across
+# tiles, the logit cap (both paths' capped instances), d = 80 (the KD =
+# 128 instance), queries end-aligned to fewer keys (rows with no visible
+# key) and to more (cross attention).
+FLASH_BWD_FORMS = [
+    (2, 6, 2, 100, 100, 64, True, 0, 0.0),
+    (1, 10, 2, 130, 130, 64, True, 40, 0.0),
+    (2, 4, 4, 150, 150, 32, True, 33, 0.0),
+    (1, 4, 4, 48, 48, 16, True, 16, 0.0),
+    (2, 4, 4, 48, 48, 16, True, 0, 30.0),
+    (1, 6, 2, 90, 90, 80, True, 0, 20.0),
+    (2, 9, 1, 40, 40, 16, True, 0, 0.0),
+    (1, 4, 2, 70, 130, 64, False, 0, 0.0),
+    (1, 4, 2, 130, 70, 64, True, 24, 5.0),
+    (1, 2, 2, 200, 200, 128, True, 64, 50.0),
+]
+
+
+def _flash_bwd_inputs(b, hq, hkv, sq, sk, d, causal, window, softcap, seed):
+    """q, k, v, the forward kernel's output and lse at this form, and a
+    random output gradient."""
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=seed)
+    out, lse = flash_launcher.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True)
+    dout = torch.randn(out.shape, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(seed))
+    return q, k, v, out, dout, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap", FLASH_BWD_FORMS)
+def test_flash_bwd_forms_match_plain_on_card(b, hq, hkv, sq, sk, d, causal,
+                                             window, softcap):
+    """Every form the forward takes, through the backward kernels: the
+    forward's lse against the plain version's, then dq, dk and dv within
+    flash_grad_error_bound of the plain backward on the same inputs, in
+    kernels_a_call(Sq, Sk, G) launches."""
+    _skip_without_card()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_grad_error_bound)
+
+    form = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v, out, dout, lse = _flash_bwd_inputs(b, hq, hkv, sq, sk, d, **form,
+                                                seed=sq + d + hq)
+    _, want_lse = flash_attention_ref(q, k, v, return_lse=True, **form)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    np.testing.assert_allclose(lse[fin].cpu().numpy(), want_lse[fin].cpu().numpy(),
+                               rtol=FLASH_TOL[torch.float32],
+                               atol=FLASH_TOL[torch.float32])
+    before = fbwd.launches
+    got = fbwd.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **form)
+    torch.cuda.synchronize()
+    assert fbwd.launches == before + fbwd.kernels_a_call(sq, sk, hq // hkv)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, **form)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        err = (g - w).abs()
+        assert bool((err <= flash_grad_error_bound(w)).all()), (name, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap", [
+    (2, 6, 2, 100, 100, 64, True, 0, 0.0), (1, 4, 4, 48, 48, 16, True, 16, 30.0),
+    (1, 10, 2, 130, 130, 64, True, 40, 5.0),
+])
+def test_flash_autograd_launches_on_card(b, hq, hkv, sq, sk, d, causal, window,
+                                         softcap):
+    """Through ``flash_attention`` under autograd (FlashAttentionFn): one
+    forward launch, then kernels_a_call(Sq, Sk, G) backward launches and
+    the plain backward's gradients; 1 launch only where Sq, Sk <= 64 and
+    G = 1."""
+    _skip_without_card()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_grad_error_bound)
+
+    form = dict(causal=causal, window=window, softcap=softcap)
+    xs = [x.requires_grad_() for x in _qkv(b, hq, hkv, sq, sk, d, seed=7)]
+    f0, b0 = flash_launcher.launches, fbwd.launches
+    out = flash_attention(*xs, **form)
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    n = fbwd.kernels_a_call(sq, sk, hq // hkv)
+    assert n == (1 if max(sq, sk) <= 64 and hq == hkv else 2)
+    assert (flash_launcher.launches, fbwd.launches) == (f0 + 1, b0 + n)
+    q, k, v = (x.detach() for x in xs)
+    _, lse = flash_attention_ref(q, k, v, return_lse=True, **form)
+    want = flash_attention_bwd_ref(q, k, v, out.detach(), dout, lse, **form)
+    for x, w in zip(xs, want):
+        assert bool(((x.grad - w).abs() <= flash_grad_error_bound(w)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap", [
+    (1, 10, 2, 130, 130, 64, True, 40, 0.0), (2, 4, 4, 48, 48, 16, True, 0, 30.0),
+    (1, 6, 2, 90, 90, 80, True, 0, 20.0),
+])
+def test_flash_bwd_is_deterministic_on_card(b, hq, hkv, sq, sk, d, causal, window,
+                                            softcap):
+    """No float atomics: calls on the same inputs give the same bits (dk
+    and dv summed over a K/V head's query heads in registers, in order)."""
+    _skip_without_card()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
+
+    form = dict(causal=causal, window=window, softcap=softcap)
+    xs = _flash_bwd_inputs(b, hq, hkv, sq, sk, d, **form, seed=3)
+    first = fbwd.flash_attention_bwd_cuda(*xs, **form)
+    for _ in range(20):
+        again = fbwd.flash_attention_bwd_cuda(*xs, **form)
+        assert all(torch.equal(a, g) for a, g in zip(first, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n_heads,hd", [
     (64, 64, 256), (64, 4, 256), (2, 4, 256), (37, 4, 256), (3, 32, 4),
@@ -1129,7 +1248,7 @@ def test_mlstm_scan_with_grad_on_card_has_grad_fn():
     """Fault (m): a CUDA scan that wants a gradient goes through
     MLSTMScanFn (the forward and backward kernels, one launch each) and
     its gradients match the plain backward's; what the backward does not
-    take refuses, naming ROADMAP item 15b."""
+    take refuses, naming ROADMAP item 15c."""
     _skip_without_card()
     from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as bwd
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
@@ -1151,7 +1270,7 @@ def test_mlstm_scan_with_grad_on_card_has_grad_fn():
         err = (x.grad - g).abs()
         bound = mlstm_grad_error_bound(g, dq_scale if i == 0 else None)
         assert bool((err <= bound).all()), float(err.max())
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    with pytest.raises(NotImplementedError, match="item 15c"):
         mlstm_scan(*xs, return_state=True)
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    with pytest.raises(NotImplementedError, match="item 15c"):
         mlstm_scan(*[x.detach().half().requires_grad_() for x in xs])

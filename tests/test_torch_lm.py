@@ -109,16 +109,23 @@ def test_init_shapes_and_scales_match_reference(name):
 
 
 def test_training_and_grouped_moe_refuse():
-    """What the port does not run refuses, naming its ROADMAP item: LM
-    training of the attention families (item 15b; the xlstm pair trains,
-    tests/test_torch_lm_train.py), and the grouped MoE dispatch of a
-    multi-device launcher (moe_groups > 0, item 16) at every entry."""
+    """The attention families train (ROADMAP item 15b: a finite loss and
+    a gradient for every leaf; their parity with the reference is in
+    tests/test_torch_lm_train_*.py); what the port does not run refuses,
+    naming its ROADMAP item: the grouped MoE dispatch of a multi-device
+    launcher (moe_groups > 0, item 16) at every entry."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.launch.train import build_batch
+
     for name in ("phi4_mini_3p8b", "whisper_medium", "hymba_1p5b"):
         cfg = get_config(name).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            tbb.loss_fn({}, cfg, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            tbb.make_train_step(cfg, None)
+        params = tbb.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in build_batch(
+            cfg, 1, 8, np.random.default_rng(0)).items()}
+        total, _, grads = tbb._value_and_grad(params, cfg, batch)
+        assert bool(torch.isfinite(total))
+        assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        assert callable(tbb.make_train_step(cfg, None))
     cfg = get_config("deepseek_moe_16b").reduced().replace(moe_groups=4)
     toks = torch.zeros(1, 2, dtype=torch.int32)
     for call in (lambda: tbb.init_params(torch.Generator(), cfg, device="cpu"),

@@ -9,8 +9,9 @@ with ``params_from_numpy``; batches of 2 x 128 tokens drawn with numpy.
 The port's gradients run the mLSTM-scan and sLSTM autograd functions'
 CPU paths (the plain forwards and backwards).
 
-Tolerances (f32 sums in other orders: the port's step recurrences
-against the reference's chunkwise scan, over 128 steps):
+Tolerances (``tests/_torch_lm_train_parity.py``; f32 sums in other
+orders: the port's step recurrences against the reference's chunkwise
+scan, over 128 steps):
 - loss within rtol 1e-5;
 - each gradient leaf within 1e-4 of that leaf's largest |gradient|
   (seen: 8e-6);
@@ -39,12 +40,14 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.data.pipeline import token_batches
 from repro_torch.models import backbone as tbb
 
+from _torch_lm_train_parity import (
+    GRAD_REL,
+    LOSS_RTOL,
+    assert_leafwise,
+    check_three_adamw_steps,
+)
+from _torch_lm_train_parity import leaves as _leaves
 from _torch_parity import one_torch_thread  # noqa: F401  (one torch thread)
-
-LOSS_RTOL = 1e-5
-GRAD_REL = 1e-4
-PARAM_RATE_SHARE, PARAM_CLOSE, PARAM_FAR_SHARE = 0.1, 1e-6, 1e-3
-LR, WARMUP, TOTAL = 1e-3, 2, 3  # lr_t = 5e-4, 1e-3, 1e-3
 
 
 def _cfgs(name):
@@ -72,20 +75,6 @@ def _batches(vocab, n, batch=2, seq=128, seed=0, mask=False):
     return out
 
 
-def _leaves(tree, path=""):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{path}/{k}")]
-    return [(path, np.asarray(tree))]
-
-
-def _assert_leafwise(want, got, rel, what):
-    for (path, w), (gpath, g) in zip(_leaves(want), _leaves(got)):
-        assert path == gpath and w.shape == g.shape, (path, gpath)
-        tol = rel * np.abs(w).max() + 1e-12
-        err = np.abs(g - w).max()
-        assert err <= tol, f"{what} {path}: {err} > {tol}"
-
-
 @pytest.mark.parametrize("name,mask", [("xlstm_350m", False), ("xlstm_350m", True),
                                        ("blendfl_paper", False)])
 def test_loss_and_gradients_match_jax(name, mask):
@@ -101,44 +90,15 @@ def test_loss_and_gradients_match_jax(name, mask):
     # the public loss_fn is the same function, with a graph
     t2, _ = tbb.loss_fn(tp, tc, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert float(t2) == float(total)
-    _assert_leafwise(jax.tree.map(np.asarray, jg), params_to_numpy(grads),
-                     GRAD_REL, "gradient")
-
-
-def _lr(step):
-    return topt.linear_warmup_cosine(LR, warmup=WARMUP, total_steps=TOTAL)(
-        torch.tensor(step, dtype=torch.int32))
+    assert_leafwise(jax.tree.map(np.asarray, jg), params_to_numpy(grads),
+                    GRAD_REL, "gradient")
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_three_adamw_steps_match_reference_train_step(microbatches):
     jc, tc, jp, tp = _model("xlstm_350m")
-    jo = jopt.adamw(jopt.linear_warmup_cosine(LR, warmup=WARMUP, total_steps=TOTAL))
-    to = topt.adamw(topt.linear_warmup_cosine(LR, warmup=WARMUP, total_steps=TOTAL))
-    jstep = jax.jit(jbb.make_train_step(jc, jo, microbatches=microbatches))
-    tstep = tbb.make_train_step(tc, to, microbatches=microbatches)
-    js, ts = jo.init(jp), to.init(tp)
-    lr_sum = 0.0
-    for i, batch in enumerate(_batches(jc.vocab_size, 3, seed=1)):
-        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
-        tp, ts, tm = tstep(tp, ts, {k: torch.from_numpy(v) for k, v in batch.items()})
-        assert sorted(tm) == sorted(jm) == ["aux", "loss", "total"]
-        for key in jm:
-            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
-                                       rtol=LOSS_RTOL, atol=1e-7, err_msg=key)
-        lr_sum += float(_lr(i + 1))
-    assert int(ts["step"]) == int(js["step"]) == 3
-    for key in ("mu", "nu"):
-        _assert_leafwise(jax.tree.map(np.asarray, js[key]), params_to_numpy(ts[key]),
-                         GRAD_REL, key)
-    far, total = 0, 0
-    for (path, w), (_, g) in zip(_leaves(jax.tree.map(np.asarray, jp)),
-                                 _leaves(params_to_numpy(tp))):
-        err = np.abs(g - w)
-        assert err.max() <= PARAM_RATE_SHARE * lr_sum, (path, err.max(), lr_sum)
-        far += int((err > PARAM_CLOSE).sum())
-        total += err.size
-    assert far <= PARAM_FAR_SHARE * total, (far, total)
+    check_three_adamw_steps(jc, tc, jp, tp, _batches(jc.vocab_size, 3, seed=1),
+                            microbatches=microbatches)
 
 
 def test_microbatch_metrics_follow_the_reference():

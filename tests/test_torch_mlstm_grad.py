@@ -149,9 +149,9 @@ def test_refusals_name_item_15b():
     a gradient both run as before."""
     q, k, v, lf, _ = _inputs(1, 1, 8, 4, 4, seed=1)
     xs = [torch.from_numpy(x) for x in (q, k, v, lf)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15c"):
         mlstm_scan(xs[0].requires_grad_(), *xs[1:], return_state=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15c"):
         gated_linear_scan(*[x.double().requires_grad_() for x in xs])
     with torch.no_grad():
         out, (c, n) = mlstm_scan(*xs, return_state=True)

@@ -151,11 +151,20 @@ def build(name: str, text: str, nvcc: str, flags) -> tuple:
     return lib, res.stdout + res.stderr
 
 
-def entry(kind: str, lib: Path):
+def entry(kind: str, lib: Path, text: str):
+    """The C entry point of a built source. A flash source whose entry
+    takes the window and the cap (``grouped``) gets (batch, Hq, Hkv, Sq,
+    Sk, d, causal, window, softcap); an older one (batch * heads, Sq, Sk,
+    d, causal)."""
     fn = getattr(ctypes.CDLL(str(lib)), {"slstm": "slstm_cell_bwd_f32",
                                           "flash": "flash_attention_bwd_f32"}[kind])
+    fn.grouped = False
     if kind == "slstm":
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    elif "float softcap" in text:
+        fn.grouped = True
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
     else:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -257,7 +266,7 @@ def main(argv=None) -> int:
         order = (["kernel"] + (["baseline"] if "baseline" in names else [])
                  + [n for n in names if n not in ("kernel", "baseline")]
                  + ["kernel"] + (["baseline"] if "baseline" in names else []))
-        fns = {n: entry(kind, built[(kind, n)][0]) for n in names}
+        fns = {n: entry(kind, built[(kind, n)][0], texts[(kind, n)]) for n in names}
         for rows, c in SHAPES:
             per_set = (rows * H * S * HD * 4 * (7 + 1) if kind == "slstm"
                        else rows * H * S * HD * 4 * 5)
@@ -292,11 +301,12 @@ def main(argv=None) -> int:
 
                 def call(fn, x=None, name=""):
                     q, k, v, o, g, lse = x or nxt()
+                    dims = ((rows, H, H, S, S, HD, 0, 0, 0.0) if fn.grouped
+                            else (rows * H, S, S, HD, 0))
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                              g.data_ptr(), lse.data_ptr(), dd.data_ptr(),
                              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                             rows * H, S, S, HD, 0,
-                             torch.cuda.current_stream().cuda_stream)
+                             *dims, torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"flash {name}: CUDA error {err}")
                     return dq, dk, dv
