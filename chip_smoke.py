@@ -3553,7 +3553,8 @@ TRAIN_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
 # forward and the mLSTM scan (the Mamba heads) once a layer, and their
 # backwards once a layer: kernels_a_call(2048, 2048, 5) = 2 flash
 # backward kernels, counted each, and one mLSTM backward call of
-# kernel_launches(False) = 2 kernels, counted once (``train_launches``).
+# mlstm_scan_bwd.LAUNCHES = 5 launches, counted once
+# (``train_launches``).
 HYMBA_STEPS, HYMBA_CKPT_EVERY, HYMBA_BATCH, HYMBA_SEQ = 12, 6, 2, 2048
 TRAIN_RUNS = {
     "xlstm-350m": dict(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
@@ -3598,7 +3599,7 @@ def train_launches(cfg, seq: int, patches: int = 0, frames: int = 0) -> dict:
     forward an attention and ``kernels_a_call(Sq, Sk, G)`` backward
     kernels (the flash backward's counter counts kernels); a hybrid
     layer's Mamba heads one mLSTM scan and one call of its backward (the
-    mLSTM backward's counter counts calls, of ``kernel_launches`` kernels
+    mLSTM backward's counter counts calls, of ``LAUNCHES`` kernels
     each); an xLSTM pair one mLSTM scan, one sLSTM cell and one call of
     each backward."""
     from repro_torch.kernels.flash_attention.flash_attention_bwd import (
@@ -3688,11 +3689,13 @@ def check_mlstm_bwd(torch, mbwd, mref, xs, normalize) -> dict:
 
 
 def time_mlstm_bwd(torch, mlaunch, mbwd, mref, case, mem_rate) -> dict:
-    """The backward kernel at ``case`` beside the plain backward, a plain
+    """The backward kernels at ``case`` beside the plain backward, a plain
     autograd of the plain scan (``torch.autograd.grad`` on a kept graph
     of ``mlstm_scan_ref``, the ROADMAP's comparison) and the bound:
-    operations at the 3xTF32 rate (the least time; ``bound_ms``) and at
-    f32 on SIMT, the engine the kernel runs on (``bound_ms_simt``)."""
+    operations at the 3xTF32 rate of the tensor cores, the engine the
+    kernels run on (the least time; ``bound_ms``), and at f32 on SIMT, the
+    SIMT design before it (``bound_ms_simt``); device ms a launch and a call of
+    each kernel, and the plan (CTAs, the blocks an SM holds, waves)."""
     b, h, s, dk, dv, normalize = case
     nbytes = 4 * b * h * (s * (2 * dk + dv + 1 + dv + int(normalize) * dv)
                           + s * (2 * dk + dv + 1))
@@ -3717,7 +3720,7 @@ def time_mlstm_bwd(torch, mlaunch, mbwd, mref, case, mem_rate) -> dict:
     bytes_ms = nbytes / mem_rate * 1e3
     ops_ms = 3 * flops / TF32_OPS_PER_S * 1e3
     simt_ms = flops / FP32_OPS_PER_S * 1e3
-    kernels = mbwd.kernel_launches(normalize)
+    kernels = mbwd.LAUNCHES
     tag = f"{case}"
     t = {"shape": list(case[:5]), "normalize": normalize,
          "kernels_a_call": kernels,
@@ -3731,24 +3734,31 @@ def time_mlstm_bwd(torch, mlaunch, mbwd, mref, case, mem_rate) -> dict:
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "bound_ms_simt": max(bytes_ms, simt_ms), "gflop": flops / 1e9,
          "mbytes": nbytes / 1e6}
-    # each kernel's share of a call (one launch of each a call): device ms
-    # a launch by kernel name, over the launches the profile recorded
-    profiled = device_kernels(lambda: [kern() for _ in range(10)])
-    t["device_ms_by_kernel"] = {}
-    for sym in mbwd.KERNELS[3 - kernels:]:
+    # each kernel's share of a call: device ms a launch and a call by
+    # kernel name (mlstm_bwd_state runs twice a call), over the launches
+    # the profile recorded
+    calls = 10
+    profiled = device_kernels(lambda: [kern() for _ in range(calls)])
+    t["device_ms_by_kernel"], t["device_ms_a_call_by_kernel"] = {}, {}
+    for sym in mbwd.KERNELS:
         us = sum(u for u, _, name in profiled if sym in name)
         n = sum(c for _, c, name in profiled if sym in name)
         t["device_ms_by_kernel"][sym] = us / n / 1e3 if n else None
+        t["device_ms_a_call_by_kernel"][sym] = us / calls / 1e3 if n else None
+    got, per_sm, _ = mbwd.kernel_plan(b * h, s, dk, dv, normalize)
+    t["plan"] = {sym: {"ctas": got.ctas(sym), "per_sm": per_sm[sym],
+                       "waves": got.waves[sym]} for sym in mbwd.KERNELS}
     del graph, xs
-    print(f"mlstm_scan_bwd {t['shape']} normalize={normalize}: kernel "
-          f"{t['ms']:.5f} ms (device {t['device_ms']} ms, {kernels} kernels a "
-          f"call), plain backward {t['plain_ms']:.3f} ms, autograd of the plain "
-          f"scan {t['autograd_ms']:.3f} ms; bound {t['bound_ms']:.6f} ms at the "
-          f"3xTF32 rate ({t['bound_by']}, {t['gflop']:.3f} GFLOP, "
-          f"{t['mbytes']:.1f} MB), {t['bound_ms_simt']:.6f} ms on SIMT f32; "
-          f"kernel at {t['bound_ms'] / t['ms']:.3f} / "
-          f"{t['bound_ms_simt'] / t['ms']:.3f} of them; device ms a launch by "
-          f"kernel {t['device_ms_by_kernel']}")
+    print(f"mlstm_scan_bwd {t['shape']} normalize={normalize}: "
+          f"{t['ms']:.5f} ms a call (device {t['device_ms']} ms, {kernels} "
+          f"launches a call), plain backward {t['plain_ms']:.3f} ms, autograd "
+          f"of the plain scan {t['autograd_ms']:.3f} ms; bound "
+          f"{t['bound_ms']:.6f} ms at the 3xTF32 rate ({t['bound_by']}, "
+          f"{t['gflop']:.3f} GFLOP, {t['mbytes']:.1f} MB), "
+          f"{t['bound_ms_simt']:.6f} ms on SIMT f32; the call at "
+          f"{t['bound_ms'] / t['ms']:.3f} / {t['bound_ms_simt'] / t['ms']:.3f} "
+          f"of them; device ms a launch by kernel {t['device_ms_by_kernel']}, "
+          f"a call {t['device_ms_a_call_by_kernel']}; plan {t['plan']}")
     return t
 
 
@@ -4807,6 +4817,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/mlstm_scan/mlstm_scan_bwd.cu",
         "replaces": "none: the reference differentiates "
                     "src/repro/models/recurrent.py:28 with jax.grad",
+        "design": "chunk-parallel, 3xTF32 mma.sync: chunk summaries and "
+                  "an in-place pass give the chunk-boundary states, each "
+                  "chunk's two score matrices computed once, then the "
+                  "chunks' outputs in 64-column tiles and dlog_f's scan",
         "launches": lm_train["launches"]["mlstm_scan_bwd"],
         "launches_a_step": TRAIN_LAUNCHES["mlstm_scan_bwd"],
         "kernels_a_call": t["kernels_a_call"], "max_abs_err": mbwd_err,

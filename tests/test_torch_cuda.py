@@ -1212,6 +1212,12 @@ def test_slstm_bwd_plan_matches_the_kernel_on_card(b, n_heads, hd):
     (2, 4, 128, 512, 512, True),   # xlstm-350m's heads (dv + 1 = 513: 17 tiles)
     (2, 25, 256, 16, 64, False),   # hymba's Mamba heads
     (1, 1, 70, 8, 130, True),      # three column blocks, the last ragged
+    (2, 25, 2048, 16, 64, False),  # hymba's S: 32 chunks in parallel, 31 states
+    (1, 1, 130, 1024, 64, True),   # dk 1024 with the normalizer: 16 state row tiles
+    (1, 2, 40, 24, 100, True),     # one chunk (no state), 2 state row tiles of 16
+    (1, 1, 300, 40, 200, False),   # 5 chunks, 4 state column tiles, dv past dk
+    (2, 1, 200, 33, 31, True),     # state row tiles of 32, odd widths (no cp.async)
+    (1, 2, 4500, 16, 32, False),   # 71 chunks: the states' pass past 64 updates
 ])
 def test_mlstm_bwd_kernel_matches_plain_on_card(b, h, s, dk, dv, normalize):
     """The backward kernel's dq, dk, dv and dlog_f within
@@ -1241,6 +1247,31 @@ def test_mlstm_bwd_kernel_matches_plain_on_card(b, h, s, dk, dv, normalize):
         err = (g - w).abs()
         bound = mlstm_grad_error_bound(w, dq_scale if name == "dq" else None)
         assert bool((err <= bound).all()), (name, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,dk,dv,normalize", [
+    (32, 128, 512, 512, True), (50, 2048, 16, 64, False), (2, 150, 64, 64, True),
+    (6, 37, 16, 24, True), (1, 70, 8, 130, True), (1, 130, 1024, 64, True),
+    (3, 64, 100, 1, False), (1, 1, 1, 1, True),
+])
+def test_mlstm_bwd_plan_matches_the_kernel_on_card(bh, s, dk, dv, normalize):
+    """The backward kernels' grids, scratch and shared memory are those of
+    the launcher's mirror (mlstm_scan_bwd.plan, work_bytes, CHUNK_SMEM,
+    checked on the CPU by tests/test_torch_mlstm_bwd_plan.py), and the
+    card holds at least one CTA of each kernel an SM."""
+    _skip_without_card()
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as bwd
+
+    got, per_sm, smem = bwd.kernel_plan(bh, s, dk, dv, normalize)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert got == bwd.plan(bh, s, dk, dv, normalize, sms=sms, per_sm=per_sm)
+    assert all(n >= 1 for n in per_sm.values()), per_sm
+    assert smem == {"state": bwd.STATE_SMEM, "scores": bwd.SCORE_SMEM,
+                    "chunk": bwd.CHUNK_SMEM,
+                    "launches": bwd.LAUNCHES}
+    assert bwd.kernel_work_bytes(bh, s, dk, dv, normalize) == bwd.work_bytes(
+        bh, s, dk, dv, normalize)
 
 
 @pytest.mark.cuda

@@ -162,8 +162,9 @@ def test_refusals_name_item_15b():
 
 def test_bwd_launcher_checks_before_building(monkeypatch):
     """The CUDA launcher raises on CPU tensors, other dtypes, mismatched
-    shapes and shapes past its shared memory, before it builds or
-    launches anything; its Python mirror of the shared memory a CTA."""
+    shapes and grids past an int, before it builds or launches anything;
+    its Python mirror of a chunk CTA's shared memory, the launches a call
+    and the scratch."""
     def no_build(*a, **k):
         raise AssertionError("the launcher built its library")
 
@@ -176,22 +177,35 @@ def test_bwd_launcher_checks_before_building(monkeypatch):
         bwd_launcher.mlstm_scan_bwd_cuda(q.double(), k, v, lf, w, w)
     with pytest.raises(ValueError, match="want k"):
         bwd_launcher.mlstm_scan_bwd_cuda(q, k[:, :1], v, lf, w, w)
-    with pytest.raises(ValueError, match="dk <= 1024"):
+    # dk 1025 with the normalizer and dv 800, which the SIMT design
+    # refused (its prep kernel's registers, its scan CTA's shared memory),
+    # pass every check but the device's
+    with pytest.raises(ValueError, match="CUDA tensors"):
         big = torch.zeros(1, 1, 2, 1025)
         bwd_launcher.mlstm_scan_bwd_cuda(big, big, v[:, :1, :2], lf[:, :1, :2],
                                          w[:, :1, :2], w[:, :1, :2])
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         wide = torch.zeros(1, 1, 2, 800)
         bwd_launcher.mlstm_scan_bwd_cuda(q[:, :1, :2], k[:, :1, :2], wide,
                                          lf[:, :1, :2], wide, wide)
+    with pytest.raises(ValueError, match="grid"):  # 2^21 (b, h) x 2^16 chunks
+        qm = torch.empty(2**21, 1, 2**22, 1, device="meta")
+        lm = torch.empty(2**21, 1, 2**22, device="meta")
+        bwd_launcher.mlstm_scan_bwd_cuda(qm, qm, qm, lm, qm, qm)
     assert bwd_launcher.launches == before
-    # xlstm-350m's heads (dk = dv = 512, the normalizer column): 17 tiles
-    # of 32 rows of state; hymba's Mamba heads (dk 16, dv 64, no normalizer)
-    assert bwd_launcher.smem_bytes(512, 512, True) == 4 * (544 * 64 + 2 * 64 * 33
-                                                           + 2 * 64 * 65 + 192)
-    assert bwd_launcher.smem_bytes(16, 64, False) == 4 * (64 * 64 + 12736)
-    assert bwd_launcher.kernel_launches(True) == 3
-    assert bwd_launcher.kernel_launches(False) == 2
+    # one chunk CTA's shared memory at every shape: a ring of two stages
+    # of two (64, 32) slices at stride 36, five (64, 64) tiles at stride
+    # 72, seven rows of per-step values; five launches a call, with or
+    # without the normalizer; the scratch at xlstm-350m's training shape (32 (b, h)
+    # pairs, S 128, dk = dv = 512, the normalizer column) and hymba's Mamba
+    # heads (50 pairs, S 2048, dk 16, dv 64)
+    assert bwd_launcher.CHUNK_SMEM == 4 * (2 * 2 * 64 * 36 + 5 * 64 * 72 + 7 * 64) == 130816
+    assert bwd_launcher.LAUNCHES == 5
+    assert bwd_launcher.work_bytes(32, 128, 512, 512, True) == 4 * (
+        32 * 128 * 512 + 32 * 128 + 2 * 32 * 512 * 516 + 32 * 2 * 2 * 4096
+        + 32 * 8 * 128 + 2 * 32 * 8 * 9)
+    assert bwd_launcher.work_bytes(50, 2048, 16, 64, False) == 4 * (
+        2 * 50 * 31 * 16 * 64 + 50 * 32 * 2 * 4096 + 50 * 2048 + 2 * 50 * 1 * 1)
 
 
 def test_autograd_fn_saves_the_forward_output():

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""The two training backward kernels beside other versions of their
-sources, and where their time goes by ablation, on one CUDA card.
+"""The training backward kernels beside other versions of their sources,
+and where their time goes by ablation, on one CUDA card.
 
     python3 tools/torch_bwd_ablation.py [--slstm-baseline OTHER/slstm_cell_bwd.cu]
                                         [--flash-baseline OTHER/flash_attention_bwd.cu]
+                                        [--mlstm-baseline OTHER/mlstm_scan_bwd.cu]
 
-Builds the port's ``slstm_cell_bwd.cu`` and ``flash_attention_bwd.cu`` as
-they are and in variants that change one thing in their text, plus each
-baseline given, loads each with ctypes and calls its C entry point
-(``slstm_cell_bwd_f32``, ``flash_attention_bwd_f32``: the same in every
-version) at the encoders' training shapes: a round's stacked (16 clients
-x 64 rows, 4 heads, S = 64, hd = d = 256) and one client's (64 rows).
+Builds the port's ``slstm_cell_bwd.cu``, ``flash_attention_bwd.cu`` and
+``mlstm_scan_bwd.cu`` as they are and in variants that change one thing
+in their text, plus each baseline given, loads each with ctypes and calls
+its C entry point (``slstm_cell_bwd_f32``, ``flash_attention_bwd_f32``,
+``mlstm_scan_bwd_f32``: the same in every version) at the training
+shapes: for the encoders a round's stacked (16 clients x 64 rows, 4
+heads, S = 64, hd = d = 256) and one client's (64 rows); for the mLSTM
+scan xlstm-350m's (8, 4, 128, 512, 512) with the normalizer and
+hymba-1.5b's Mamba heads (2, 25, 2048, 16, 64) without (the scratch
+passed as ``du`` is the current source's, which holds the older one's du).
 The versions are timed in turns (kernel, baseline, variants, then the
 kernel and the baseline again), each a call with CUDA events over inputs
 rotated across at least 200 MB, so that each call reads HBM; r_h^T and
@@ -32,7 +37,17 @@ plain backward like the kernel:
   stores only); ``tc_accum`` (right): phase 1's sums (s, dp) added in
   the tensor cores, as phase 2's are; ``rn_accum`` (right): phase 2's
   too with round-to-nearest; ``four_pass`` (right): the split's fourth
-  product, small * small, too.
+  product, small * small, too;
+- mLSTM ``one_pass``: one TF32 product (big * big) in place of the
+  split's three; ``no_products``: no MMA runs (staging, the states' pass,
+  the normalize step, the stores only); ``ring3``, ``ring4`` (right): a
+  ring of 3 or 4 stages for the slice pipelines (2 in the source: 1
+  slice in flight); ``state_lb2`` (right): the state kernel at 128
+  registers, two CTAs an SM (three, at 85, in the source); ``pass_b8``
+  (right): the states' pass with 8 updates' loads in flight (4 in the
+  source); ``scores_per_block`` (right): the
+  scores launch repeated once a column tile, the work of recomputing each
+  chunk's scores for every column block as the SIMT design did.
 
 The kernels' shared headers (``kernels/*.cuh``) are inlined into each
 copy before it is edited and built.
@@ -60,7 +75,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 SOURCES = {"slstm": KERNELS / "slstm_cell" / "slstm_cell_bwd.cu",
-           "flash": KERNELS / "flash_attention" / "flash_attention_bwd.cu"}
+           "flash": KERNELS / "flash_attention" / "flash_attention_bwd.cu",
+           "mlstm": KERNELS / "mlstm_scan" / "mlstm_scan_bwd.cu"}
 OUT = ROOT / "build" / "bwd_ablation"
 
 # the flash kernel's phase 1 (s, dp; its sums added with round-to-nearest,
@@ -111,14 +127,45 @@ VARIANTS = {
                        "  mma_tf32(c, a_small, b_big[0], b_big[1]);\n")],
     },
 }
+VARIANTS["mlstm"] = {
+    "one_pass": [(
+        "      if (f < nf) mma_tf32(blk[f], a.small[s], b.big[f][s][0], b.big[f][s][1]);",
+        "      (void)0;"), (
+        "      if (f < nf) mma_tf32(blk[f], a.big[s], b.small[f][s][0], b.small[f][s][1]);",
+        "      (void)0;")],
+    "no_products": [(
+        "      if (f < nf) mma_tf32(blk[f], a.small[s], b.big[f][s][0], b.big[f][s][1]);",
+        "      (void)0;"), (
+        "      if (f < nf) mma_tf32(blk[f], a.big[s], b.small[f][s][0], b.small[f][s][1]);",
+        "      (void)0;"), (
+        "      if (f < nf) mma_tf32(blk[f], a.big[s], b.big[f][s][0], b.big[f][s][1]);",
+        "      (void)0;")],
+    "ring3": [("constexpr int kRing = 2;", "constexpr int kRing = 3;")],
+    "ring4": [("constexpr int kRing = 2;", "constexpr int kRing = 4;")],
+    "state_lb2": [("__launch_bounds__(kThreads, 3)\nmlstm_bwd_state(",
+                   "__launch_bounds__(kThreads, 2)\nmlstm_bwd_state(")],
+    "pass_b8": [("kQ = 4, kB = 4, kPass = 1024;", "kQ = 4, kB = 8, kPass = 1024;")],
+    "scores_per_block": [(
+        "  mlstm_bwd_scores<<<(unsigned)ctas[1], kWideThreads, kScoreSmem, st>>>(",
+        "  for (int rep = 1; rep < s.tiles; ++rep)\n"
+        "    mlstm_bwd_scores<<<(unsigned)ctas[1], kWideThreads, kScoreSmem, st>>>(\n"
+        "        sa, lff, seq, dkd, dvd, s.pp, s.slots, normalize);\n"
+        "  mlstm_bwd_scores<<<(unsigned)ctas[1], kWideThreads, kScoreSmem, st>>>(")],
+}
 # The variants whose outputs are meant to be right, held to the plain
 # backward like the kernel; each output's error is reported apart.
 RIGHT = {"slstm": ("kernel", "baseline", "scalar_sends", "rn_accum"),
-         "flash": ("kernel", "baseline", "tc_accum", "rn_accum", "four_pass")}
-OUTPUTS = {"slstm": ("dpre",), "flash": ("dq", "dk", "dv")}
+         "flash": ("kernel", "baseline", "tc_accum", "rn_accum", "four_pass"),
+         "mlstm": ("kernel", "baseline", "ring3", "ring4", "state_lb2", "pass_b8",
+                   "scores_per_block")}
+OUTPUTS = {"slstm": ("dpre",), "flash": ("dq", "dk", "dv"),
+           "mlstm": ("dq", "dk", "dv", "dlog_f")}
 # (rows, clients): a round's stacked shape and one client's
 SHAPES = ((1024, 16), (64, 1))
 H, S, HD = 4, 64, 256
+# the mLSTM backward's (B, H, S, dk, dv, normalize): xlstm-350m's training
+# shape and hymba-1.5b's Mamba heads (chip_smoke.py phase 26)
+MLSTM_SHAPES = ((8, 4, 128, 512, 512, True), (2, 25, 2048, 16, 64, False))
 
 
 def inline_headers(src: str) -> str:
@@ -157,9 +204,12 @@ def entry(kind: str, lib: Path, text: str):
     Sk, d, causal, window, softcap); an older one (batch * heads, Sq, Sk,
     d, causal)."""
     fn = getattr(ctypes.CDLL(str(lib)), {"slstm": "slstm_cell_bwd_f32",
-                                          "flash": "flash_attention_bwd_f32"}[kind])
+                                          "flash": "flash_attention_bwd_f32",
+                                          "mlstm": "mlstm_scan_bwd_f32"}[kind])
     fn.grouped = False
-    if kind == "slstm":
+    if kind == "mlstm":
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    elif kind == "slstm":
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     elif "float softcap" in text:
         fn.grouped = True
@@ -206,6 +256,16 @@ def flash_sets(torch, bh, n_sets):
     return sets
 
 
+def mlstm_sets(torch, shape, n_sets):
+    """n_sets of (q, k, v, log_f, h, dh) in (B H, S, d) rows, h the forward
+    kernel's output (chip_smoke.mlstm_bwd_inputs)."""
+    import chip_smoke
+    from repro_torch.kernels.mlstm_scan import mlstm_scan as mlaunch
+
+    return [chip_smoke.mlstm_bwd_inputs(torch, mlaunch, *shape, seed=300 + i)
+            for i in range(n_sets)]
+
+
 def flash_bwd_f64(q, k, v, out, dout, lse):
     """The plain backward of ``ref.flash_attention_bwd_ref`` (non-causal)
     in f64 on the same f32 inputs: the exact gradients to which the f32
@@ -229,6 +289,8 @@ def main(argv=None) -> int:
                     help="another slstm_cell_bwd.cu to time and compare")
     ap.add_argument("--flash-baseline", type=Path, default=None,
                     help="another flash_attention_bwd.cu to time and compare")
+    ap.add_argument("--mlstm-baseline", type=Path, default=None,
+                    help="another mlstm_scan_bwd.cu to time and compare")
     args = ap.parse_args(argv)
     import torch
 
@@ -240,6 +302,8 @@ def main(argv=None) -> int:
     import chip_smoke
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as mbwd
+    from repro_torch.kernels.mlstm_scan import ref as mref
     from repro_torch.kernels.slstm_cell import ref as sref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -253,9 +317,10 @@ def main(argv=None) -> int:
         texts[(kind, "kernel")] = text
         for name, edits in VARIANTS[kind].items():
             texts[(kind, name)] = variant_source(text, edits)
-    for kind, base in (("slstm", args.slstm_baseline), ("flash", args.flash_baseline)):
+    for kind, base in (("slstm", args.slstm_baseline), ("flash", args.flash_baseline),
+                       ("mlstm", args.mlstm_baseline)):
         if base is not None:
-            texts[(kind, "baseline")] = base.read_text()
+            texts[(kind, "baseline")] = inline_headers(base.read_text())
     with ThreadPoolExecutor(len(texts)) as ex:  # one nvcc a build, all at once
         built = dict(zip(texts, ex.map(
             lambda key: build(f"{key[0]}_{key[1]}", texts[key], nvcc,
@@ -267,11 +332,17 @@ def main(argv=None) -> int:
                  + [n for n in names if n not in ("kernel", "baseline")]
                  + ["kernel"] + (["baseline"] if "baseline" in names else []))
         fns = {n: entry(kind, built[(kind, n)][0], texts[(kind, n)]) for n in names}
-        for rows, c in SHAPES:
-            per_set = (rows * H * S * HD * 4 * (7 + 1) if kind == "slstm"
-                       else rows * H * S * HD * 4 * 5)
+        for shape in (MLSTM_SHAPES if kind == "mlstm" else SHAPES):
+            rows, c = (shape[0] * shape[1], 1) if kind == "mlstm" else shape
+            if kind == "mlstm":
+                b_, h_, s_, dk_, dv_, _ = shape
+                per_set = 4 * b_ * h_ * s_ * (2 * dk_ + 3 * dv_ + 1)
+            else:
+                per_set = (rows * H * S * HD * 4 * (7 + 1) if kind == "slstm"
+                           else rows * H * S * HD * 4 * 5)
             n_sets = max(1, -(-int(chip_smoke.ROTATE_BYTES) // per_set))
             sets = (slstm_sets(torch, c, rows, n_sets) if kind == "slstm"
+                    else mlstm_sets(torch, shape, n_sets) if kind == "mlstm"
                     else flash_sets(torch, rows, n_sets))
             turn = {"i": 0}
 
@@ -279,7 +350,29 @@ def main(argv=None) -> int:
                 turn["i"] = (turn["i"] + 1) % len(sets)
                 return sets[turn["i"]]
 
-            if kind == "slstm":
+            if kind == "mlstm":
+                b_, h_, s_, dk_, dv_, norm = shape
+                outs = [torch.empty_like(x) for x in sets[0][:4]]
+                work = torch.empty(mbwd.work_bytes(b_ * h_, s_, dk_, dv_, norm) // 4,
+                                   device="cuda")
+                ds_ = torch.empty_like(sets[0][3])
+
+                def call(fn, x=None, name=""):
+                    q, k, v, lf, o, g = x or nxt()
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
+                             o.data_ptr(), g.data_ptr(), *(y.data_ptr() for y in outs),
+                             work.data_ptr(), ds_.data_ptr(), b_ * h_, s_, dk_, dv_,
+                             int(norm), torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"mlstm {name}: CUDA error {err}")
+                    return outs
+
+                q, k, v, lf, o, g = sets[0]
+                wants, dq_scale = mref.mlstm_scan_bwd_ref(q, k, v, lf, g, h=o,
+                                                          normalize=norm, dq_scale=True)
+                bound = [mref.mlstm_grad_error_bound(w, dq_scale if i == 0 else None)
+                         for i, w in enumerate(wants)]
+            elif kind == "slstm":
                 res = torch.empty((rows, H, S, 4, HD), device="cuda")
 
                 def call(fn, x=None, name=""):
@@ -315,6 +408,8 @@ def main(argv=None) -> int:
                 bound = [fref.flash_grad_error_bound(w) for w in wants]
             row = {"kernel": kind, "rows": rows, "clients": c, "us": {},
                    "device_us": {}, "max_abs_err": {}, "within_bound": {}}
+            if kind == "mlstm":
+                row["shape"] = list(shape)
             exact = flash_bwd_f64(*sets[0]) if kind == "flash" else None
             if exact is not None:  # the plain backward's own error
                 row["max_abs_err_f64"] = {"plain": max_errs(kind, wants, exact)}
@@ -340,7 +435,9 @@ def main(argv=None) -> int:
                         label=f"{kind} {name} {rows}")
                     row["device_us"][name] = None if dms is None else dms * 1e3
             results.append(row)
-            print(f"{kind} ({rows}, {H}, {S}, {HD}), {c} clients: " + ", ".join(
+            where = (f"{shape}" if kind == "mlstm"
+                     else f"({rows}, {H}, {S}, {HD}), {c} clients")
+            print(f"{kind} {where}: " + ", ".join(
                 f"{k} {'/'.join(f'{v:.1f}' for v in vs)} us"
                 for k, vs in row["us"].items())
                 + f"; device {row['device_us']}; max abs err {row['max_abs_err']}"
