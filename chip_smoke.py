@@ -9,7 +9,8 @@ outside a checkout. Phases, each fatal on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, compiled from the checkout, one
-   nvcc per source, all at once;
+   nvcc per source, all at once, started before the imports and phase 1,
+   which it overlaps;
 3. wire codec against plain: the fused op (each row's scale and top-k
    threshold selected on the card, then the pass) and the pass alone
    given the library top-k's [scale, thresh], on tensors on the card,
@@ -80,8 +81,9 @@ outside a checkout. Phases, each fatal on failure:
    on the path), with the plain version at full width f32, the bound and
    the kernel/SDPA ratio;
 11. full-width serving with the recurrent, then the transformer encoders
-   (d_hidden=1024, 4 heads of 256; phase 4's set-up and checks, the
-   CPU comparison on the first requests of each mix): each encoder
+   (d_hidden=1024, 4 heads of 256; phase 4's set-up and checks on
+   VARIANT_REQUESTS requests a mix, 16 for the recurrent encoder, whose
+   CPU reference is the costliest, 64 for the transformer): each encoder
    kernel launches exactly once per encoder application (2 per
    multimodal or VFL micro-batch, 1 per unimodal one), a profiled mix;
    for the recurrent encoder, its card-vs-CPU difference layer by layer
@@ -134,8 +136,9 @@ outside a checkout. Phases, each fatal on failure:
    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts: ``--selftest-resume``
    on the Makefile's eight resume lanes under deterministic algorithms
    (bit for bit, the same launches every round of every leg), a
-   full-width checkpointed run of 4 rounds resumed to 6 by a second
-   invocation, ``import`` and a store-backed run, and
+   full-width checkpointed run of 2 rounds resumed to 3 by a second
+   invocation (4 and 6 before the run neared its time limit), ``import``
+   and a store-backed run, and
    ``serve_federated --selftest`` on the checkpoint the port wrote;
 20. sharded rounds card against CPU: the Makefile's sampled
    ``omega_ema`` and ``int8_topk`` lanes, 3 rounds on both from the same
@@ -204,13 +207,13 @@ outside a checkout. Phases, each fatal on failure:
    Mamba heads (2, 25, 2048, 16, 64) without the normalizer), then timed
    at those two beside the plain backward, an autograd of the plain scan
    and the bound;
-27. full-width xlstm-350m training through ``launch/train.py`` (24
-   layers, batch 8 x 128, in a child process, ``chip_smoke.py
-   --train-child DIR``): 20 AdamW steps checkpointed every 10, the run
-   resumed from step 10 by a second invocation, finite losses, the
-   resumed losses within LOSS_RTOL of the uninterrupted run's, exactly
-   12 launches a step of each of the mLSTM scan, its backward, the sLSTM
-   cell and its backward; ms a step, peak memory, a profiled step;
+27. full-width xlstm-350m training through ``launch/train.py`` (the
+   first XLSTM_TRAIN_LAYERS = 8 of its 24 layers by ``--layers``, batch
+   8 x 128, ``train_run``): 20 AdamW steps with one checkpoint, at step
+   12, the run resumed from it by a second invocation, finite losses, the resumed losses within
+   LOSS_RTOL of the uninterrupted run's, exactly 4 launches a step of
+   each of the mLSTM scan, its backward, the sLSTM cell and its
+   backward; ms a step, peak memory, a profiled step;
 28. xlstm-350m training card against CPU: 1 of its 12 layer pairs at
    full width (2 before phases 29-32 came), the loss and every gradient of a 2 x 128 batch, then 3
    AdamW steps (losses, moments, parameters; tolerances at
@@ -222,13 +225,12 @@ outside a checkout. Phases, each fatal on failure:
    the forward's lse against plain, dq, dk, dv within
    ``flash_grad_error_bound``, two calls bit for bit, then timed beside
    the plain backward, the bound and SDPA's memory-efficient backward;
-30. full-width hymba-1.5b training through ``launch/train.py`` (32
-   layers, d 1600, 2 x 2048 tokens, ``chip_smoke.py --train-child DIR
-   hymba-1.5b``): 12 AdamW steps checkpointed every 6 (about 17 GB a
-   checkpoint, the free disk printed first), resumed from step 6, finite
-   losses, the resumed losses within LOSS_RTOL, exactly
-   ``train_launches`` a step (flash 32, its backward 64 kernels, the
-   mLSTM scan 32, its backward 32 calls); ms a step, tokens/s, peak
+30. full-width hymba-1.5b training through ``launch/train.py`` (d 1600,
+   the first HYMBA_LAYERS = 4 of its 32 layers by ``--layers``, 2 x 2048
+   tokens, ``train_run``): 12 AdamW steps with one checkpoint, at step 8 (the free disk printed first),
+   resumed from it, finite losses, the resumed losses within LOSS_RTOL,
+   exactly ``train_launches`` a step (flash 4, its backward 8 kernels,
+   the mLSTM scan 4, its backward 4 calls); ms a step, tokens/s, peak
    memory, a profiled step;
 31. the other attention families' training at full width
    (FAMILY_TRAIN_RUNS: qwen2-vl-2b and whisper-medium whole,
@@ -239,7 +241,35 @@ outside a checkout. Phases, each fatal on failure:
    (CARD_CPU_TRAIN: narrow widths keeping each family's group G, hymba's
    window binding, 2 layers, 2 x 128 tokens): the loss and every
    gradient, then 3 AdamW steps, at phase 28's tolerances, MoE routers'
-   choices equal.
+   choices equal;
+33. the reference's production variants through ``launch/specs.py``
+   (bf16 compute, f32 parameters, a bf16 cache; each entry's one-card
+   share, one data shard's rows): the flash kernel in bf16 at the
+   entries' shapes (FLASH_PRODUCTION_CASES: every family's 32k causal
+   prefill, the 32768-key decode reading the cache in place, the rings
+   of 4096 and 1024, hymba's window, stablelm's d = 80, whisper's cross
+   attention) against its plain version within ``fref.bf16_error_bound``
+   on the first, middle and last rows, a control (V with a quarter of
+   its keys negated must fail the bound), and timed beside SDPA and the
+   bound; the mLSTM scan (xlstm's and hymba's) and the sLSTM cell at
+   their 32768-step prefill shapes against their plain recurrences on a
+   window at each end (RECURRENT_WINDOW); the
+   meta-device sizing of all 40 (arch, shape) entries and of the
+   federated round (``launch/dryrun.py``), and ``dryrun --run`` on one
+   entry; then each family of PRODUCTION_RUNS (phi4-mini-3.8b,
+   hymba-1.5b, xlstm-350m, qwen2-vl-2b and whisper-medium whole, the
+   others at phase 25's depth) at prefill_32k, decode_32k and long_500k
+   (whisper skips it, as the reference does), timed by ``dryrun.
+   time_entry``: ms, tokens/s, peak memory and the roofline's bound and
+   share, launches asserted (one flash launch an attention), finite bf16
+   logits, a decode step against the same step with every kernel's
+   plain version (each kernel call held to its own bound on the input
+   the step gives it, the logits to ``bf16_share``'s bound); phi4's
+   decode cache from its own prefill of 2 rows, tiled to 8; then bf16
+   card against CPU at 2
+   layers (deepseek at 4 groups) within ``bf16_share``'s bound; alone,
+   after the build: ``c.production_phase(torch, counted, (flaunch, fref,
+   mlaunch, mref, slaunch, sref), mem_rate)`` with phase 4's ``counted``.
 
 Phases 10 and 13 also hold the kernels against their plain versions at
 the language models' shapes (FLASH_LM_CASES, a logit cap; MLSTM_HYMBA)
@@ -260,9 +290,11 @@ counted per kernel name (``per_call_device_ms``), and None, with a
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -279,9 +311,19 @@ ROOT = Path(__file__).resolve().parent
 # (within_tolerance).
 EPS32 = float(np.finfo(np.float32).eps)
 
-FP32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores (dense)
-TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
+# The card's peak rates and memory rate (H100 SXM data sheet):
+# repro_torch.launch.roofline, the port's one-card hardware model. Outside
+# a checkout the import fails and main() says so.
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.launch.roofline import (  # noqa: E402
+        BF16_OPS_PER_S,
+        FP32_OPS_PER_S,
+        TF32_OPS_PER_S,
+        hbm_bytes_per_s,
+    )
+except ImportError:
+    BF16_OPS_PER_S = FP32_OPS_PER_S = TF32_OPS_PER_S = hbm_bytes_per_s = None
 CODEC_OPS_PER_ELEM = 8  # abs, compare, mul, rint, max, min, mul, select
 BLEND_OPS_PER_ELEM = 2  # multiply, add
 
@@ -306,17 +348,6 @@ CPU_THREADS = 8
 # that a launch finds its input in HBM, not in the 50 MB L2, as a
 # round's blend does.
 ROTATE_BYTES = 200e6
-
-
-def hbm_bytes_per_s(name: str) -> float:
-    """Device memory rate of the card (NVIDIA data sheets)."""
-    if "H200" in name:
-        return 4.8e12
-    if "PCIe" in name:
-        return 2.0e12
-    if "NVL" in name:
-        return 3.9e12
-    return 3.35e12  # H100 SXM
 
 
 _phase = {"name": None, "t0": 0.0}
@@ -1409,9 +1440,9 @@ def print_breakdown(label, bd):
 
 
 def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
-                       seed=0) -> dict:
-    """Serve the three mixes (64 requests of 1..64 rows each, streams
-    fixed by ``seed`` and MIX_SALT) through one ``ServingEngine``
+                       seed=0, requests=64) -> dict:
+    """Serve the three mixes (``requests`` requests of 1..64 rows each,
+    streams fixed by ``seed`` and MIX_SALT) through one ``ServingEngine``
     (int8_topk codec, capacities 2/4/16/64) on the card, counting the
     launches of each module in ``launchers`` over the run. Then serve the
     same streams again recording each VFL row's wire messages, which must
@@ -1446,8 +1477,8 @@ def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
     engine = engines[0]
     for mod in launchers.values():
         mod.launches = 0
-    rows_by_mix = {mix: sf.serve_mix(engine, spec, mix, 64, rows=64, seed=seed,
-                                     salt=MIX_SALT[mix])
+    rows_by_mix = {mix: sf.serve_mix(engine, spec, mix, requests, rows=64,
+                                     seed=seed, salt=MIX_SALT[mix])
                    for mix in MIXES}
     launches = {name: mod.launches for name, mod in launchers.items()}
     st = engine.stats
@@ -1466,7 +1497,7 @@ def full_width_serving(torch, spec, ecfg, models, gmv, launchers,
     cpu_models = params_from_numpy(params_to_numpy(models), "cpu")
     cpu_gmv = params_from_numpy(params_to_numpy(gmv), "cpu")
     for mix in MIXES:
-        reqs = sf.make_requests(spec, mix, 64, rows=64, seed=seed,
+        reqs = sf.make_requests(spec, mix, requests, rows=64, seed=seed,
                                 salt=MIX_SALT[mix])
         results = rows_by_mix[mix]["results"]
         recorded = engines[1].run(reqs)
@@ -1665,8 +1696,12 @@ def visible_mask(sq, sk, causal, window):
 
 
 def visible_pairs(sq, sk, causal, window) -> int:
-    """(query, key) pairs of one head that the masks let through."""
-    return int(visible_mask(sq, sk, causal, window).sum())
+    """(query, key) pairs of one head that the masks let through
+    (``visible_mask``'s count, a query at a time)."""
+    qi = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(qi, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qi - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def time_flash(torch, flaunch, fref, case, mem_rate, dtype=None, plain=True):
@@ -1836,7 +1871,7 @@ def flash_phase(torch, flaunch, fref, mem_rate):
     return flash_err, times
 
 
-def recurrent_layers(torch, spec, ecfg, models, seed=0) -> dict:
+def recurrent_layers(torch, spec, ecfg, models, seed=0, requests=64) -> dict:
     """Fault (g), layer by layer: the recurrent encoder's card-vs-CPU max
     abs difference on the VFL requests of phase 11's fixed streams (every
     row, both modalities), at its input layer tanh(x @ w_in + b), the
@@ -1866,7 +1901,7 @@ def recurrent_layers(torch, spec, ecfg, models, seed=0) -> dict:
     worst = {}
     with torch.no_grad():
         for mix in MIXES:
-            for req in sf.make_requests(spec, mix, 64, rows=64, seed=seed,
+            for req in sf.make_requests(spec, mix, requests, rows=64, seed=seed,
                                         salt=MIX_SALT[mix]):
                 if not req.vfl:
                     continue
@@ -1888,10 +1923,19 @@ def recurrent_layers(torch, spec, ecfg, models, seed=0) -> dict:
     return worst
 
 
+# Phase 11's requests a mix, by encoder. Each request is checked against
+# the same models on the CPU, where the recurrent encoder costs about
+# 3.5 times the transformer a row (phase 11 took 138-235 s of the run at
+# 64 requests a mix, 75 s at 32), so it serves 16 (32 requests: 3267
+# rows, 449 of them VFL rows; 6191 and 1237 at 64).
+VARIANT_REQUESTS = {"recurrent": 16, "transformer": 64}
+
+
 def variant_serving(torch, spec, enc, sf, counted) -> dict:
     """Phase 11: full-width serving (phase 4's set-up and checks) with
-    the recurrent, then the transformer encoders; each encoder kernel
-    launches once per encoder application and the other not at all."""
+    the recurrent, then the transformer encoders, VARIANT_REQUESTS
+    requests a mix; each encoder kernel launches once per encoder
+    application and the other not at all."""
     variants = {}
     for enc_type, own, symbol in (("recurrent", "slstm_cell", "slstm_kernel"),
                                   ("transformer", "flash_attention", "flash_kernel")):
@@ -1900,8 +1944,11 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(0)
         vmodels = enc.init_client_models(gen, spec, vcfg, device="cuda")
         vgmv = enc.fusion_init(gen, vcfg.d_hidden, spec.out_dim, device="cuda")
-        print(f"-- {enc_type}: d_hidden 1024, 4 heads of 256")
-        res = full_width_serving(torch, spec, vcfg, vmodels, vgmv, counted)
+        n_req = VARIANT_REQUESTS[enc_type]
+        print(f"-- {enc_type}: d_hidden 1024, 4 heads of 256, {n_req} requests "
+              "a mix")
+        res = full_width_serving(torch, spec, vcfg, vmodels, vgmv, counted,
+                                 requests=n_req)
         bt, got = res["batches"], res["launches"]
         applies = (2 * (bt["multimodal"] + bt["vfl_fallback"])
                    + bt["unimodal_A"] + bt["unimodal_B"])
@@ -1915,7 +1962,7 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
         check(got["wire_codec"] == 3 * bt["vfl_fallback"],
               f"wire_codec launches {got['wire_codec']}")
         if enc_type == "recurrent":  # fault (g): where card and CPU part
-            layers = recurrent_layers(torch, spec, vcfg, vmodels)
+            layers = recurrent_layers(torch, spec, vcfg, vmodels, requests=n_req)
             flipped = res["tolerance"]["engine vs cpu (int8_topk routes)"]["flipped"]
             print("recurrent encoder card vs CPU, max abs difference by layer "
                   "(VFL rows of the fixed streams): " + ", ".join(
@@ -1924,7 +1971,7 @@ def variant_serving(torch, spec, enc, sf, counted) -> dict:
             res["layers_card_vs_cpu"] = layers
         engine = res.pop("engine")
         bd = device_breakdown(
-            lambda: sf.serve_mix(engine, spec, "all_multimodal", 64, rows=64,
+            lambda: sf.serve_mix(engine, spec, "all_multimodal", n_req, rows=64,
                                  seed=0, salt=MIX_SALT["all_multimodal"]),
             res["rows_by_mix"]["all_multimodal"]["wall_s"], match=(symbol,))
         print_breakdown(f"{enc_type} all_multimodal", bd)
@@ -2097,7 +2144,7 @@ def time_mlstm(torch, mlaunch, mref, case, normalize, mem_rate) -> dict:
          "ms": cuda_time_ms(kern, iters=20, warmup=3),
          "device_ms": device_ms(kern, iters=10, label=f"mlstm {tag}"),
          "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
-         "plain_device_ms": device_ms(plain, iters=2, label=f"mlstm plain {tag}"),
+         "plain_device_ms": device_ms(plain, iters=1, label=f"mlstm plain {tag}"),
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "bound_ms_simt": max(bytes_ms, flops / FP32_OPS_PER_S * 1e3),
@@ -2274,7 +2321,8 @@ def decode_gap(torch, bb, params, cfg, batch_in, cache, idx, nt) -> float:
     """Max abs difference between a decode step fed ``nt`` after the
     prefill that gave (``cache``, ``idx``) and forward's last logits on
     the extended sequence; checked within LM_DECODE_TOL."""
-    lg, _ = bb.decode_step(params, cfg, nt, cache, idx)
+    # the step writes into the cache it is given: a clone keeps ``cache``
+    lg, _ = bb.decode_step(params, cfg, nt, bb.clone_cache(cache), idx)
     ext = dict(batch_in, tokens=torch.cat([batch_in["tokens"], nt], 1))
     full, _ = bb.forward(params, cfg, ext)
     err = float((lg[:, 0] - full[:, -1]).abs().max())
@@ -2423,9 +2471,12 @@ def lm_family(torch, counted, name, layers=None, batch=2, prompt=128,
             bd_p = device_breakdown(
                 lambda: bb.prefill(params, cfg, batch_in, max_len),
                 res["prefill_s"], top=8, match=LM_KERNELS)
+            # the profiled steps write into a clone of the prefill's cache
+            step_cache = bb.clone_cache(cache)
             bd_d = device_breakdown(
-                lambda: bb.decode_step(params, cfg, nt, cache, idx),
+                lambda: bb.decode_step(params, cfg, nt, step_cache, idx),
                 float(np.median(steps)), top=8, match=LM_KERNELS)
+            del step_cache
         print_breakdown(f"{cfg.name} prefill", bd_p)
         print_breakdown(f"{cfg.name} decode step", bd_d)
         for label, bd in (("prefill", bd_p), ("decode step", bd_d)):
@@ -2466,7 +2517,8 @@ def lm_serve_pass(torch, bb, params, cfg, tokens, inputs, gen, feed=None):
                              else 0)
     logits, cache, idx = bb.prefill(params, cfg, {"tokens": tokens, **inputs},
                                     seq + gen)
-    out, caches, fed = [logits], [cache], []
+    # the steps write into ``cache``: the prefill's is kept as a clone
+    out, caches, fed = [logits], [bb.clone_cache(cache)], []
     for i in range(gen):
         nt = (torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
               if feed is None else feed[:, i:i + 1].to(tokens.device))
@@ -2588,14 +2640,778 @@ def lm_phases(torch, counted) -> dict:
     return runs
 
 
-# Phase 18: the reference's widest BlendFL entry (src/repro/launch/
-# specs.py, make_blendfl_entry) with AdamW, over phase 7's partition.
-SHARDED_SPEC = dict(n_clients=16, d_hidden=1024, n_layers=4, seq_a=64,
-                    feat_a=128, seq_b=64, feat_b=128, out_dim=25,
-                    kind="multilabel", n_partial=512, n_frag=512,
-                    n_paired=512, n_val=2048, n_val_score=512,
-                    optimizer="adamw")
-SHARDED_K = 4
+# Two correct runs of one model at bf16 compute (the port against the
+# reference on the CPU, the card against the CPU, a decode step against
+# the same step with every kernel's plain version) round the same values
+# at each bf16 stage from f32 sums taken in other orders, so a stage's
+# two outputs may differ by one bf16 ulp an entry: at most 2^-7 of the
+# entry (8 significant bits), so at most 2^-7 of its row's norm (a row:
+# the last axis, one token's logits or one head's key). Distinct
+# roundings differ independently and with no sign preferred, so along a
+# row's path their norms add in quadrature; each stage carries its
+# input's relative difference at unit gain. After r roundings two runs
+# then agree within sqrt(r) 2^-7 of each row's norm. A block rounds at
+# most BF16_ROUNDINGS_PER_LAYER times on a row's path (attention: norm,
+# projection, RoPE, attention, output projection, residual; MLP: norm,
+# up / gate, activation, product, down, residual; the hybrid's fusion
+# and the xLSTM pair's two blocks fit the same count), and embedding,
+# final norm and head add BF16_ROUNDINGS_OUTSIDE. A tensor is held to
+# the roundings upstream of it: the logits to every block's, a stacked
+# cache leaf's layer i to those of the blocks up to and including i.
+BF16_ROUNDINGS_PER_LAYER = 16
+BF16_ROUNDINGS_OUTSIDE = 3
+
+
+def bf16_roundings(cfg, blocks=None) -> int:
+    """The bf16 roundings upstream of the logits (``blocks`` None) or of
+    what the first ``blocks`` blocks (the encoder's first) leave."""
+    n = cfg.n_layers + cfg.n_enc_layers if blocks is None else blocks
+    return BF16_ROUNDINGS_PER_LAYER * n + BF16_ROUNDINGS_OUTSIDE
+
+
+def bf16_share(got, want, roundings: int, row_axes: int = 1) -> float:
+    """The largest share, over the rows (the last ``row_axes`` axes), of
+    |got - want| in the bound sqrt(roundings) 2^-7 |want| (norms of the
+    row, in f64); above 1 the two are further apart than two correct bf16
+    runs can be. A row of want's zeros must be matched exactly. ``got``
+    and ``want`` are numpy arrays or tensors of one shape."""
+    got, want = (np.asarray(x.detach().float().cpu() if hasattr(x, "detach") else x,
+                            dtype=np.float64) for x in (got, want))
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf")
+    if got.size == 0:
+        return 0.0
+    row = int(np.prod(want.shape[-row_axes:]))
+    err = np.linalg.norm((got - want).reshape(-1, row), axis=-1)
+    bound = np.sqrt(roundings) * 2.0 ** -7 * np.linalg.norm(
+        want.reshape(-1, row), axis=-1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        share = np.where(err == 0, 0.0, err / bound)
+    return float(share.max())
+
+
+def bf16_cache_share(cfg, got, want) -> float:
+    """``bf16_share`` of two decode caches, given as lists of their
+    stacked leaves in one order (one layer a slice of the leading axis),
+    leaf by leaf and layer by layer: layer i held to the roundings of the
+    blocks through i (a slice spans n_layers / slices decoder blocks,
+    after every encoder block). A row is a leaf's last two axes: one
+    token's K or V over the heads, or one head's recurrent state (the
+    mLSTM's and the Mamba heads' C is a decayed sum over the tokens of
+    k v^T, whose rows may cancel where its terms do not; the rounding of
+    a sum scales with its terms)."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        per = cfg.n_layers // w.shape[0]
+        for i in range(w.shape[0]):
+            worst = max(worst, bf16_share(
+                g[i], w[i], bf16_roundings(cfg, cfg.n_enc_layers + per * (i + 1)),
+                row_axes=2))
+    return worst
+
+
+# Phase 33: the reference's production variants (src/repro/launch/
+# specs.py, dryrun_config) on one card through launch/specs.py: each
+# family's one-card share (one data shard's rows, the whole model) of
+# prefill_32k (2 x 32768), decode_32k (8 rows, a 32768-slot cache) and
+# long_500k (1 row; the window-4096 variant of the quadratic families)
+# at bf16 compute with f32 parameters and a bf16 cache. Family, depth
+# (None: as published; the cuts of phase 25).
+PRODUCTION_RUNS = (("phi4_mini_3p8b", None), ("hymba_1p5b", None),
+                   ("xlstm_350m", None), ("qwen2_vl_2b", None),
+                   ("whisper_medium", None), ("deepseek_moe_16b", 4),
+                   ("starcoder2_7b", 2), ("nemotron_4_15b", 2),
+                   ("stablelm_3b", 2), ("dbrx_132b", 2))
+PRODUCTION_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+DRYRUN_RUN = ("xlstm-350m", "long_500k")  # the entry ``dryrun --run`` takes
+# phi4's decode_32k cache comes from its own prefill of 2 rows (the
+# prefill_32k share) of 32767 tokens, tiled to the 8 rows (a prefill of
+# all 8 took 15.6 s of the run's limit); every other
+# decode cache holds random bf16 K/V from the seed (the reference's
+# decode entry takes its cache as an argument) and zero recurrent states.
+PRODUCTION_PREFILLED = ("phi4_mini_3p8b",)
+PRODUCTION_PREFILL_ROWS = 2
+PRODUCTION_DECODE_STEPS = 5  # timed decode steps; the median is kept
+PRODUCTION_WARM_SEQ = 2048  # a prefill entry's warm-up length
+# card vs CPU in bf16 (every family at 2 layers, dbrx at 1 as in phase
+# 25): rows, prompt tokens (vision patches, audio frames) and steps;
+# deepseek's grouped dispatch at 4 groups (prefill: 2 x 16 tokens in
+# groups of 8; a step's 2 tokens take the flat path, as in the reference)
+PRODUCTION_CPU = dict(batch=2, prompt=16, gen=2)
+PRODUCTION_CPU_LAYERS = {"dbrx_132b": 1}
+PRODUCTION_CPU_INPUTS = {"qwen2_vl_2b": dict(patches=64),
+                         "whisper_medium": dict(frames=200)}
+PRODUCTION_CPU_GROUPS = {"deepseek_moe_16b": 4}
+# the flash kernel at the production entries' shapes, bf16: (b, hq, hkv,
+# sq, sk, d, causal, window), the K/V layout ("bshd": a decode cache read
+# where it lies, the way decode_attend passes it) and the entry; every
+# family's prefill_32k form (each dense, MoE and VLM family at full
+# attention; their long_500k decode is the 4096 ring)
+FLASH_PRODUCTION_CASES = (
+    ((2, 24, 8, 32768, 32768, 128, True, 0), "bhsd", "phi4 prefill_32k"),
+    ((8, 24, 8, 1, 32768, 128, False, 0), "bshd", "phi4 decode_32k"),
+    ((1, 24, 8, 1, 4096, 128, False, 0), "bshd", "phi4 long_500k (ring 4096)"),
+    ((2, 25, 5, 32768, 32768, 64, True, 1024), "bhsd", "hymba prefill_32k"),
+    ((8, 25, 5, 1, 1024, 64, False, 0), "bshd", "hymba decode_32k (ring 1024)"),
+    ((2, 12, 2, 32768, 32768, 128, True, 0), "bhsd", "qwen2-vl prefill_32k"),
+    ((8, 12, 2, 1, 32768, 128, False, 0), "bshd", "qwen2-vl decode_32k"),
+    ((2, 36, 4, 32768, 32768, 128, True, 0), "bhsd", "starcoder2 prefill_32k"),
+    ((2, 48, 8, 32768, 32768, 128, True, 0), "bhsd",
+     "nemotron and dbrx prefill_32k"),
+    ((2, 16, 16, 32768, 32768, 128, True, 0), "bhsd", "deepseek prefill_32k"),
+    ((2, 32, 32, 32768, 32768, 80, True, 0), "bhsd", "stablelm prefill_32k"),
+    ((8, 32, 32, 1, 32768, 80, False, 0), "bshd", "stablelm decode_32k"),
+    ((2, 16, 16, 32768, 1500, 64, False, 0), "bhsd", "whisper cross, prefill_32k"),
+    ((8, 16, 16, 1, 1500, 64, False, 0), "bhsd", "whisper cross, decode_32k"),
+)
+# past 1024 queries the first, middle and last FLASH_CHECK_ROWS rows are
+# checked; the last batch row's and head's are among them, whose keys lie
+# at the largest offsets the kernel forms
+FLASH_CHECK_ROWS = 128
+# the control: the kernel fed V with this share of the keys (a band in
+# the middle) negated, held against the plain version of the true V,
+# must fall outside the bound (a kernel that misreads that many keys
+# fails the check) at the entries named here
+FLASH_CONTROL_SHARE = 0.25
+FLASH_CONTROL_ENTRIES = ("phi4 prefill_32k", "phi4 decode_32k")
+# each timing (the kernel's, SDPA's) runs about this many ms of calls, at
+# least 3 and at most 100
+FLASH_PRODUCTION_TIMED_MS = 200.0
+
+
+def flash_production_inputs(torch, case, layout, seed):
+    """bf16 q (B, Hq, Sq, d) and k, v (B, Hkv, Sk, d) on the card, normal;
+    odd query heads at 4 times the scale, so that their softmax rests on
+    a few keys (a row's output then moves with any key it misreads); with
+    ``bshd`` K/V are transposed views of (B, Sk, Hkv, d) arrays."""
+    b, hq, hkv, sq, sk, d = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    q = draw(b, hq, sq, d)
+    q[:, 1::2] *= 4
+    if layout == "bshd":
+        return q, draw(b, sk, hkv, d).transpose(1, 2), draw(b, sk, hkv, d).transpose(1, 2)
+    return q, draw(b, hkv, sk, d), draw(b, hkv, sk, d)
+
+
+def flash_check_rows(sq: int) -> list:
+    """The (first, end) query rows checked: all up to 1024, else the
+    first, middle and last FLASH_CHECK_ROWS (queries end-aligned: the
+    first rows see the first keys, the middle half of them, the last all)."""
+    n = FLASH_CHECK_ROWS
+    if sq <= 1024:
+        return [(0, sq)]
+    return [(0, n), (sq // 2 - n // 2, sq // 2 + n // 2), (sq - n, sq)]
+
+
+def flash_share(torch, fref, q, k, v, out, causal, window) -> tuple:
+    """``out`` against the plain version on the rows of ``flash_check_rows``
+    (each part given the keys up to its last row's, so that queries stay
+    end-aligned): the largest share of ``fref.bf16_error_bound`` (inf if
+    ``out`` is not finite there) and the largest |out - plain|."""
+    sq, sk = q.shape[2], k.shape[2]
+    check(causal or window == 0 or sq <= 1024, "a window needs causal rows here")
+    worst, worst_abs = 0.0, 0.0
+    for lo, hi in flash_check_rows(sq):
+        end = hi + sk - sq if causal else sk
+        qq, kk, vv, got = q[:, :, lo:hi], k[:, :, :end], v[:, :, :end], out[:, :, lo:hi]
+        if not bool(torch.isfinite(got).all()):
+            return float("inf"), float("inf")
+        want = fref.flash_attention_ref(qq, kk, vv, causal=causal, window=window)
+        bound = fref.bf16_error_bound(qq, kk, vv, got, want, causal=causal,
+                                      window=window)
+        err = (got.float() - want.float()).abs()
+        share = torch.where(err == 0, torch.zeros_like(err), err / bound)
+        worst = max(worst, float(share.max()))
+        worst_abs = max(worst_abs, float(err.max()))
+        del want, bound, err, share
+    return worst, worst_abs
+
+
+# the recurrent kernels at their prefill_32k shapes (f32, after the cast
+# the reference also makes), from the reference kernel tests'
+# distributions: xlstm-350m's mLSTM and hymba-1.5b's Mamba heads (b, h,
+# s, dk, dv, chunk, normalize), xlstm-350m's sLSTM (b, h, s, hd) from the
+# zero state. Each whole launch is held against its plain recurrence on
+# a window of RECURRENT_WINDOW steps at each end (the plain loops over
+# all 32768 steps took 41.5 s, over windows of 4096 22 s, of 2048 18 s):
+# the first window from the zero state;
+# the last, for the mLSTM, from the zero state too, its second half
+# compared (log_f = -0.2 |N(0, 1)| decays what came before the window by
+# about e^-82 over its first half, far below f32's resolution, so
+# there the window is the whole recurrence), and for the sLSTM from the
+# state the kernel reaches at its start (a launch of the steps before
+# it), all of it compared, with the final state.
+MLSTM_PRODUCTION_CASES = ((2, 4, 32768, 512, 512, 64, True),
+                          (2, 25, 32768, 16, 64, 64, False))
+SLSTM_PRODUCTION_CASE = (2, 4, 32768, 256)
+RECURRENT_WINDOW = 1024
+
+
+def within(name, got, want, bound) -> float:
+    """``got`` finite and within ``bound`` of ``want``; the max abs err."""
+    e = (got - want).abs()
+    check(got.shape == want.shape and bool(got.isfinite().all())
+          and bool((e <= bound).all()), f"{name} beyond its bound: {float(e.max())}")
+    return float(e.max())
+
+
+def recurrent_production(torch, mlaunch, mref, slaunch, sref) -> dict:
+    """MLSTM_PRODUCTION_CASES (h, final C and n) within mlstm_error_bound
+    and SLSTM_PRODUCTION_CASE (h, final (c, n, m, h)) within
+    slstm_error_bound of their plain versions on the windows above; their
+    max abs errors."""
+    out, w = {}, RECURRENT_WINDOW
+    for b, h, s, dk, dv, chunk, normalize in MLSTM_PRODUCTION_CASES:
+        t0 = time.perf_counter()
+        q, k, v, lf = mlstm_inputs(torch, b, h, s, dk, dv, seed=s + dk)
+        got, (c, n) = mlaunch.mlstm_scan_cuda(q, k, v, lf, chunk=chunk,
+                                              normalize=normalize, return_state=True)
+        head = mref.mlstm_scan_ref(q[:, :, :w], k[:, :, :w], v[:, :, :w], lf[:, :, :w],
+                                   normalize=normalize)
+        tail, (wc, wn) = mref.mlstm_scan_ref(q[:, :, -w:], k[:, :, -w:], v[:, :, -w:],
+                                             lf[:, :, -w:], normalize=normalize,
+                                             return_state=True)
+        torch.cuda.synchronize()
+        tag = f"mlstm_scan {(b, h, s, dk, dv)}"
+        errs = {"h first": within(f"{tag} h", got[:, :, :w], head,
+                                  mref.mlstm_error_bound(head)),
+                "h last": within(f"{tag} h", got[:, :, -w // 2:], tail[:, :, -w // 2:],
+                                 mref.mlstm_error_bound(tail[:, :, -w // 2:])),
+                "C": within(f"{tag} C", c, wc, mref.mlstm_error_bound(wc)),
+                "n": within(f"{tag} n", n, wn, mref.mlstm_error_bound(wn))}
+        del q, k, v, lf, got, head, tail
+        out[tag] = errs
+        print(f"{tag} chunk {chunk} normalize={normalize}: the first {w} and last "
+              f"{w // 2} steps' h and the final C and n within mlstm_error_bound of "
+              f"the plain recurrence; max abs errs {errs} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    b, h, s, hd = SLSTM_PRODUCTION_CASE
+    pre, r = slstm_inputs(torch, b, h, s, hd, seed=s + hd)
+    got, fin = slaunch.slstm_cell_cuda(pre, r, return_state=True)
+    _, start = slaunch.slstm_cell_cuda(pre[:, :, :s - w].contiguous(), r,
+                                       return_state=True)
+    head = sref.slstm_cell_ref(pre[:, :, :w], r)
+    tail, wfin = sref.slstm_cell_ref(pre[:, :, s - w:], r, start, return_state=True)
+    torch.cuda.synchronize()
+    tag = f"slstm_cell {SLSTM_PRODUCTION_CASE}"
+    worst = max(within(f"{tag} h", got[:, :, :w], head,
+                       sref.slstm_error_bound(head, got[:, :, :w])),
+                within(f"{tag} h", got[:, :, s - w:], tail,
+                       sref.slstm_error_bound(tail, got[:, :, s - w:])),
+                *(within(f"{tag} final state", g, x, sref.slstm_error_bound(x, g))
+                  for g, x in zip(fin, wfin)))
+    out[tag] = worst
+    print(f"{tag}: the first and last {w} steps' h (the last from the kernel's "
+          f"state at step {s - w}) and the final (c, n, m, h) within "
+          f"slstm_error_bound of the plain recurrence; max abs err {worst:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def largest_offset(x) -> int:
+    """The largest element offset the kernel forms into ``x``'s storage."""
+    return x.storage_offset() + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+
+
+def flash_production(torch, flaunch, fref, mem_rate) -> list:
+    """The flash kernel at FLASH_PRODUCTION_CASES in bf16: against its
+    plain version within ``fref.bf16_error_bound`` (``flash_share``), the
+    control at FLASH_CONTROL_ENTRIES, then timed with CUDA events beside
+    scaled_dot_product_attention (K/V repeated to the query heads
+    outside the timed call, so that SDPA's fused kernels take it; a
+    window as a boolean mask) and the bound (bytes of q, k, v and the
+    output over the memory rate, or 4 d operations a visible pair at the
+    bf16 tensor-core rate)."""
+    F = torch.nn.functional
+    out = []
+    for case, layout, entry in FLASH_PRODUCTION_CASES:
+        b, hq, hkv, sq, sk, d, causal, window = case
+        q, k, v = flash_production_inputs(torch, case, layout, seed=sq + d + hq)
+        before = flaunch.launches
+        got = flaunch.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(flaunch.launches == before + 1, f"flash {entry}: not one launch")
+        err, abs_err = flash_share(torch, fref, q, k, v, got, causal, window)
+        check(err <= 1.0, f"flash {entry} at {case[:6]}: {err} of its bf16 bound")
+        del got
+        control = None
+        if entry in FLASH_CONTROL_ENTRIES:
+            band = slice(int(sk * (1 - FLASH_CONTROL_SHARE) / 2),
+                         int(sk * (1 + FLASH_CONTROL_SHARE) / 2))
+            wrong = v.clone()
+            wrong[:, :, band] = -wrong[:, :, band]
+            bad = flaunch.flash_attention_cuda(q, k, wrong, causal=causal, window=window)
+            control = flash_share(torch, fref, q, k, v, bad, causal, window)[0]
+            check(control > 1.0, f"flash {entry}: V with {FLASH_CONTROL_SHARE} of "
+                  f"its keys negated gave {control} of the bound")
+            del wrong, bad
+        offsets = max(largest_offset(x) for x in (q, k, v))
+
+        def kern():
+            return flaunch.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+        one = cuda_time_ms(kern, iters=1, warmup=1)
+        iters = int(min(100, max(3, FLASH_PRODUCTION_TIMED_MS / max(one, 1e-3))))
+        ms = cuda_time_ms(kern, iters=iters, warmup=1)
+        kr = k.repeat_interleave(hq // hkv, dim=1) if hq != hkv else k
+        vr = v.repeat_interleave(hq // hkv, dim=1) if hq != hkv else v
+        mask = None
+        if window > 0:  # visible_mask's keys, built on the card
+            qi = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+            ki = torch.arange(sk, device="cuda")[None, :]
+            mask = (ki > qi - window) & ((ki <= qi) if causal else True)
+        check(not causal or sq == sk, "SDPA's causal mask needs Sq == Sk")
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mask, is_causal=causal and mask is None)
+
+        library_ms = cuda_time_ms(sdpa, iters=iters, warmup=1)
+        del kr, vr, mask
+        nbytes = (2 * b * hq * sq + 2 * b * hkv * sk) * d * 2
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = (4 * d * visible_pairs(sq, sk, causal, window) * b * hq
+                  / BF16_OPS_PER_S * 1e3)
+        rec = {"entry": entry, "shape": [b, hq, hkv, sq, sk, d], "causal": causal,
+               "window": window, "kv_layout": layout, "dtype": "bfloat16",
+               "bound_share_vs_plain": err, "max_abs_err": abs_err,
+               "control_share": control,
+               "largest_offset": offsets, "ms": ms, "library_ms": library_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        rec["bound_share"] = rec["bound_ms"] / ms
+        rec["vs_library"] = ms / library_ms
+        print(f"flash bf16 {entry} {case[:6]} {layout}: {ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}; {rec['bound_share']:.3f} of it); against plain "
+              f"{err:.3g} of the bf16 bound"
+              + (f" (control: {control:.3g})" if control is not None else "")
+              + f"; largest element offset {offsets} (2^31 = {2 ** 31})")
+        out.append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def patched(patches):
+    """Within the block, each (module, name, fn) of ``patches`` sets
+    ``module.name`` to fn; restored after."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, each kernel wrapper's CUDA call runs the kernel's
+    plain version on the card's tensors instead (no launch, no count)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.mlstm_scan import ops as mops
+    from repro_torch.kernels.mlstm_scan import ref as mref
+    from repro_torch.kernels.slstm_cell import ops as sops
+    from repro_torch.kernels.slstm_cell import ref as sref
+
+    def flash(q, k, v, *, causal, window, softcap=0.0):
+        return fref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        softcap=softcap)
+
+    def slstm(pre_x, r, initial_state=None, return_state=False):
+        return sref.slstm_cell_ref(pre_x, r, initial_state, return_state)
+
+    def mlstm(q, k, v, log_f, *, chunk, normalize, return_state=False):
+        return mref.mlstm_scan_ref(q, k, v, log_f, normalize=normalize,
+                                   return_state=return_state)
+
+    with patched(((fops, "flash_attention_cuda", flash), (sops, "slstm_cell_cuda", slstm),
+                  (mops, "mlstm_scan_cuda", mlstm))):
+        yield
+
+
+def cache_states(cache, path=()) -> list:
+    """The recurrent-state leaves of a decode cache (all but the K/V rings
+    and the cross-attention K/V), which a step replaces."""
+    if isinstance(cache, dict):
+        return [x for key, val in cache.items() if key not in ("k", "v", "cross")
+                for x in cache_states(val, path + (key,))]
+    if isinstance(cache, (list, tuple)):
+        return [x for val in cache for x in cache_states(val, path)]
+    return [cache]
+
+
+def prefilled_decode_args(torch, cfg, shape, params, seed=0) -> tuple:
+    """decode_32k's arguments from the port's own prefill:
+    PRODUCTION_PREFILL_ROWS rows of shape.seq - 1 random tokens through
+    the prefill entry (max_len shape.seq), written into each group of as
+    many rows of one shape.batch-row bf16 cache; then their next tokens
+    at index seq - 1."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import backbone as bb
+
+    rows = PRODUCTION_PREFILL_ROWS
+    check(shape.batch % rows == 0, f"{shape.batch} rows in groups of {rows}")
+    cache = bb.init_cache(cfg, shape.batch, shape.seq, torch.bfloat16,
+                          enc_len=SP.ENC_FRAMES, device="cuda")
+    fn, _ = SP.make_entry(cfg, SP.ShapeSpec("prefill", "prefill", shape.seq, rows))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            rows, shape.seq - 1)).astype(np.int32)).cuda()
+        logits, part, idx = fn(params, {"tokens": tokens})
+        check(idx == shape.seq - 1, f"prefill index {idx}")
+        for i in range(0, shape.batch, rows):
+            tree_map(lambda dst, src: dst[:, i:i + rows].copy_(src), cache, part)
+        nxt = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        del part, logits
+    return params, nxt.repeat(shape.batch // rows, 1), cache, shape.seq - 1
+
+
+@contextlib.contextmanager
+def kernel_calls_vs_plain():
+    """Within the block, every call of a kernel wrapper's CUDA function
+    also runs the kernel's plain version on the same inputs and holds the
+    kernel's output (and final state) to the kernel's own bound: flash in
+    bf16 ``fref.bf16_error_bound``, in f32 ``fref.TOL``; the sLSTM
+    ``slstm_error_bound``; the mLSTM ``mlstm_error_bound``. Every stage
+    of a step but the kernels is the same code on the same card, so
+    given one input it gives the same bits; each kernel call is checked
+    on the input the step gives it. Yields {kernel: [calls, the largest
+    share of its bound]}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.mlstm_scan import ops as mops
+    from repro_torch.kernels.mlstm_scan import ref as mref
+    from repro_torch.kernels.slstm_cell import ops as sops
+    from repro_torch.kernels.slstm_cell import ref as sref
+
+    seen = {}
+
+    def note(kernel, pairs, bounds):
+        worst = 0.0
+        for (g, w), bound in zip(pairs, bounds):
+            err = (g.float() - w.float()).abs()
+            check(g.shape == w.shape and bool(torch.isfinite(g.float()).all()),
+                  f"{kernel} call: shape or non-finite values")
+            worst = max(worst, float(torch.where(err == 0, torch.zeros_like(err),
+                                                 err / bound).max()))
+        calls = seen.setdefault(kernel, [0, 0.0])
+        calls[0] += 1
+        calls[1] = max(calls[1], worst)
+
+    def flash(q, k, v, *, causal, window, softcap=0.0, _cuda=fops.flash_attention_cuda):
+        got = _cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+        want = fref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        softcap=softcap)
+        bound = (fref.bf16_error_bound(q, k, v, got, want, causal=causal,
+                                       window=window, softcap=softcap)
+                 if got.dtype == torch.bfloat16 else
+                 fref.TOL[got.dtype] * (1 + want.float().abs()))
+        note("flash_attention", [(got, want)], [bound])
+        return got
+
+    def slstm(pre_x, r, initial_state=None, return_state=False,
+              _cuda=sops.slstm_cell_cuda):
+        got = _cuda(pre_x, r, initial_state, return_state)
+        want = sref.slstm_cell_ref(pre_x, r, initial_state, return_state)
+        pairs = (list(zip((got[0], *got[1]), (want[0], *want[1]))) if return_state
+                 else [(got, want)])
+        note("slstm_cell", pairs, [sref.slstm_error_bound(w, g) for g, w in pairs])
+        return got
+
+    def mlstm(q, k, v, log_f, *, chunk, normalize, return_state=False,
+              _cuda=mops.mlstm_scan_cuda):
+        got = _cuda(q, k, v, log_f, chunk=chunk, normalize=normalize,
+                    return_state=return_state)
+        want = mref.mlstm_scan_ref(q, k, v, log_f, normalize=normalize,
+                                   return_state=return_state)
+        pairs = (list(zip((got[0], *got[1]), (want[0], *want[1]))) if return_state
+                 else [(got, want)])
+        note("mlstm_scan", pairs, [mref.mlstm_error_bound(w) for _, w in pairs])
+        return got
+
+    with patched(((fops, "flash_attention_cuda", flash), (sops, "slstm_cell_cuda", slstm),
+                  (mops, "mlstm_scan_cuda", mlstm))):
+        yield seen
+
+
+def production_entry(torch, counted, cfg, shape, params, prefilled) -> dict:
+    """One entry of ``specs.make_entry`` on the card: its meta sizing and
+    roofline (``dryrun.size_entry``), its arguments (``dryrun.
+    materialize``, or ``prefilled_decode_args``), a warm-up call, then
+    with every count at 0 the timed run (``dryrun.time_entry``; prefill:
+    one call; decode: PRODUCTION_DECODE_STEPS steps at the entry's index,
+    the median kept) and its launches, asserted (``expected_launches``);
+    finite bf16 logits of the right shape; and for decode, the step
+    against the same step with every kernel's plain version on the card:
+    each kernel call held to its own bound on the input the step gives it
+    (``kernel_calls_vs_plain``), and the logits to ``bf16_share``'s bound
+    at every block's roundings (the recurrent states restored between)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.roofline import CARD_BYTES
+
+    size = dryrun.size_entry(cfg, shape)
+    check(size["held_bytes"] <= CARD_BYTES,
+          f"{cfg.name} x {shape.name}: {size['held_bytes'] / 1e9:.2f} GB")
+    fn, _ = SP.make_entry(cfg, shape)
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda")
+    args = (prefilled_decode_args(torch, cfg, shape, params) if prefilled
+            else dryrun.materialize(cfg, shape, cuda, params=params))
+    setup_s = time.perf_counter() - t0
+    want = expected_launches(cfg)[0 if shape.kind == "prefill" else 1]
+    steps = 1 if shape.kind == "prefill" else PRODUCTION_DECODE_STEPS
+    with torch.no_grad():
+        # warm-up: a decode step, or a prefill of PRODUCTION_WARM_SEQ
+        # tokens (the same kernels and products at a shorter length)
+        if shape.kind == "prefill":
+            warm = dataclasses.replace(shape, seq=min(shape.seq, PRODUCTION_WARM_SEQ))
+            SP.make_entry(cfg, warm)[0](*dryrun.materialize(
+                cfg, warm, cuda, params=params))
+        else:
+            fn(*args)
+    for m in counted.values():
+        m.launches = 0
+    timed, out = dryrun.time_entry(fn, args, steps=steps, warmup=False)
+    launches = {k: m.launches for k, m in counted.items()}
+    logits = out[0]
+    del out
+    wanted = {k: want.get(k, 0) * steps for k in counted}
+    check(launches == wanted, f"{cfg.name} x {shape.name} launches {launches}, "
+          f"want {wanted}")
+    check(logits.dtype == torch.bfloat16 and tuple(logits.shape) == (
+        shape.batch, 1, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all()),
+        f"{cfg.name} x {shape.name}: logits {logits.dtype} {tuple(logits.shape)}")
+    ms, peak_gb = timed["ms"], timed["peak_gb"]
+    tokens = shape.batch * (shape.seq if shape.kind == "prefill" else 1)
+    rec = {"shape": shape.name, "batch": shape.batch, "seq": shape.seq,
+           "layers": cfg.n_layers, "moe_groups": cfg.moe_groups,
+           "attn_kind": cfg.attn_kind, "setup_s": setup_s, "ms": ms,
+           "ms_all": timed["ms_all"], "tokens_per_s": tokens / (ms / 1e3),
+           "peak_gb": peak_gb, "held_gb": size["held_bytes"] / 1e9,
+           "bound_ms": size["roofline"]["bound_ms"],
+           "bottleneck": size["roofline"]["bottleneck"],
+           "launches": {k: v // steps for k, v in launches.items() if v}}
+    rec["roofline_share"] = rec["bound_ms"] / ms
+    if shape.kind == "decode":
+        _, tokens_in, cache, index = args
+        states = cache_states(cache)
+        saved = [x.clone() for x in states]
+
+        def step():
+            for x, s in zip(states, saved):
+                x.copy_(s)
+            return fn(params, tokens_in, cache, index)[0]
+
+        # MoE: the plain step takes the kernel step's expert choices
+        # (``moe_forced``, as card vs CPU does), the picks it would have
+        # changed counted
+        moe = cfg.n_experts > 0
+        with torch.no_grad():
+            with moe_recording("_route", moe) as routes, kernel_calls_vs_plain() as calls:
+                kern = step()
+            forced = moe_forced(routes) if moe else contextlib.nullcontext({})
+            with plain_kernels(), forced as picks:
+                plain = step()
+            for x, s in zip(states, saved):
+                x.copy_(s)
+        rec["kernel_calls_vs_plain"] = {k: {"calls": n, "bound_share": w}
+                                        for k, (n, w) in calls.items()}
+        check(calls.keys() == rec["launches"].keys()
+              and all(n == rec["launches"][k] and w <= 1.0
+                      for k, (n, w) in calls.items()),
+              f"{cfg.name} x {shape.name}: kernel calls against plain {calls}")
+        rec["vs_plain"] = bf16_share(kern, plain, bf16_roundings(cfg))
+        if moe:
+            rec["router_picks_differing"] = picks["differ"]
+        check(rec["vs_plain"] <= 1.0, f"{cfg.name} x {shape.name}: a step vs its "
+              f"plain kernels at {rec['vs_plain']} of the bf16 bound")
+        del kern, plain, saved
+    print(f"{cfg.name} x {shape.name} ({shape.batch} x {shape.seq}, "
+          f"{cfg.n_layers} layers, {cfg.attn_kind}, moe_groups {cfg.moe_groups}): "
+          f"{ms:.3f} ms{' a step' if shape.kind == 'decode' else ''}, "
+          f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.2f} GB (held "
+          f"{rec['held_gb']:.2f}), bound {rec['bound_ms']:.3f} ms "
+          f"({rec['bottleneck']}; {rec['roofline_share']:.3f} of it); launches "
+          f"{rec['launches']}" + (f"; each kernel call vs plain (calls, share of its "
+                                  f"bound) {rec['kernel_calls_vs_plain']}; logits "
+                                  f"vs plain kernels {rec['vs_plain']:.3g} of the bf16 "
+                                  f"bound" if "vs_plain" in rec else "")
+          + (f", router picks the plain step would change "
+             f"{rec['router_picks_differing']}"
+             if "router_picks_differing" in rec else "")
+          + f"; arguments {setup_s:.1f} s")
+    del args, logits
+    return rec
+
+
+@contextlib.contextmanager
+def moe_forced(routes):
+    """Within the block, the i-th call of ``models.moe._route`` keeps its
+    own probabilities but takes the expert choices of ``routes[i]`` (an
+    earlier run's ``_route`` outputs, in their order), its gates
+    renormalized from its own probabilities at those experts. Yields
+    {"differ": (token, k) picks its own choice would have changed,
+    "picks": all picks}."""
+    import torch
+    from repro_torch.models import moe
+
+    orig, state = moe._route, {"i": 0, "differ": 0, "picks": 0}
+
+    def forced(p, cfg, xf):
+        _, idx, probs = orig(p, cfg, xf)
+        want = routes[state["i"]][1].to(idx.device)
+        state["i"] += 1
+        state["differ"] += int((torch.sort(idx, -1).values
+                                != torch.sort(want, -1).values).sum())
+        state["picks"] += idx.numel()
+        gates = torch.gather(probs, -1, want)
+        return gates / (gates.sum(-1, keepdim=True) + 1e-9), want, probs
+
+    moe._route = forced
+    try:
+        yield state
+    finally:
+        moe._route = orig
+
+
+def production_card_vs_cpu(torch, params, cfg, layers, batch, prompt, gen,
+                           patches=0, frames=0) -> dict:
+    """``cfg`` (bf16 compute) cut to ``layers`` on the card and on the CPU
+    from the same weights: prefill (bf16 cache), then ``gen`` decode steps
+    fed the CPU's greedy tokens; logits within ``bf16_share``'s bound at
+    every block's roundings, each cache leaf's layer i at those of the
+    blocks through i (``bf16_cache_share``). MoE layers take the CPU's
+    expert choices on the card (``moe_forced``): in bf16 the k-th and
+    (k+1)-th router logits are often within the two runs' rounding of
+    each other, so the count of picks the card would have made otherwise
+    is reported, and the rest of the layer is compared."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.models import backbone as bb
+
+    sub, scfg = cut_depth(params, cfg, layers)
+    cpu_params = tree_map(lambda x: x.cpu(), sub)
+    moe = scfg.n_experts > 0
+    worst = {}
+
+    def compare(key, share):
+        worst[key] = max(worst.get(key, 0.0), share)
+        check(share <= 1.0, f"{scfg.name} bf16 card vs CPU {key}: {share} of the "
+              "bf16 bound")
+
+    with torch.no_grad():
+        tokens, inputs = lm_inputs(torch, scfg, batch, prompt, patches, frames,
+                                   device="cpu")
+        with moe_recording("_route", moe) as routes:
+            cpu_logits, cpu_caches, fed = lm_serve_pass(
+                torch, bb, cpu_params, scfg, tokens, inputs, gen)
+        forced = moe_forced(routes) if moe else contextlib.nullcontext({})
+        with forced as picks:
+            card_logits, card_caches, _ = lm_serve_pass(
+                torch, bb, sub, scfg, tokens.cuda(),
+                {k: v.cuda() for k, v in inputs.items()}, gen, feed=fed)
+    for a, b in zip(card_logits, cpu_logits, strict=True):
+        compare("logits", bf16_share(a, b, bf16_roundings(scfg)))
+    for a, b in zip(card_caches, cpu_caches, strict=True):
+        compare("cache", bf16_cache_share(scfg, [x.cpu() for x in tree_leaves(a)],
+                                          tree_leaves(b)))
+    if moe:
+        worst.update(router_picks=picks["picks"], router_picks_differing=picks["differ"])
+    print(f"bf16 card vs CPU, {scfg.name} at {scfg.n_layers} layers (moe_groups "
+          f"{scfg.moe_groups}), prefill {batch} x {patches + prompt}"
+          f"{f' ({frames} frames)' if frames else ''} + {gen} steps: worst share "
+          f"of the bf16 bound {worst}")
+    return worst
+
+
+def production_phase(torch, counted, kernels, mem_rate) -> dict:
+    """Phase 33: the flash kernel at the production shapes
+    (``flash_production``) and the recurrent kernels at theirs
+    (``recurrent_production``); the meta-device sizing of every entry
+    (``dryrun --all``: 40 records, none failing) and of the federated
+    round (``--blendfl``); ``dryrun --run`` on DRYRUN_RUN; then each family of
+    PRODUCTION_RUNS at full width (its depth cut where given), from random
+    weights of seed 0: every entry of PRODUCTION_SHAPES it has
+    (``production_entry``), then bf16 card vs CPU at 2 layers
+    (``production_card_vs_cpu``). Returns the records."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import backbone as bb
+
+    flaunch, fref, mlaunch, mref, slaunch, sref = kernels
+    out = {"flash": flash_production(torch, flaunch, fref, mem_rate),
+           "recurrent": recurrent_production(torch, mlaunch, mref, slaunch, sref)}
+    t0 = time.perf_counter()
+    sizing = dryrun.main(["--all"])
+    check(len(sizing) == 40 and all(r["status"] in ("ok", "skip", "does_not_fit")
+                                    for r in sizing), "dryrun --all")
+    out["dryrun_blendfl"] = dryrun.main(["--blendfl"])[0]
+    out["dryrun"] = {f"{r['arch']} x {r['shape']}": r["status"] for r in sizing}
+    print(f"dryrun sizing: {time.perf_counter() - t0:.1f} s")
+    # the CLI's --run on one small entry (random weights, its own timing)
+    t0 = time.perf_counter()
+    ran = dryrun.main(["--arch", DRYRUN_RUN[0], "--shape", DRYRUN_RUN[1], "--run"])[0]
+    check(ran["status"] == "ok" and np.isfinite(ran["run"]["ms"])
+          and ran["run"]["peak_gb"] > 0, f"dryrun --run {DRYRUN_RUN}: {ran}")
+    out["dryrun_run"] = ran["run"]
+    del ran
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dryrun --run {DRYRUN_RUN}: {time.perf_counter() - t0:.1f} s")
+    out["runs"] = {}
+    for name, layers in PRODUCTION_RUNS:
+        t0 = time.perf_counter()
+        first = SP.one_card_config(name, SP.SHAPES["prefill_32k"])
+        torch.cuda.empty_cache()
+        params = bb.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cut_cfg(first, layers), device="cuda")
+        fam = {"entries": {}}
+        for shape_name in PRODUCTION_SHAPES:
+            cfg = SP.one_card_config(name, SP.SHAPES[shape_name])
+            if cfg is None:
+                fam["entries"][shape_name] = {"status": "skip", "reason":
+                                              "no sub-quadratic form (the reference's skip)"}
+                print(f"{name} x {shape_name}: skipped, as the reference skips it")
+                continue
+            shape = SP.one_card_shape(SP.SHAPES[shape_name])
+            fam["entries"][shape_name] = production_entry(
+                torch, counted, cut_cfg(cfg, layers), shape, params,
+                prefilled=name in PRODUCTION_PREFILLED and shape_name == "decode_32k")
+            gc.collect()
+            torch.cuda.empty_cache()
+        cpu_cfg = first.replace(moe_groups=PRODUCTION_CPU_GROUPS.get(
+            name, first.moe_groups))
+        fam["card_vs_cpu"] = production_card_vs_cpu(
+            torch, params, cpu_cfg, PRODUCTION_CPU_LAYERS.get(name, 2),
+            **PRODUCTION_CPU, **PRODUCTION_CPU_INPUTS.get(name, {}))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        fam["phase_s"] = time.perf_counter() - t0
+        out["runs"][get_config(name).name] = fam
+        print(f"-- {name}: {fam['phase_s']:.1f} s")
+    print("production serving: " + json.dumps(out))
+    return out
+
+
+SHARDED_K = 4  # phase 18's sampled rounds
 
 
 def sharded_training(torch, spec, counted) -> dict:
@@ -2611,13 +3427,13 @@ def sharded_training(torch, spec, counted) -> dict:
     import gc
 
     from repro_torch.common.tree import tree_leaves
-    from repro_torch.core.federation_sharded import (ShardedFedSpec,
-                                                     batch_specs,
+    from repro_torch.core.federation_sharded import (batch_specs,
                                                      init_round_state,
                                                      make_blendfl_round)
     from repro_torch.core.schedule import telemetry_from_state
     from repro_torch.data.pipeline import FederatedBatcher
     from repro_torch.kernels.blendavg.blendavg import launches_for
+    from repro_torch.launch.specs import blendfl_spec
     from repro_torch.launch.train_federated import client_arrays
 
     t0 = time.perf_counter()
@@ -2626,7 +3442,9 @@ def sharded_training(torch, spec, counted) -> dict:
     val = {"val_a": np.concatenate([va.x_a, te.x_a]),
            "val_b": np.concatenate([va.x_b, te.x_b]),
            "val_y": np.concatenate([va.y, te.y])}
-    base = ShardedFedSpec(**SHARDED_SPEC)
+    # the reference's widest BlendFL entry (launch/specs.make_blendfl_entry)
+    # with AdamW, over phase 7's partition
+    base = dataclasses.replace(blendfl_spec(), optimizer="adamw")
     host_gb = sum(np.prod(shape) * dtype.itemsize for key, (shape, dtype)
                   in batch_specs(base, ragged=True).items()
                   if not key.startswith("val_")) / 1e9
@@ -2759,14 +3577,15 @@ def cli_child(workdir: str) -> int:
             "--n-layers", "4", "--rows-cap", "512", "--n-train", "16384"] + dev
     ckpt = os.path.join(workdir, "ckpt")
     t0 = time.perf_counter()
-    first = tf.main(full + ["--rounds", "4", "--ckpt-dir", ckpt, "--ckpt-every", "2"])
-    second = tf.main(full + ["--rounds", "6", "--ckpt-dir", ckpt, "--ckpt-every", "2"])
+    first = tf.main(full + ["--rounds", "2", "--ckpt-dir", ckpt, "--ckpt-every", "2"])
+    # the resumed run checkpoints its last round, which the server reads
+    second = tf.main(full + ["--rounds", "3", "--ckpt-dir", ckpt, "--ckpt-every", "1"])
     print(f"    checkpointed run: rounds {[r['round'] for r in first]} then, "
           f"resumed, {[r['round'] for r in second]} in "
           f"{time.perf_counter() - t0:.2f} s; launches a round "
           f"{[r['launches'] for r in first + second]}", flush=True)
-    check([r["round"] for r in first] == [0, 1, 2, 3]
-          and [r["round"] for r in second] == [4, 5], "checkpointed run rounds")
+    check([r["round"] for r in first] == [0, 1]
+          and [r["round"] for r in second] == [2], "checkpointed run rounds")
     check(all(r["launches"] == {"blend_params": 3, "wire_codec": 0}
               for r in first + second), "checkpointed run launches")
     check(all(np.isfinite(r["loss_uni"]) for r in first + second), "losses")
@@ -2992,18 +3811,25 @@ BASELINE_VARIANT_CLIENTS = 4
 def greedy_match_numpy(ref, cand):
     """A numpy copy of the reference's FedMA matcher
     (``src/repro/core/baselines.py:270-283``), which this script may not
-    import: n argmax passes over the masked similarity matrix."""
+    import: n argmax passes over the similarity matrix with the rows
+    already matched and the columns already used at -inf. The reference
+    builds that masked matrix anew each pass with two ``np.where``; here
+    the picked row and column are set to -inf in one copy of ``sim``,
+    which gives the same matrix at every pass (``sim`` is finite), so
+    the same first maximal index, without two (n, n) temporaries a pass
+    (phase 21 runs five (1024, 1024) matchings; the reference's form took
+    3.07 s each on the card's host)."""
     n = ref.shape[0]
     sim = (ref / (np.linalg.norm(ref, axis=1, keepdims=True) + 1e-9)) @ (
         cand / (np.linalg.norm(cand, axis=1, keepdims=True) + 1e-9)).T
+    check(bool(np.isfinite(sim).all()), "FedMA similarity not finite")
+    masked = np.array(sim)
     perm = np.full(n, -1)
-    used = np.zeros(n, bool)
     for _ in range(n):
-        i, j = np.unravel_index(np.argmax(np.where(used[None, :], -np.inf,
-                                                   np.where(perm[:, None] >= 0, -np.inf, sim))),
-                                sim.shape)
+        i, j = np.unravel_index(np.argmax(masked), sim.shape)
         perm[i] = j
-        used[j] = True
+        masked[i, :] = -np.inf
+        masked[:, j] = -np.inf
     return perm
 
 
@@ -3538,31 +4364,40 @@ MLSTM_BWD_CASES = ((1, 2, 150, 64, 64, True), (1, 2, 150, 64, 64, False),
                    (2, 3, 37, 16, 24, True), (1, 1, 70, 8, 130, True))
 MLSTM_BWD_XLSTM = (8, 4, 128, 512, 512, True)
 MLSTM_BWD_HYMBA = (2, 25, 2048, 16, 64, False)
-# Phase 27: launch/train.py at full width and depth, its reference
-# defaults' shape (8 x 128 tokens), 20 steps checkpointed every 10, then
-# the run resumed from step 10. The kernels a step launches at one
+# Phase 27: launch/train.py at full width, its reference
+# defaults' shape (8 x 128 tokens), 20 steps with --ckpt-every 12, so one
+# checkpoint, at step 12 (a second at step 20, written and removed, took
+# about 6.5 s and 4.86 GB of disk), then the run resumed from step 12.
+# The kernels a step launches at one
 # microbatch: one forward and one backward of each cell a layer pair.
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 20, 10, 8, 128
+# Its depth: the first XLSTM_TRAIN_LAYERS of the 24 layers (4 of the 12
+# pairs; at all 24 the phase took 43-51 s of the run's limit, 4.86 GB a
+# checkpoint written and read back).
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 20, 12, 8, 128
+XLSTM_TRAIN_LAYERS = 8
 TRAIN_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
-                  "mlstm_scan": 12, "mlstm_scan_bwd": 12, "slstm_cell": 12,
-                  "slstm_cell_bwd": 12}
-# Phase 30: hymba-1.5b the same way at full width and depth (32 layers,
-# d 1600), 2 x 2048 tokens (its window of 1024 binds), 12 steps
-# checkpointed every 6 (parameters and two moments, about 17 GB a
-# checkpoint), then resumed from step 6. A step launches the flash
+                  "mlstm_scan": 4, "mlstm_scan_bwd": 4, "slstm_cell": 4,
+                  "slstm_cell_bwd": 4}
+# Phase 30: hymba-1.5b the same way at full width (d 1600) and the first
+# HYMBA_LAYERS of its 32 layers (at all 32 the phase took 151 s of the
+# run's limit, 17 GB a checkpoint written and read back), 2 x 2048 tokens
+# (its window of 1024 binds), 12 steps with one checkpoint (parameters
+# and two moments), at step 8, then resumed from it. A step launches the flash
 # forward and the mLSTM scan (the Mamba heads) once a layer, and their
 # backwards once a layer: kernels_a_call(2048, 2048, 5) = 2 flash
 # backward kernels, counted each, and one mLSTM backward call of
 # mlstm_scan_bwd.LAUNCHES = 5 launches, counted once
 # (``train_launches``).
-HYMBA_STEPS, HYMBA_CKPT_EVERY, HYMBA_BATCH, HYMBA_SEQ = 12, 6, 2, 2048
+HYMBA_STEPS, HYMBA_CKPT_EVERY, HYMBA_BATCH, HYMBA_SEQ = 12, 8, 2, 2048
+HYMBA_LAYERS = 4
 TRAIN_RUNS = {
     "xlstm-350m": dict(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
                        batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                       layers=XLSTM_TRAIN_LAYERS,
                        match=("mlstm_kernel", "mlstm_bwd", "slstm_kernel",
                               "slstm_bwd_kernel", "gemm")),
     "hymba-1.5b": dict(steps=HYMBA_STEPS, ckpt_every=HYMBA_CKPT_EVERY,
-                       batch=HYMBA_BATCH, seq=HYMBA_SEQ,
+                       batch=HYMBA_BATCH, seq=HYMBA_SEQ, layers=HYMBA_LAYERS,
                        match=("flash_kernel", "dq_kernel", "dkv_kernel",
                               "mlstm_kernel", "mlstm_bwd", "gemm")),
 }
@@ -3584,12 +4419,14 @@ ADAM_STEP_BOUND = 2.02
 
 
 def train_args(arch: str) -> list:
-    """The CLI's arguments of TRAIN_RUNS[arch], at full width and depth."""
+    """The CLI's arguments of TRAIN_RUNS[arch], at full width and its
+    depth (all its layers, or the first ``layers``)."""
     run = TRAIN_RUNS[arch]
-    return ["--arch", arch, "--full", "--batch", str(run["batch"]),
-            "--seq", str(run["seq"]), "--steps", str(run["steps"]),
-            "--ckpt-every", str(run["ckpt_every"]), "--log-every", "2",
-            "--device", "cuda"]
+    return (["--arch", arch, "--full", "--batch", str(run["batch"]),
+             "--seq", str(run["seq"]), "--steps", str(run["steps"]),
+             "--ckpt-every", str(run["ckpt_every"]), "--log-every", "2",
+             "--device", "cuda"]
+            + ([] if run["layers"] is None else ["--layers", str(run["layers"])]))
 
 
 def train_launches(cfg, seq: int, patches: int = 0, frames: int = 0) -> dict:
@@ -3728,8 +4565,9 @@ def time_mlstm_bwd(torch, mlaunch, mbwd, mref, case, mem_rate) -> dict:
          "device_ms": counted_ms(kern, iters=10, label=f"mlstm bwd {tag}",
                                  launcher=_KernelsOf(mbwd, kernels),
                                  symbols=mbwd.KERNELS),
-         "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
-         "autograd_ms": cuda_time_ms(autograd, iters=2, warmup=1),
+         # one call each: hymba's plain backward takes about 1.5 s a call
+         "plain_ms": cuda_time_ms(plain, iters=1, warmup=1),
+         "autograd_ms": cuda_time_ms(autograd, iters=1, warmup=1),
          "bound_ms": max(bytes_ms, ops_ms),
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "bound_ms_simt": max(bytes_ms, simt_ms), "gflop": flops / 1e9,
@@ -3787,16 +4625,16 @@ def mlstm_bwd_phase(torch, mlaunch, mbwd, mref, mem_rate) -> tuple:
     return worst, errs, times
 
 
-def train_child(workdir: str, arch: str = "xlstm-350m") -> int:
-    """Phases 27 and 30's child process (``chip_smoke.py --train-child DIR
-    [ARCH]``): ``launch/train.py`` at full width and depth as TRAIN_RUNS
-    [ARCH] sets it, checkpointed into DIR, then the run stopped at its
-    first checkpoint (the later one removed) and resumed by a second
-    invocation, which writes no checkpoint of its own (the first run's
-    writes are the ones timed and sized); then one more step profiled.
-    Prints the free disk before the first checkpoint and the
-    checkpoints' size. Writes DIR/train.json."""
-    sys.path.insert(0, str(ROOT / "src"))
+def train_run(workdir: str, arch: str = "xlstm-350m") -> dict:
+    """Phases 27 and 30's runs, in this process (a child process of its
+    own took about 20 s more a phase: its start and the profiler's):
+    ``launch/train.py``'s ``main`` at full width and the depth TRAIN_RUNS
+    [ARCH] sets, with its one checkpoint (at ckpt_every, which lies past
+    half of steps) in DIR, then resumed from it by a second invocation,
+    which writes no checkpoint of its own (the first run's write is the
+    one timed and sized); then one more step profiled. Prints the free
+    disk before the checkpoint and its size. Peak memory is the run's
+    own, above what was allocated before it."""
     import os
     import shutil
 
@@ -3809,21 +4647,21 @@ def train_child(workdir: str, arch: str = "xlstm-350m") -> int:
 
     run = TRAIN_RUNS[arch]
     args = train_args(arch)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     ckpt = os.path.join(workdir, "ckpt")
     print(f"disk free under {workdir}: {shutil.disk_usage(workdir).free / 1e9:.1f} GB",
           flush=True)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     full = train.main(args + ["--ckpt-dir", ckpt])
     full_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    last = os.path.join(ckpt, f"step_{run['steps']:08d}")
-    ckpt_gb = sum(e.stat().st_size for e in os.scandir(last)) / 1e9
+    peak = torch.cuda.max_memory_allocated() - base
+    last = f"step_{run['ckpt_every']:08d}"
+    check(sorted(os.listdir(ckpt)) == [last], f"checkpoints {os.listdir(ckpt)}")
+    ckpt_gb = sum(e.stat().st_size for e in os.scandir(os.path.join(ckpt, last))) / 1e9
     print(f"checkpoint: {ckpt_gb:.2f} GB a step; disk free "
           f"{shutil.disk_usage(workdir).free / 1e9:.1f} GB", flush=True)
-    shutil.rmtree(last)
     cfg, full_hist = full["cfg"], full["history"]
     del full  # its state: the resumed run needs the card's memory
     torch.cuda.empty_cache()
@@ -3856,35 +4694,25 @@ def train_child(workdir: str, arch: str = "xlstm-350m") -> int:
            "resumed_s": resumed_s, "peak_gb": peak / 1e9, "ckpt_gb": ckpt_gb,
            "step_wall_ms": wall * 1e3, "breakdown": bd,
            "launches_a_step": train_launches(cfg, run["seq"])}
-    with open(os.path.join(workdir, "train.json"), "w") as f:
-        json.dump(out, f)
-    return 0
+    del one, step_fn, params, state, resumed, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_on_card(arch: str = "xlstm-350m") -> dict:
-    """Phases 27 and 30: ``train_child`` in a child process; its history
-    is held here: steps 1..steps, then ckpt_every + 1 .. steps after the
-    resume, finite losses, exactly ``train_launches`` a step in both runs,
-    the resumed losses within LOSS_RTOL of the uninterrupted run's (the
+    """Phases 27 and 30: ``train_run``, whose history is held here: steps
+    1..steps, then ckpt_every + 1 .. steps after the resume, finite
+    losses, exactly ``train_launches`` a step in both runs, the resumed
+    losses within LOSS_RTOL of the uninterrupted run's (the
     embedding's backward sums its rows with atomics, so the two runs need
     not agree bit for bit on the card)."""
-    import os
     import tempfile
 
     run = TRAIN_RUNS[arch]
     steps, every = run["steps"], run["ckpt_every"]
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--train-child", workdir, arch], cwd=ROOT,
-                              capture_output=True, text=True, timeout=900)
-        lines = proc.stdout.splitlines()
-        print("\n".join(ln for ln in lines if ln.startswith(
-            ("arch=", "step ", "restored", "disk free", "checkpoint:"))))
-        check(proc.returncode == 0, f"the training child failed ({proc.returncode}):"
-              "\n" + "\n".join(lines[-30:]) + proc.stderr[-3000:])
-        with open(os.path.join(workdir, "train.json")) as f:
-            res = json.load(f)
+        res = train_run(workdir, arch)
     full, resumed = res["full"], res["resumed"]
     want_launches = res["launches_a_step"]
     check([r["step"] for r in full] == list(range(1, steps + 1))
@@ -4394,8 +5222,6 @@ def main() -> int:
 
     if len(sys.argv) == 3 and sys.argv[1] == "--cli-child":
         return cli_child(sys.argv[2])
-    if len(sys.argv) in (3, 4) and sys.argv[1] == "--train-child":
-        return train_child(*sys.argv[2:])
     # --phase4-repeats N: phase 4 served and checked N times (1 as run
     # with no arguments)
     repeats = 1
@@ -4415,11 +5241,24 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    # the build (phase 2) runs while the modules import and phase 1 runs
+    build = {"t0": time.perf_counter()}
+
+    def run_build():
+        try:
+            build["libs"] = _build.build_all()
+        except BaseException as e:  # re-raised in phase 2
+            build["error"] = e
+        build["s"] = time.perf_counter() - build["t0"]
+
+    build_thread = threading.Thread(target=run_build, name="build")
+    build_thread.start()
 
     from repro_torch.configs import get_config
     from repro_torch.core import encoders as enc
     from repro_torch.data.synthetic import TaskSpec
-    from repro_torch.kernels import _build
     from repro_torch.kernels.blendavg import blendavg as blaunch
     from repro_torch.kernels.blendavg import ref as bref
     from repro_torch.kernels.flash_attention import flash_attention as flaunch
@@ -4448,13 +5287,19 @@ def main() -> int:
     mem_rate = hbm_bytes_per_s(kind)
 
     phase("2 build")
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"built {[p.name for p in libs]} in {time.perf_counter() - t0:.2f} s")
+    build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    print(f"built {[p.name for p in build['libs']]} in {build['s']:.2f} s, "
+          "from before the imports")
     for src in _build.sources():  # registers, stack and spills of each kernel
         for name, info in ptxas_summary(_build.report(src)):
             print(f"{src.name}: {name}: {info}")
 
+    counted = {"wire_codec": launcher, "blend_params": blaunch,
+               "slstm_cell": slaunch, "flash_attention": flaunch,
+               "mlstm_scan": mlaunch, "slstm_cell_bwd": sbwd,
+               "flash_attention_bwd": fbwd, "mlstm_scan_bwd": mbwd}
     spec = TaskSpec("blendfl-1024", "multilabel", 25, 64, 128, 64, 128)
     ecfg = enc.EncoderConfig(d_hidden=1024, n_layers=4, enc_type="mlp")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4493,10 +5338,6 @@ def main() -> int:
           f"ms, device {timings[2]['device_ms']} ms")
 
     phase("4 full-width serving")
-    counted = {"wire_codec": launcher, "blend_params": blaunch,
-               "slstm_cell": slaunch, "flash_attention": flaunch,
-               "mlstm_scan": mlaunch, "slstm_cell_bwd": sbwd,
-               "flash_attention_bwd": fbwd, "mlstm_scan_bwd": mbwd}
     print(f"CPU: {cpu_model(torch)}; {torch.get_num_threads()} threads (pinned to "
           f"{CPU_THREADS}), MKL {torch.backends.mkl.is_available()}")
     serve4 = full_width_serving(torch, spec, ecfg, models, gmv, counted)
@@ -4645,7 +5486,7 @@ def main() -> int:
     mbwd_err, mbwd_errs, mbwd_times = mlstm_bwd_phase(torch, mlaunch, mbwd, mref,
                                                       mem_rate)
 
-    phase("27 full-width xlstm-350m training through launch/train.py")
+    phase("27 full-width xlstm-350m training through launch/train.py, 8 of 24 layers")
     lm_train = train_on_card()
 
     phase("28 xlstm-350m training, card against CPU")
@@ -4656,7 +5497,7 @@ def main() -> int:
     phase("29 flash backward against plain at the training shapes")
     fbwd_lm = flash_bwd_phase(torch, flaunch, fbwd, fref, mem_rate)
 
-    phase("30 full-width hymba-1.5b training through launch/train.py")
+    phase("30 full-width hymba-1.5b training through launch/train.py, 4 of 32 layers")
     hymba_train = train_on_card("hymba-1.5b")
 
     phase("31 the other attention families' training at full width")
@@ -4666,6 +5507,12 @@ def main() -> int:
     family_card_cpu = {name: lm_train_card_vs_cpu(torch, counted,
                                                   card_cpu_train_cfg(name))
                        for name in CARD_CPU_TRAIN}
+
+    phase("33 production variants: bf16 serving at prefill_32k, decode_32k and "
+          "long_500k")
+    production = production_phase(torch, counted,
+                                  (flaunch, fref, mlaunch, mref, slaunch, sref),
+                                  mem_rate)
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -4808,6 +5655,29 @@ def main() -> int:
         name: r["launches_a_step"]["flash_attention_bwd"]
         for name, r in family_train.items()}
     flash_record["launches_hymba_training"] = hymba_train["launches"]["flash_attention"]
+    # the production variants (phase 33): bf16 at the entries' shapes, and
+    # the launches of each entry's run (a call, or a decode step)
+    flash_record["production_shapes"] = production["flash"]
+    flash_record["max_abs_err"] = max(flash_record["max_abs_err"],
+                                      *(t["max_abs_err"] for t in production["flash"]))
+    flash_record["production_bound_share"] = max(
+        t["bound_share_vs_plain"] for t in production["flash"])
+    mlstm_record["max_abs_err"] = max(
+        mlstm_record["max_abs_err"], *(e for key, errs in production["recurrent"].items()
+                                       if key.startswith("mlstm")
+                                       for e in errs.values()))
+    slstm_record["max_abs_err"] = max(
+        slstm_record["max_abs_err"], *(e for key, e in production["recurrent"].items()
+                                       if key.startswith("slstm")))
+    flash_record["launches_production"] = {
+        f"{fam} x {shape}": e["launches"].get("flash_attention", 0)
+        for fam, r in production["runs"].items()
+        for shape, e in r["entries"].items() if "launches" in e}
+    for rec, key in ((mlstm_record, "mlstm_scan"), (slstm_record, "slstm_cell")):
+        rec["launches_production"] = {
+            f"{fam} x {shape}": e["launches"][key]
+            for fam, r in production["runs"].items()
+            for shape, e in r["entries"].items() if e.get("launches", {}).get(key)}
     mlstm_record["launches_hymba_training"] = hymba_train["launches"]["mlstm_scan"]
     blend_record["launches_baselines_variants"] = {
         k: v["launches"]["blend_params"] for k, v in baselines["variants"].items()}

@@ -76,12 +76,17 @@
 // has the times), so the staging and store pipeline of one block an SM,
 // not the tensor cores, holds it back.
 //
+// K and V are read through element strides (KvStrides: batch, K/V head,
+// key row; the head dim contiguous), so a decode step reads its cache's
+// (batch, length, hkv, d) slots where they lie, with no transposed copy;
+// the arithmetic does not depend on the strides.
+//
 // ptxas (sm_90a, -O3), as chip_smoke.py's build phase prints it from the
 // -Xptxas -v report kernels/_build.py keeps: f32 KD=256 255 registers
 // (8 warps at 255 just fit an SM's 65,536), KD=128 128 (two blocks an
-// SM), 64 108, 32 79; bf16 KD=256 236 (2 blocks x 4 warps fit), 128 127,
-// 64 95, 32 72; the capped instances f32 255, 156, 108, 74 and bf16 238,
-// 128, 96, 72; no stack frame and no spills in any instance.
+// SM), 64 108, 32 80; bf16 KD=256 244 (2 blocks x 4 warps fit), 128 128,
+// 64 80, 32 62; the capped instances f32 255, 128, 108, 78 and bf16 242,
+// 127, 88, 64; no stack frame and no spills in any instance.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -96,6 +101,14 @@ constexpr int kMaxD = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
+
+// Element strides of K and V (one set for both): batch, K/V head, key
+// row; the head dim is contiguous. A contiguous (batch, hkv, sk, d)
+// array has (hkv * sk * d, sk * d, d); a decode cache read in place,
+// (batch, length, hkv, d), has (length * hkv * d, d, hkv * d).
+struct KvStrides {
+  int64_t batch, head, row;
+};
 
 // Keys a tile, and the warps that share a row group, each taking
 // keys / split keys of every tile with its own (m, l, acc), merged once
@@ -225,13 +238,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Copy `rows` rows of d elements (global row stride d) into shared rows
-// of stride ld; rows at or past `valid` are written as zeros. Columns
-// d..KD-1 are not touched (zeroed once by the kernel).
+// Copy `rows` rows of d elements (global row stride src_ld) into shared
+// rows of stride ld; rows at or past `valid` are written as zeros.
+// Columns d..KD-1 are not touched (zeroed once by the kernel).
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
-                                           int rows, int valid, int d,
-                                           bool vec) {
+                                           int64_t src_ld, int rows,
+                                           int valid, int d, bool vec) {
   if (vec) {
     constexpr int kVec = 16 / (int)sizeof(T);
     const int chunks = d / kVec;
@@ -239,14 +252,14 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
       const int r = e / chunks;
       const int c = (e - r * chunks) * kVec;
       const bool in = r < valid;
-      cp_async16(dst + r * ld + c, in ? src + (int64_t)r * d + c : src,
+      cp_async16(dst + r * ld + c, in ? src + r * src_ld + c : src,
                  in ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < rows * d; e += kThreads<T>) {
       const int r = e / d;
       const int c = e - r * d;
-      dst[r * ld + c] = r < valid ? src[(int64_t)r * d + c] : zero<T>();
+      dst[r * ld + c] = r < valid ? src[r * src_ld + c] : zero<T>();
     }
   }
 }
@@ -376,7 +389,7 @@ __global__ void __launch_bounds__(kThreads<T>)
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int hq,
                  int hkv, int sq, int sk, int d, int causal, int window,
-                 float scale, float softcap, int vec) {
+                 float scale, float softcap, int vec, KvStrides kvs) {
   using L = Layout<T, KD>;
   constexpr int NK = kKeys<T> / kSplit<T>;  // keys of a tile a warp takes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -394,8 +407,9 @@ __global__ void __launch_bounds__(kThreads<T>)
   // the block's first row in q and out: head kvh * group + m0 / sq
   const int64_t row0 = ((int64_t)b * hq + (int64_t)kvh * group) * sq + m0;
   const T* qp = q + row0 * d;
-  const T* kp = k + (int64_t)bkv * sk * d;
-  const T* vp = v + (int64_t)bkv * sk * d;
+  const int64_t kv_off = b * kvs.batch + kvh * kvs.head;
+  const T* kp = k + kv_off;
+  const T* vp = v + kv_off;
   const int off = sk - sq;  // query position p sits at key position p + off
 
   // the keys any row of the block can see: [k_lo, k_hi)
@@ -426,12 +440,12 @@ __global__ void __launch_bounds__(kThreads<T>)
 
   auto stage_kv = [&](int slot, int kb) {
     const int in = min(kKeys<T>, sk - kb);
-    stage_rows<T>(ks + slot * L::k_elems, L::ldq, kp + (int64_t)kb * d,
-                  kKeys<T>, in, d, vec);
-    stage_rows<T>(vs + slot * L::v_elems, L::ldv, vp + (int64_t)kb * d,
-                  kKeys<T>, in, d, vec);
+    stage_rows<T>(ks + slot * L::k_elems, L::ldq, kp + kb * kvs.row,
+                  kvs.row, kKeys<T>, in, d, vec);
+    stage_rows<T>(vs + slot * L::v_elems, L::ldv, vp + kb * kvs.row,
+                  kvs.row, kKeys<T>, in, d, vec);
   };
-  stage_rows<T>(qs, L::ldq, qp, kBlockM, valid, d, vec);
+  stage_rows<T>(qs, L::ldq, qp, d, kBlockM, valid, d, vec);
   if (k_lo < k_hi) stage_kv(0, k_lo);
   cp_async_commit();
 
@@ -617,7 +631,7 @@ __global__ void __launch_bounds__(kThreads<T>)
 template <typename T, int KD, bool kCap>
 int launch_kd(const void* q, const void* k, const void* v, void* out,
               float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
-              int causal, int window, float softcap, int vec,
+              int causal, int window, float softcap, int vec, KvStrides kvs,
               cudaStream_t stream) {
   using L = Layout<T, KD>;
   // above 48 KB a block's dynamic shared memory needs opting in (on the
@@ -632,55 +646,65 @@ int launch_kd(const void* q, const void* k, const void* v, void* out,
                               kThreads<T>, L::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, sq, sk, d,
-      causal, window, scale, softcap, vec);
+      causal, window, scale, softcap, vec, kvs);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kCap>
 int launch_cap(const void* q, const void* k, const void* v, void* out,
                float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
-               int causal, int window, float softcap, int vec,
+               int causal, int window, float softcap, int vec, KvStrides kvs,
                cudaStream_t s) {
   if (d <= 32)
     return launch_kd<T, 32, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
-                                  d, causal, window, softcap, vec, s);
+                                  d, causal, window, softcap, vec, kvs, s);
   if (d <= 64)
     return launch_kd<T, 64, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
-                                  d, causal, window, softcap, vec, s);
+                                  d, causal, window, softcap, vec, kvs, s);
   if (d <= 128)
     return launch_kd<T, 128, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
-                                   d, causal, window, softcap, vec, s);
+                                   d, causal, window, softcap, vec, kvs, s);
   return launch_kd<T, 256, kCap>(q, k, v, out, lse, batch, hq, hkv, sq, sk,
-                                 d, causal, window, softcap, vec, s);
+                                 d, causal, window, softcap, vec, kvs, s);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
-           int causal, int window, float softcap, void* stream) {
+           int causal, int window, float softcap, KvStrides kvs,
+           void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 0 ||
-      d < 1 || d > kMaxD || window < 0 || !(softcap >= 0.0f))
+      d < 1 || d > kMaxD || window < 0 || !(softcap >= 0.0f) ||
+      kvs.batch < 0 || kvs.head < 0 || kvs.row < 0)
     return (int)cudaErrorInvalidValue;
   const int64_t m_tiles =
       ((int64_t)(hq / hkv) * sq + kBlockM - 1) / kBlockM;
   if (m_tiles > 65535 || (int64_t)batch * hkv > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   constexpr int kVec = 16 / (int)sizeof(T);
-  const int vec = d % kVec == 0 && (reinterpret_cast<uintptr_t>(q) |
-                                    reinterpret_cast<uintptr_t>(k) |
-                                    reinterpret_cast<uintptr_t>(v) |
-                                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int vec = d % kVec == 0 &&
+                  (kvs.batch | kvs.head | kvs.row) % kVec == 0 &&
+                  (reinterpret_cast<uintptr_t>(q) |
+                   reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v) |
+                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (softcap > 0.0f)
     return launch_cap<T, true>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                               causal, window, softcap, vec, s);
+                               causal, window, softcap, vec, kvs, s);
   return launch_cap<T, false>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d,
-                              causal, window, softcap, vec, s);
+                              causal, window, softcap, vec, kvs, s);
+}
+
+KvStrides contiguous_kv(int hkv, int sk, int d) {
+  return KvStrides{(int64_t)hkv * sk * d, (int64_t)sk * d, (int64_t)d};
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes, one a dtype. q is a contiguous
+// Plain C entry points for ctypes, one a dtype (the contiguous form, the
+// interface tools/torch_forward_baseline.py and torch_flash_ablation.py
+// call every version of this source through). q is a contiguous
 // (batch, hq, sq, d) array, k and v contiguous (batch, hkv, sk, d) arrays
 // of q's dtype, out a contiguous (batch, hq, sq, d) array of q's dtype,
 // all on the device of `stream`; hq % hkv == 0, 1 <= d <= 256, (hq / hkv)
@@ -697,7 +721,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int d, int causal, int window,
                                    float softcap, void* stream) {
   return launch<float>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
-                       window, softcap, stream);
+                       window, softcap, contiguous_kv(hkv, sk, d), stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -706,5 +730,33 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int sk, int d, int causal, int window,
                                     float softcap, void* stream) {
   return launch<bf16>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
-                      window, softcap, stream);
+                      window, softcap, contiguous_kv(hkv, sk, d), stream);
+}
+
+// The same with K and V at any element strides (kv_batch, kv_head,
+// kv_row; each >= 0, the head dim contiguous), read where they lie: the
+// launcher passes a decode cache's (batch, length, hkv, d) slots so,
+// with no transposed copy. The arithmetic is that of the entries above.
+extern "C" int flash_attention_kv_f32(const void* q, const void* k,
+                                      const void* v, void* out, float* lse,
+                                      int batch, int hq, int hkv, int sq,
+                                      int sk, int d, int causal, int window,
+                                      float softcap, long long kv_batch,
+                                      long long kv_head, long long kv_row,
+                                      void* stream) {
+  return launch<float>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
+                       window, softcap, KvStrides{kv_batch, kv_head, kv_row},
+                       stream);
+}
+
+extern "C" int flash_attention_kv_bf16(const void* q, const void* k,
+                                       const void* v, void* out, float* lse,
+                                       int batch, int hq, int hkv, int sq,
+                                       int sk, int d, int causal, int window,
+                                       float softcap, long long kv_batch,
+                                       long long kv_head, long long kv_row,
+                                       void* stream) {
+  return launch<bf16>(q, k, v, out, lse, batch, hq, hkv, sq, sk, d, causal,
+                      window, softcap, KvStrides{kv_batch, kv_head, kv_row},
+                      stream);
 }

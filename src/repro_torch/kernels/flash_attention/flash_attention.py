@@ -29,20 +29,21 @@ BLOCK_M = 64  # kBlockM in flash_attention.cu: query rows a block
 MAX_GROUP_ROWS = 65535 * BLOCK_M  # (Hq / Hkv) * Sq, at most
 MAX_KV_PAIRS = 2**31 - 1  # B * Hkv, the grid's x limit
 
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+_ENTRY = {torch.float32: "flash_attention_kv_f32",
+          torch.bfloat16: "flash_attention_kv_bf16"}
 _fns: dict = {}
 
 
 def _fn(dtype):
-    """The C entry point flash_attention_<dtype>: four tensors, the
-    log-sum-exp pointer (null for none), eight ints, the softcap and the
-    stream."""
+    """The C entry point flash_attention_kv_<dtype>: four tensors, the
+    log-sum-exp pointer (null for none), eight ints, the softcap, K/V's
+    three element strides (batch, head, key row) and the stream."""
     fn = _fns.get(dtype)
     if fn is None:
         fn = getattr(_build.load(SOURCE), _ENTRY[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_longlong] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
@@ -52,8 +53,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool, window: int, softcap: float = 0.0,
                          return_lse: bool = False):
     """q (B, Hq, Sq, d), k and v (B, Hkv, Sk, d), one dtype (f32 or bf16),
-    contiguous on one CUDA device; Hq % Hkv == 0, d <= 256, (Hq / Hkv) * Sq
-    <= MAX_GROUP_ROWS. ``window`` of
+    on one CUDA device; q contiguous, k and v of one set of strides with
+    the head dim contiguous (read where they lie: a decode cache's
+    (B, L, Hkv, d) slots need no copy); Hq % Hkv == 0, d <= 256, (Hq /
+    Hkv) * Sq <= MAX_GROUP_ROWS. ``window`` of
     0 or less means no window, as in the reference; ``softcap`` > 0 caps
     each scaled score s to softcap * tanh(s / softcap) (0: no cap).
     Returns (B, Hq, Sq, d)
@@ -72,8 +75,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
         raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)} "
                          "(same batch and d, Hq a multiple of Hkv)")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_cuda takes contiguous tensors")
+    if not q.is_contiguous():
+        raise ValueError("flash_attention_cuda takes a contiguous q")
+    if k.stride() != v.stride() or (d > 1 and k.stride(3) != 1):
+        raise ValueError(f"flash_attention_cuda takes k and v of one set of "
+                         f"strides with the head dim contiguous, got "
+                         f"{k.stride()} and {v.stride()}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_cuda takes a head dim of at most "
                          f"{MAX_HEAD_DIM}, got {d}")
@@ -101,7 +108,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  b, hq, hkv, sq, sk, d, int(bool(causal)),
-                 max(int(window), 0), float(softcap), stream)
+                 max(int(window), 0), float(softcap), k.stride(0), k.stride(1),
+                 k.stride(2), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1

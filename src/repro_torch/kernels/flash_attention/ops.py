@@ -72,8 +72,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return FlashAttentionFn.apply(q, k, v, bool(causal), max(int(window), 0),
                                       float(softcap))
     if q.device.type == "cuda":
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
+        # K/V where they lie (a decode cache read in place); copies only
+        # where the head dim is not contiguous or the two strides differ
+        if k.stride(-1) != 1 or v.stride() != k.stride():
+            k, v = k.contiguous(), v.contiguous()
+        return flash_attention_cuda(q.contiguous(), k, v, causal=causal,
                                     window=window, softcap=softcap)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap)

@@ -18,10 +18,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bf16_ulp
+
 # Kernel vs plain version, as atol = rtol: f32 2e-5 (the online softmax
 # rescales its sums tile by tile), bf16 2e-2 (the output is rounded to
 # bf16); the tolerances of the reference's kernel tests.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# A bf16 instance of the kernel against the plain version on the same
+# inputs (``bf16_error_bound``): the kernel forms the scores, the
+# softmax and its sums in f32 as the plain version does, but rounds each
+# probability p to bf16 for the P V product on the tensor cores (at most
+# bf16's unit roundoff of p, 2^-8: 8 significant bits, to nearest), and
+# each side sums its Sk terms in its own order (at most Sk f32 roundings
+# of 2^-24 each, of the terms' scale).
+P_RTOL_BF16 = 2.0 ** -8
 # Backward kernel vs plain backward on the same inputs (f32): the products
 # sum S or d terms in another order, and ds = p (dp - D) cancels; an
 # element's error scales with the terms summed into it, so the absolute
@@ -76,6 +86,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     lse = m + torch.log(p.sum(dim=-1, keepdim=True))
     lse = torch.where(torch.isfinite(m), lse, m)[..., 0]
     return out.to(q.dtype), lse
+
+
+def bf16_error_bound(q, k, v, got, want, *, causal: bool = True, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Elementwise bound on |got - want| between a bf16 instance of the
+    kernel (``got``) and the plain version (``want``) on the same inputs:
+    the terms summed into an output are p_j v_j, so its f32 value on
+    either side lies within (P_RTOL_BF16 + 2 Sk 2^-24) sum_j p_j |v_j| of
+    the other's (the plain softmax applied to |v|, in f32); each side
+    then rounds to bf16, which may land on either neighbour: one bf16 ulp
+    of the larger of |got| and |want|. The bound scales with each row's
+    keys, not with a fixed tolerance, so it stays sensitive where a long
+    row's outputs are small."""
+    pv = flash_attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                             window=window, softcap=softcap)
+    sums = P_RTOL_BF16 + 2 * k.shape[2] * 2.0 ** -24
+    return bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + sums * pv
 
 
 def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = False,

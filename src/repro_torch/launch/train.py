@@ -4,11 +4,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --full --steps 50 --batch 8 --seq 128 [--ckpt-dir /tmp/ckpt]
 
+    # the published width at the first 8 of its layers
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+        --full --layers 8 --steps 12 --batch 2 --seq 2048
+
     # the reduced config on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --steps 8 --device cpu
 
 The reference's flags and defaults: ``--reduced`` is the default and
-``--full`` builds the published width and depth; AdamW with a linear
+``--full`` builds the published width and depth (``--layers N`` keeps
+the width and cuts the depth to the first N layers of every stack, a
+flag the reference does not have); AdamW with a linear
 warmup of 10 steps into a cosine decay over ``--steps``; weights random
 from seed 0 (a ``torch.Generator``: the values differ from JAX's);
 batches from ``build_batch`` and ``numpy.random.default_rng(0)``, the
@@ -89,6 +95,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="xlstm-350m")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first N layers of every stack")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -113,8 +121,14 @@ def main(argv=None) -> dict:
     cfg = get_config(ALIASES.get(args.arch, args.arch))
     if args.reduced:
         cfg = cfg.reduced()
-    print(f"arch={cfg.name} reduced={args.reduced} params~{cfg.n_params/1e6:.1f}M "
-          f"device={device}")
+    if args.layers is not None:
+        if not 0 < args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers")
+        cfg = cfg.replace(n_layers=args.layers, **(
+            {"n_enc_layers": args.layers} if cfg.is_encdec else {}))
+    print(f"arch={cfg.name} reduced={args.reduced} layers={cfg.n_layers} "
+          f"params~{cfg.n_params/1e6:.1f}M device={device}")
 
     opt = optim.adamw(optim.linear_warmup_cosine(args.lr, warmup=10,
                                                  total_steps=args.steps))

@@ -17,9 +17,10 @@ kv-head width. The cases:
   the ring wraps and all of them after (the softmax does not depend on
   the slots' order, so no mask is needed).
 
-Tensors keep the reference's (B, S, H, hd) layout between layers; each
-call transposes q, k and v into contiguous (B, H, S, hd) copies for the
-kernel (the decode cache's too, every step).
+Tensors keep the reference's (B, S, H, hd) layout between layers. The
+kernel takes q in its (B, H, S, hd) layout (a transposed copy, except
+at Sq = 1, where the transpose is already contiguous) and K/V where they
+lie, through their strides: a decode step reads the cache in place.
 """
 from __future__ import annotations
 
@@ -91,8 +92,9 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, *, device):
 
 def decode_attend(p, cfg, x, cache, index: int, positions=None):
     """One-token decode. x (B, 1, d); cache {'k', 'v'} (B, L, Hkv, hd);
-    index = number of tokens already in context. Returns (out, new_cache);
-    the cache passed in is left as it was."""
+    index = number of tokens already in context. Returns (out, cache):
+    the token's K/V written into slot ``index % L`` of the cache given
+    (in place), and the kernel reads the valid slots where they lie."""
     hd = cfg.hd
     b = x.shape[0]
     length = cache["k"].shape[1]
@@ -108,15 +110,14 @@ def decode_attend(p, cfg, x, cache, index: int, positions=None):
         q = apply_rope(q, ang)
         k = apply_rope(k, ang)
     slot = index % length
-    new_k, new_v = cache["k"].clone(), cache["v"].clone()
-    new_k[:, slot] = k[:, 0].to(new_k.dtype)
-    new_v[:, slot] = v[:, 0].to(new_v.dtype)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
     # valid slots: those already written (ring semantics)
     n = length if index + 1 >= length else index + 1
-    out = _flash(q, new_k[:, :n].to(x.dtype), new_v[:, :n].to(x.dtype),
+    out = _flash(q, cache["k"][:, :n].to(x.dtype), cache["v"][:, :n].to(x.dtype),
                  causal=False, window=0, softcap=cfg.attn_logit_softcap)
     out = dense(p["wo"], out.reshape(b, 1, cfg.n_heads * hd))
-    return out, {"k": new_k, "v": new_v}
+    return out, cache
 
 
 def decode_cross_attend(p, cfg, x, cross_kv):

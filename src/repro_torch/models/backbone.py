@@ -23,11 +23,16 @@ flash-attention backward (every attention: causal, grouped K/V heads,
 the sliding window, the logit cap, cross-attention), the mLSTM-scan
 backward (the mLSTM and hymba's Mamba heads) and the sLSTM's BPTT; the
 rest (MoE dispatch and aux loss, the stub frontends, RoPE / M-RoPE, the
-norms and MLPs) is autograd of plain tensor ops. The grouped MoE
-dispatch of a multi-device launcher (``moe_groups > 0``) refuses at
-every entry (ROADMAP item 16). The reference's ``_constrain`` /
-``act_shard`` pin activations to a mesh and have no counterpart on one
-device.
+norms and MLPs) is autograd of plain tensor ops. The reference's
+``_constrain`` / ``act_shard`` pin activations to a mesh and have no
+counterpart on one device.
+
+``decode_step`` writes the new token's keys and values, and the
+recurrent states, into the cache it is given and returns that cache:
+a caller that reuses a cache after a step clones it first
+(``clone_cache``). ``init_params`` and ``init_cache`` on
+``device="meta"`` draw and allocate nothing (``launch/specs.py`` sizes
+entries with them).
 """
 from __future__ import annotations
 
@@ -38,7 +43,6 @@ from repro_torch.common.tree import (
     tree_index,
     tree_leaves,
     tree_map,
-    tree_stack,
     tree_unflatten,
 )
 from repro_torch.models import blocks as B
@@ -47,6 +51,7 @@ from repro_torch.models.common import (
     dense_init,
     embed,
     embedding_init,
+    normal,
     rmsnorm,
     rmsnorm_init,
     softmax_cross_entropy,
@@ -68,15 +73,6 @@ _BLOCK = {
 }
 
 
-def _check(cfg: ArchConfig) -> None:
-    """Refuse what the port does not run, before any work."""
-    if cfg.moe_groups > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_groups={cfg.moe_groups} asks for the grouped "
-            "(GShard) MoE dispatch over data shards, which is not ported; the "
-            "port runs on one device with moe_groups=0 (ROADMAP item 16)")
-
-
 def n_scan_layers(cfg: ArchConfig) -> int:
     if cfg.block_type == "xlstm_pair":
         if cfg.n_layers % 2:
@@ -86,19 +82,22 @@ def n_scan_layers(cfg: ArchConfig) -> int:
 
 
 def _stack_layers(init_fn, n, gen, cfg, dtype, device):
-    return tree_stack([init_fn(gen, cfg, dtype, device=device) for _ in range(n)])
+    stacked = None
+    for i in range(n):  # one layer's draws at a time, into the stack
+        stacked = _stack_into(stacked, init_fn(gen, cfg, dtype, device=device),
+                              i, n)
+    return stacked
 
 
 def _learned_pos(gen, cfg, dtype, device):
-    table = torch.randn((MAX_LEARNED_POS, cfg.d_model), generator=gen,
-                        device=gen.device) * 0.02
+    table = normal(gen, (MAX_LEARNED_POS, cfg.d_model), device) * 0.02
     return table.to(device=device, dtype=dtype)
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, *, device=None):
     """Random parameters with the reference's keys, shapes and scales,
-    drawn from ``gen`` (the values differ from JAX's threefry draws)."""
-    _check(cfg)
+    drawn from ``gen`` (the values differ from JAX's threefry draws); on
+    ``device="meta"`` shapes and dtypes only, and ``gen`` may be None."""
     device = resolve_device(device)
     dtype = cfg.pdtype
     p = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype,
@@ -164,7 +163,6 @@ def _layers(stacked):
 
 def forward(params, cfg: ArchConfig, batch):
     """Full-sequence forward. Returns (logits, aux_loss)."""
-    _check(cfg)
     if cfg.is_encdec:
         return _encdec_forward(params, cfg, batch)
     x, positions = _embed_inputs(params, cfg, batch)
@@ -203,7 +201,6 @@ def loss_fn(params, cfg: ArchConfig, batch):
     """Mean next-token cross-entropy (over ``loss_mask`` where given; the
     text positions of a VLM) plus ``router_aux_weight`` times the aux
     loss. Returns (total, {"loss", "aux"})."""
-    _check(cfg)
     logits, aux = forward(params, cfg, batch)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
@@ -236,7 +233,6 @@ def make_train_step(cfg: ArchConfig, optimizer, microbatches: int = 1):
     gradients are summed in f32 and divided by ``microbatches``, and the
     metrics are loss = the mean total and aux = 0, as the reference
     reports them."""
-    _check(cfg)
 
     def train_step(params, opt_state, batch):
         if microbatches > 1:
@@ -270,7 +266,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     """Decode cache for the whole stack (leading axis = stacked layers),
     all zeros, as the reference's. enc_len: the encoder output length of
     the cross-attention cache (encdec)."""
-    _check(cfg)
     device = resolve_device(device)
     dtype = dtype or cfg.cdtype
     if cfg.is_encdec:
@@ -290,38 +285,49 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
 def prefill(params, cfg: ArchConfig, batch, max_len: int, cache_dtype=None):
     """Process the prompt; returns (last-token logits (B, 1, V), cache,
     next_index)."""
-    _check(cfg)
     cache_dtype = cache_dtype or cfg.cdtype
     if cfg.is_encdec:
         return _encdec_prefill(params, cfg, batch, max_len, cache_dtype)
     x, positions = _embed_inputs(params, cfg, batch)
     prefill_fn = _BLOCK[cfg.block_type][4]
-    caches = []
-    for lp in _layers(params["layers"]):
+    layers = _layers(params["layers"])
+    cache = None
+    for i, lp in enumerate(layers):
         x, cache_l = prefill_fn(lp, cfg, x, positions, max_len, cache_dtype)
-        caches.append(cache_l)
+        cache = _stack_into(cache, cache_l, i, len(layers))
     logits = _lm_logits(params, cfg, x[:, -1:])
-    return logits, tree_stack(caches), x.shape[1]
+    return logits, cache, x.shape[1]
+
+
+def _stack_into(stacked, cache_l, i: int, n: int):
+    """Layer ``i``'s cache into slot i of the stacked cache of ``n``
+    layers (made at layer 0): the stack is built in place, so that
+    prefill never holds every layer's cache twice."""
+    if stacked is None:
+        stacked = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), cache_l)
+    tree_map(lambda dst, src: dst[i].copy_(src), stacked, cache_l)
+    return stacked
 
 
 def _encdec_prefill(params, cfg, batch, max_len, cache_dtype):
     enc_out = _encode(params, cfg, batch["frames"])
     tok = batch["tokens"]  # decoder prompt (e.g. BOS)
     x = _embed_decoder(params, cfg, tok)
-    caches = []
-    for lp in _layers(params["dec_layers"]):
+    layers = _layers(params["dec_layers"])
+    cache = None
+    for i, lp in enumerate(layers):
         x, cache_l = B.dec_block_prefill(lp, cfg, x, enc_out, None, max_len,
                                          cache_dtype)
-        caches.append(cache_l)
+        cache = _stack_into(cache, cache_l, i, len(layers))
     logits = _lm_logits(params, cfg, x[:, -1:])
-    return logits, tree_stack(caches), tok.shape[1]
+    return logits, cache, tok.shape[1]
 
 
 def decode_step(params, cfg: ArchConfig, tokens, cache, index):
     """tokens (B, 1) int; index: count of tokens already in context.
-    Returns (logits (B, 1, V), new cache); the cache passed in is left as
-    it was."""
-    _check(cfg)
+    Returns (logits (B, 1, V), cache): the cache passed in, updated in
+    place (the token's K/V at slot ``index % length`` of each ring, each
+    recurrent state replaced by the next)."""
     index = int(index)
     x = embed(params["embed"], tokens, cfg.cdtype)
     if cfg.pos == "learned":
@@ -330,18 +336,35 @@ def decode_step(params, cfg: ArchConfig, tokens, cache, index):
     if cfg.pos == "mrope":  # the raw index on all three axes, as the reference
         positions = torch.full((tokens.shape[0], 1, 3), index, dtype=torch.int32,
                                device=x.device)
-    new = []
     if cfg.is_encdec:
         for i, lp in enumerate(_layers(params["dec_layers"])):
-            x, cache_l = B.dec_block_decode(lp, cfg, x, tree_index(cache, i), index)
-            new.append(cache_l)
+            view = tree_index(cache, i)
+            x, cache_l = B.dec_block_decode(lp, cfg, x, view, index)
+            _write_back(view, cache_l)
     else:
         decode_fn = _BLOCK[cfg.block_type][2]
         for i, lp in enumerate(_layers(params["layers"])):
-            x, cache_l = decode_fn(lp, cfg, x, tree_index(cache, i), index,
-                                   positions)
-            new.append(cache_l)
-    return _lm_logits(params, cfg, x), tree_stack(new)
+            view = tree_index(cache, i)
+            x, cache_l = decode_fn(lp, cfg, x, view, index, positions)
+            _write_back(view, cache_l)
+    return _lm_logits(params, cfg, x), cache
+
+
+def _write_back(view, cache_l) -> None:
+    """A layer's next cache into its views of the stacked cache: leaves
+    the block updated in place (the K/V rings) are those views already;
+    the others (recurrent states) are copied in."""
+    def put(dst, src):
+        if src is not dst:
+            dst.copy_(src)
+
+    tree_map(put, view, cache_l)
+
+
+def clone_cache(cache):
+    """A copy of a decode cache, for a caller that reuses a cache after
+    ``decode_step`` (which updates the one it is given)."""
+    return tree_map(torch.clone, cache)
 
 
 def make_serve_step(cfg: ArchConfig):

@@ -7,7 +7,9 @@ of functions. Random init draws from an explicit ``torch.Generator`` on
 the generator's own device and moves the result to ``device``, so one
 seed gives the same weights on every device. The numbers differ from
 the reference's JAX threefry draws; parity tests carry weights across
-with ``repro_torch.convert``.
+with ``repro_torch.convert``. On the ``meta`` device an init draws
+nothing: it gives tensors of the shapes and dtypes only, the port's
+counterpart of ``jax.eval_shape`` over the reference's init.
 """
 from __future__ import annotations
 
@@ -16,10 +18,19 @@ import math
 import torch
 
 
+def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard normal draws of ``shape`` from ``gen``, on the
+    generator's device; on the meta device, no draw (``gen`` may be
+    None)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
                device, bias: bool = False, scale: float | None = None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    w = normal(gen, (d_in, d_out), device) * scale
     p = {"w": w.to(device=device, dtype=dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
@@ -45,7 +56,7 @@ def rmsnorm(p, x, eps: float = 1e-5):
 
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype, *, device):
-    table = torch.randn((vocab, d), generator=gen, device=gen.device) * 0.02
+    table = normal(gen, (vocab, d), device) * 0.02
     return {"table": table.to(device=device, dtype=dtype)}
 
 

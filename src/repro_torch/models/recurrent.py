@@ -32,6 +32,7 @@ import torch
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
 from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
 from repro_torch.kernels.slstm_cell.ops import slstm_cell
+from repro_torch.models.common import normal
 
 
 def gated_linear_scan(q, k, v, log_f, *, chunk: int = 64, normalize: bool = True,
@@ -71,13 +72,13 @@ def slstm_init(gen: torch.Generator, d: int, n_heads: int, dtype, *, device):
     scaled as the reference scales them."""
     hd = d // n_heads
 
-    def normal(shape, scale):
-        x = torch.randn(shape, generator=gen, device=gen.device) * scale
+    def draw(shape, scale):
+        x = normal(gen, shape, device) * scale
         return x.to(device=device, dtype=dtype)
 
     return {
-        "wx": normal((d, 4 * d), 1.0 / math.sqrt(d)),
-        "r": normal((n_heads, hd, 4 * hd), 1.0 / math.sqrt(hd)),
+        "wx": draw((d, 4 * d), 1.0 / math.sqrt(d)),
+        "r": draw((n_heads, hd, 4 * hd), 1.0 / math.sqrt(hd)),
         "b": torch.zeros((4 * d,), dtype=dtype, device=device),
     }
 

@@ -14,17 +14,25 @@ softmax); greedy tokens equal wherever the reference's top-2 logit
 margin exceeds 2e-4. The port's own consistency checks use the
 reference test's tolerances (``tests/test_arch_smoke.py``).
 """
+import contextlib
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 from repro.configs import get_config as jget
 from repro.models import backbone as jbb
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch import serve_lm
+from repro_torch.models import attention as tattn
 from repro_torch.models import backbone as tbb
+from repro_torch.models import recurrent as trec
 
 ATOL = RTOL = 1e-4
 MARGIN = 2e-4
@@ -186,3 +194,125 @@ def check_generate(lm) -> None:
     assert res["tokens"].shape == (2, 1 + STEPS) and res["tokens"].dtype == torch.int32
     assert np.array_equal(res["tokens"].numpy()[:, :sure], want[:, :sure])
     assert len(res["decode_s"]) == STEPS and res["prefill_s"] > 0
+
+
+# ------------------------------------------------ bf16 serving (item 16) --
+
+def np32(tree):
+    """A tree of tensors or arrays (bf16 included) -> the same tree of f32
+    numpy arrays, dicts and tuples kept (``jax.tree.leaves`` then orders
+    both packages' leaves alike)."""
+    if isinstance(tree, dict):
+        return {k: np32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(np32(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().cpu().numpy()
+    return np.asarray(tree).astype(np.float32)
+
+
+def bf16_run(name: str, **overrides) -> dict:
+    """``reference_run`` at the production numerics of ``launch/specs.py``
+    (bf16 compute, f32 parameters, a bf16 decode cache), reduced: the
+    reference's prefill and STEPS greedy decode steps."""
+    kw = dict(compute_dtype="bfloat16", **overrides)
+    jc, tc = jget(name).reduced().replace(**kw), get_config(name).reduced().replace(**kw)
+    jp = jbb.init_params(jax.random.PRNGKey(1), jc)
+    batch = prompt(jc)
+    plog, pcache, idx = jbb.prefill(jp, jc, to_jax(batch), max_len=MAX_LEN,
+                                    cache_dtype=jnp.bfloat16)
+    step = jax.jit(jbb.make_serve_step(jc))
+    nxt = jnp.argmax(plog[:, -1], -1)[:, None].astype(jnp.int32)
+    cache, steps = pcache, []
+    for i in range(STEPS):
+        logits, cache = step(jp, nxt, cache, jnp.asarray(idx + i))
+        steps.append((np.array(nxt), np32(logits)))
+        nxt = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+    return dict(jc=jc, tc=tc, tp=params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
+                batch=batch, index=int(idx), prefill=np32(plog),
+                prefill_cache=np32(pcache), cache=np32(cache),
+                cache_dtypes=[str(x.dtype) for x in jax.tree.leaves(cache)],
+                steps=steps)
+
+
+def bf16_close(got, want, roundings: int) -> float:
+    """``got`` within ``chip_smoke.bf16_share``'s bound of ``want`` after
+    ``roundings`` bf16 roundings; returns the share of the bound."""
+    share = chip_smoke.bf16_share(np32(got), np32(want), roundings)
+    assert share <= 1.0, (share, roundings)
+    return share
+
+
+def bf16_caches_close(cfg, got, want) -> float:
+    """Two decode caches of one structure, each stacked leaf's layer i
+    within the bound of the blocks through i
+    (``chip_smoke.bf16_cache_share``); returns the share."""
+    got, want = np32(got), np32(want)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    share = chip_smoke.bf16_cache_share(cfg, jax.tree.leaves(got),
+                                        jax.tree.leaves(want))
+    assert share <= 1.0, share
+    return share
+
+
+def check_bf16_serving(lm) -> None:
+    """The port's prefill (bf16 cache) and STEPS decode steps fed the
+    reference's tokens, against the reference: logits and every cache
+    leaf within ``chip_smoke.bf16_share``'s bound, in the reference's dtypes (bf16
+    logits and K/V, f32 recurrent states)."""
+    tc = lm["tc"]
+    logits, cache, idx = tbb.prefill(lm["tp"], tc, to_torch(lm["batch"]),
+                                     max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+    assert idx == lm["index"] and logits.dtype == torch.bfloat16
+    bf16_close(logits, lm["prefill"], chip_smoke.bf16_roundings(tc))
+    bf16_caches_close(tc, cache, lm["prefill_cache"])
+    for i, (tok, want) in enumerate(lm["steps"]):
+        logits, out = tbb.decode_step(lm["tp"], tc, torch.from_numpy(tok), cache,
+                                      idx + i)
+        assert out is cache and logits.dtype == torch.bfloat16
+        bf16_close(logits, want, chip_smoke.bf16_roundings(tc))
+    bf16_caches_close(tc, cache, lm["cache"])
+    assert ([str(x.dtype).split(".")[-1] for x in jax.tree.leaves(cache)]
+            == lm["cache_dtypes"])
+
+
+
+# the kernel wrappers a model calls, by the kernel's name
+KERNEL_CALLS = {"flash_attention": (tattn, "flash_attention"),
+                "mlstm_scan": (trec, "mlstm_scan"),
+                "slstm_cell": (trec, "slstm_cell")}
+
+
+@contextlib.contextmanager
+def zeroed_first_call(kernel: str):
+    """Within the block, the first call of ``kernel``'s wrapper in the
+    port's models returns zeros for its output (a wrong kernel, for the
+    bound's control)."""
+    mod, name = KERNEL_CALLS[kernel]
+    orig, calls = getattr(mod, name), []
+
+    def wrong(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append(1)
+        if len(calls) > 1:
+            return out
+        if isinstance(out, tuple):
+            return (torch.zeros_like(out[0]),) + out[1:]
+        return torch.zeros_like(out)
+
+    setattr(mod, name, wrong)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, orig)
+
+
+def bf16_control_share(lm, kernel: str) -> float:
+    """The share of the bf16 bound that the port's prefill logits reach
+    with the first call of ``kernel`` zeroed."""
+    with zeroed_first_call(kernel) as calls:
+        logits, _, _ = tbb.prefill(lm["tp"], lm["tc"], to_torch(lm["batch"]),
+                                   max_len=MAX_LEN, cache_dtype=torch.bfloat16)
+    assert calls, f"{kernel} not called"
+    return chip_smoke.bf16_share(np32(logits), lm["prefill"],
+                                 chip_smoke.bf16_roundings(lm["tc"]))

@@ -42,6 +42,7 @@ from repro_torch.kernels.blendavg.ops import blend_params
 from repro_torch.kernels.blendavg.ref import blend_error_bound, blend_params_ref
 from repro_torch.kernels.flash_attention import flash_attention as flash_launcher
 from repro_torch.kernels.flash_attention.ref import TOL as FLASH_TOL
+from repro_torch.kernels.flash_attention.ref import bf16_error_bound as flash_bf16_error_bound
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.mlstm_scan import mlstm_scan as mlstm_launcher
 from repro_torch.kernels.mlstm_scan.ref import mlstm_error_bound, mlstm_scan_ref
@@ -462,6 +463,74 @@ def test_flash_kernel_lm_shapes_on_card(b, hq, hkv, sq, sk, d, causal, window):
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# bf16 at the production entries' lengths (launch/specs.py: one card's
+# share of prefill_32k, decode_32k and long_500k): b, hq, hkv, sq, sk, d,
+# causal, window, and K/V as a decode cache read in place ((B, Sk, Hkv, d)
+# transposed, the strides decode_attend passes) or contiguous
+FLASH_PRODUCTION_CASES = [
+    (8, 24, 8, 1, 32768, 128, False, 0, True),     # phi4 decode_32k
+    (1, 24, 8, 1, 4096, 128, False, 0, True),      # the window-4096 ring
+    (1, 24, 8, 8192, 8192, 128, True, 4096, False),  # the window-4096 prefill
+    (8, 12, 2, 1, 32768, 128, False, 0, True),     # qwen2-vl decode, group 6
+    (8, 25, 5, 1, 1024, 64, False, 0, True),       # hymba's 1024 ring
+    (2, 25, 5, 4096, 4096, 64, True, 1024, False),  # hymba's window 1024
+    (2, 32, 32, 2048, 2048, 80, True, 0, False),   # stablelm d = 80
+    (8, 32, 32, 1, 32768, 80, False, 0, True),     # stablelm d = 80 decode
+    (2, 16, 16, 8192, 1500, 64, False, 0, False),  # whisper cross, prefill
+    (8, 16, 16, 1, 1500, 64, False, 0, False),     # whisper cross, decode
+    (2, 24, 8, 32768, 32768, 128, True, 0, False),  # phi4 prefill_32k
+    (2, 12, 2, 32768, 32768, 128, True, 0, False),  # qwen2-vl prefill_32k
+    (2, 36, 4, 32768, 32768, 128, True, 0, False),  # starcoder2 prefill_32k
+]
+FLASH_CHECK_ROWS = 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,in_place",
+                         FLASH_PRODUCTION_CASES)
+def test_flash_kernel_bf16_production_forms_on_card(b, hq, hkv, sq, sk, d, causal,
+                                                    window, in_place):
+    """One launch, finite, within ``bf16_error_bound`` of the plain version
+    (which scales with each row's keys, so it stays sensitive where a long
+    row's outputs are small): every row up to 1024 queries, else the
+    first, middle and last 128 (queries end-aligned, each part given the
+    keys up to its last row's). Odd query heads at 4 times the scale, so
+    that their softmax rests on a few keys."""
+    _skip_without_card()
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    q = draw(b, hq, sq, d)
+    q[:, 1::2] *= 4
+    if in_place:
+        k, v = draw(b, sk, hkv, d).transpose(1, 2), draw(b, sk, hkv, d).transpose(1, 2)
+        assert not k.is_contiguous()
+    else:
+        k, v = draw(b, hkv, sk, d), draw(b, hkv, sk, d)
+    before = flash_launcher.launches
+    got = flash_launcher.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_launcher.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    n = FLASH_CHECK_ROWS
+    parts = ([(0, sq)] if sq <= 1024 else
+             [(0, n), (sq // 2 - n // 2, sq // 2 + n // 2), (sq - n, sq)])
+    for lo, hi in parts:
+        end = hi + sk - sq if causal else sk
+        qq, kk, vv, out = q[:, :, lo:hi], k[:, :, :end], v[:, :, :end], got[:, :, lo:hi]
+        want = flash_attention_ref(qq, kk, vv, causal=causal, window=window)
+        assert bool(torch.isfinite(out.float()).all())
+        bound = flash_bf16_error_bound(qq, kk, vv, out, want, causal=causal,
+                                       window=window)
+        assert bool(((out.float() - want.float()).abs() <= bound).all())
+    if in_place:  # read in place or from a contiguous copy: the same bits
+        again = flash_launcher.flash_attention_cuda(
+            q, k.contiguous(), v.contiguous(), causal=causal, window=window)
+        assert torch.equal(again, got)
 
 
 @pytest.mark.cuda

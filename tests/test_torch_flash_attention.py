@@ -20,7 +20,7 @@ from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import flash_attention as launcher
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_scale
+from repro_torch.kernels.flash_attention.ref import attention_scale, bf16_error_bound
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -152,6 +152,46 @@ def test_tf32_split_arithmetic_meets_the_f32_tolerance(passes, within):
         assert err.max() < 5e-6
     else:
         assert err.max() > 2e-4
+
+
+def _bf16_kernel_model(q, k, v, *, causal):
+    """The bf16 kernel's arithmetic on the CPU: exact products of the bf16
+    q and k summed in f32, the softmax and its row sum l in f32, each p
+    rounded to bf16 for the P V product (exact products, f32 sums), the
+    output acc / l rounded to bf16."""
+    group = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * attention_scale(q.shape[-1])
+    sq, sk = s.shape[-2:]
+    if causal:
+        qi = torch.arange(sq)[:, None] + (sk - sq)
+        s = s.masked_fill(torch.arange(sk)[None, :] > qi, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((p.bfloat16().float() @ vf) / p.sum(-1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal", [(2, 4, 2, 1, 8192, False),
+                                                   (1, 4, 2, 512, 512, True)])
+@pytest.mark.parametrize("misread", [False, True])
+def test_bf16_error_bound_holds_for_the_kernel_arithmetic(b, hq, hkv, sq, sk, causal,
+                                                          misread):
+    """The model of the bf16 kernel's arithmetic stays within
+    ``bf16_error_bound`` of the plain version (odd query heads at 4 times
+    the scale, their softmax on a few keys); fed V with a quarter of its
+    keys negated (a kernel that misreads them), it does not."""
+    gen = torch.Generator().manual_seed(sq + sk)
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16() for shape in (
+        (b, hq, sq, 64), (b, hkv, sk, 64), (b, hkv, sk, 64)))
+    q[:, 1::2] *= 4
+    fed = v.clone()
+    if misread:
+        fed[:, :, 3 * sk // 8:5 * sk // 8] *= -1
+    got = _bf16_kernel_model(q, k, fed, causal=causal)
+    want = flash_attention(q, k, v, causal=causal)
+    within = (got.float() - want.float()).abs() <= bf16_error_bound(
+        q, k, v, got, want, causal=causal)
+    assert bool(within.all()) != misread
 
 
 def test_wrapper_refuses_other_devices():

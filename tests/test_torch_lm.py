@@ -111,9 +111,9 @@ def test_init_shapes_and_scales_match_reference(name):
 def test_training_and_grouped_moe_refuse():
     """The attention families train (ROADMAP item 15b: a finite loss and
     a gradient for every leaf; their parity with the reference is in
-    tests/test_torch_lm_train_*.py); what the port does not run refuses,
-    naming its ROADMAP item: the grouped MoE dispatch of a multi-device
-    launcher (moe_groups > 0, item 16) at every entry."""
+    tests/test_torch_lm_train_*.py). The grouped MoE dispatch no longer
+    refuses: tests/test_torch_lm_moe_grouped.py holds it against the
+    reference."""
     from repro_torch.common.tree import tree_leaves
     from repro_torch.launch.train import build_batch
 
@@ -126,15 +126,6 @@ def test_training_and_grouped_moe_refuse():
         assert bool(torch.isfinite(total))
         assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
         assert callable(tbb.make_train_step(cfg, None))
-    cfg = get_config("deepseek_moe_16b").reduced().replace(moe_groups=4)
-    toks = torch.zeros(1, 2, dtype=torch.int32)
-    for call in (lambda: tbb.init_params(torch.Generator(), cfg, device="cpu"),
-                 lambda: tbb.forward({}, cfg, {"tokens": toks}),
-                 lambda: tbb.prefill({}, cfg, {"tokens": toks}, 8),
-                 lambda: tbb.decode_step({}, cfg, toks[:, :1], {}, 2),
-                 lambda: tbb.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-            call()
 
 
 # ------------------------------------------------------ against the JAX --

@@ -94,12 +94,3 @@ def test_moe_flat_matches_jax_with_overflow(name, capacity_factor):
     assert np.array_equal(slot.numpy(), np.asarray(wslot))
     if capacity_factor < 1:
         assert not bool(keep.all())  # some assignments overflowed
-
-
-def test_moe_groups_refuse():
-    cfg = get_config("dbrx_132b").reduced().replace(moe_groups=2)
-    x = torch.zeros(2, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tmoe.moe_apply({}, cfg, x)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tbb.init_params(torch.Generator(), cfg, device="cpu")

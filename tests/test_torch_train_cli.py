@@ -115,3 +115,22 @@ def test_every_attention_family_takes_steps(arch):
     for r in out["history"]:
         assert r["launches"] == {k: 0 for k in train.KERNELS}
         assert {"flash_attention", "flash_attention_bwd"} <= set(r["launches"])
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-medium"])
+def test_layers_cuts_the_depth(arch):
+    """--layers 1 keeps the width and trains the first layer of every
+    stack (both of the encoder-decoder's); 0 or more than the model has
+    refuses."""
+    full = get_config(train.ALIASES.get(arch, arch)).reduced()
+    out = train.main(SMALL + ["--arch", arch, "--layers", "1", "--steps", "1"])
+    cfg = out["cfg"]
+    assert cfg.n_layers == 1 and cfg.d_model == full.d_model
+    assert not cfg.is_encdec or cfg.n_enc_layers == 1
+    stacks = ("enc_layers", "dec_layers") if cfg.is_encdec else ("layers",)
+    for k in stacks:
+        assert {x.shape[0] for x in tree_leaves(out["params"][k])} == {1}
+    assert np.isfinite(out["history"][0]["loss"])
+    for bad in (0, full.n_layers + 1):
+        with pytest.raises(ValueError, match="--layers"):
+            train.main(SMALL + ["--arch", arch, "--layers", str(bad)])
