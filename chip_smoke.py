@@ -153,8 +153,8 @@ outside a checkout. Phases, each fatal on failure:
    local epoch): wall seconds, blend launches equal to the analytic count
    (one launch a model tree blended: 5 a round for the HFL five, 4 for
    One-Shot VFL, none for SplitNN and centralized), peak memory, the six metrics each NaN or in [0, 1];
-   FedAvg and SplitNN timed again and profiled (busy, idle share, the
-   kernels that take most); FedAvg's blends against the plain version, FedMA's matching seconds
+   SplitNN timed again and profiled (busy, idle share, the kernels that
+   take most); FedAvg's blends against the plain version, FedMA's matching seconds
    and one (1024, 1024) matching against a numpy copy of the reference's
    loop, and a matched member with its hidden units shuffled through
    ``_match_encoder`` on the card against the loop's permutation; then FedAvg,
@@ -199,7 +199,9 @@ outside a checkout. Phases, each fatal on failure:
    Mamba heads), prefill against ``forward`` (hymba and whisper also a
    decode step against forward), the tokens the MoE layers drop at
    capacity, then card against CPU at a cut depth (MoE: the routers'
-   choices equal, the top-k gap at least MOE_GAP);
+   choices equal, the top-k gap at least MOE_GAP; not nemotron-4-15b
+   and dbrx-132b: their full-width CPU copies cost 19 s, and phase 33
+   holds each family's bf16 card against CPU);
 26. mLSTM backward against plain: the backward kernel's dq, dk, dv and
    dlog_f against the plain step-by-step backward within
    ``mlstm_grad_error_bound`` (ragged chunks, column blocks, normalize on
@@ -267,9 +269,35 @@ outside a checkout. Phases, each fatal on failure:
    the step gives it, the logits to ``bf16_share``'s bound); phi4's
    decode cache from its own prefill of 2 rows, tiled to 8; then bf16
    card against CPU at 2
-   layers (deepseek at 4 groups) within ``bf16_share``'s bound; alone,
-   after the build: ``c.production_phase(torch, counted, (flaunch, fref,
-   mlaunch, mref, slaunch, sref), mem_rate)`` with phase 4's ``counted``.
+   layers (deepseek at 4 groups) within ``bf16_share``'s bound; each
+   entry's peak memory held against ``dryrun.held_terms``' count (at
+   most PEAK_OVER_COUNT times it, the count at most COUNT_OVER_PEAK times
+   the peak); alone, after the build: ``c.production_phase(torch,
+   counted, (flaunch, fref, mlaunch, mref, slaunch, sref), mem_rate)``
+   with phase 4's ``counted``;
+34. the production variant's training through ``launch/specs.py``
+   (bf16 compute, f32 parameters, ``remat``, the in-place AdamW step;
+   train_4k's one-card share, 16 x 4096 in ``default_microbatches``):
+   the train_4k sizing of every family; the flash backward at hymba's
+   and qwen2-vl's train_4k attentions on bf16 inputs cast up
+   (FLASH_BWD_4K_CASES: the bf16 forward with its lse bit for bit the
+   one without, its lse and output against plain, the backward against
+   plain on the first and last (batch row, K/V group), the bf16
+   autograd path the kernels' gradients cast down), timed beside SDPA's
+   bf16 backward and the bound; the mLSTM backward at xlstm's and
+   hymba's train_4k scans (MLSTM_BWD_4K_CASES) and the sLSTM BPTT at
+   xlstm's (SLSTM_BWD_4K), each against its plain backward on the first
+   and last (batch row, head) in full, then timed; card against CPU
+   at 2 narrow layers in bf16 (hymba, xlstm: the loss and every
+   gradient within ``bf16_share``'s bound) and remat against none on
+   the card; then TRAIN_4K_RUNS
+   (hymba-1.5b and xlstm-350m whole, qwen2-vl-2b, stablelm-3b and
+   whisper-medium at 2 layers, phi4-mini-3.8b only if the count fits):
+   ms a step, tokens/s, finite losses, ``train_launches`` a microbatch
+   (forwards twice) times the microbatches, the peak against the count,
+   busy / idle of a profiled step, the roofline's shares; alone, after
+   the build: ``c.production_training(torch, counted, (flaunch, fbwd,
+   fref, mlaunch, mbwd), mem_rate)``.
 
 Phases 10 and 13 also hold the kernels against their plain versions at
 the language models' shapes (FLASH_LM_CASES, a logit cap; MLSTM_HYMBA)
@@ -2226,7 +2254,9 @@ PHI4_BATCH, PHI4_PROMPT, PHI4_GEN = 8, 512, 32
 # dbrx-132b's 131.6 B parameters fit no card, and nemotron-4-15b's 62.5
 # GB leave no room for init's stacking copy), batch, prompt tokens (and
 # vision patches or audio frames), decode steps, and the cut depth and
-# sizes of its card-vs-CPU run.
+# sizes of its card-vs-CPU run (None: none here; nemotron's and dbrx's
+# full-width copies on the CPU took 19 s, and phase 33 holds every
+# family's bf16 card against CPU).
 FAMILY_RUNS = (
     dict(name="qwen2_vl_2b", layers=None, batch=2, prompt=128, patches=1024,
          gen=8, cpu=dict(layers=2, batch=2, prompt=64, patches=256, gen=2)),
@@ -2238,12 +2268,10 @@ FAMILY_RUNS = (
          cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
     dict(name="starcoder2_7b", layers=2, batch=2, prompt=128, gen=2,
          cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
-    dict(name="nemotron_4_15b", layers=2, batch=2, prompt=128, gen=2,
-         cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
+    dict(name="nemotron_4_15b", layers=2, batch=2, prompt=128, gen=2, cpu=None),
     dict(name="stablelm_3b", layers=2, batch=2, prompt=128, gen=2,
          cpu=dict(layers=2, batch=2, prompt=32, gen=2)),
-    dict(name="dbrx_132b", layers=2, batch=2, prompt=128, gen=2,
-         cpu=dict(layers=1, batch=2, prompt=32, gen=2)),
+    dict(name="dbrx_132b", layers=2, batch=2, prompt=128, gen=2, cpu=None),
 )
 # MoE card vs CPU: every router call's expert choices equal on both; the
 # CPU run's smallest gap between a token's k-th and (k+1)-th expert
@@ -2628,7 +2656,8 @@ def lm_phases(torch, counted) -> dict:
             print(f"{cfg.name} prefill: {rec['moe_dropped']} of "
                   f"{rec['moe_assignments']} (token, expert) assignments "
                   f"dropped at capacity (factor {cfg.capacity_factor})")
-        rec["card_vs_cpu"] = lm_family_card_vs_cpu(torch, params, cfg, **cpu_run)
+        if cpu_run is not None:
+            rec["card_vs_cpu"] = lm_family_card_vs_cpu(torch, params, cfg, **cpu_run)
         del params
         torch.cuda.empty_cache()
         rec["phase_s"] = time.perf_counter() - t0
@@ -2723,6 +2752,10 @@ PRODUCTION_RUNS = (("phi4_mini_3p8b", None), ("hymba_1p5b", None),
                    ("starcoder2_7b", 2), ("nemotron_4_15b", 2),
                    ("stablelm_3b", 2), ("dbrx_132b", 2))
 PRODUCTION_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+# every entry that runs (phases 33 and 34): its measured peak memory at
+# most PEAK_OVER_COUNT times ``dryrun.held_terms``'s count, and the count
+# at most COUNT_OVER_PEAK times the peak
+PEAK_OVER_COUNT, COUNT_OVER_PEAK = 1.10, 1.5
 DRYRUN_RUN = ("xlstm-350m", "long_500k")  # the entry ``dryrun --run`` takes
 # phi4's decode_32k cache comes from its own prefill of 2 rows (the
 # prefill_32k share) of 32767 tokens, tiled to the 8 rows (a prefill of
@@ -3148,7 +3181,7 @@ def kernel_calls_vs_plain():
         yield seen
 
 
-def production_entry(torch, counted, cfg, shape, params, prefilled) -> dict:
+def production_entry(torch, counted, cfg, shape, params, prefilled, base) -> dict:
     """One entry of ``specs.make_entry`` on the card: its meta sizing and
     roofline (``dryrun.size_entry``), its arguments (``dryrun.
     materialize``, or ``prefilled_decode_args``), a warm-up call, then
@@ -3159,7 +3192,11 @@ def production_entry(torch, counted, cfg, shape, params, prefilled) -> dict:
     against the same step with every kernel's plain version on the card:
     each kernel call held to its own bound on the input the step gives it
     (``kernel_calls_vs_plain``), and the logits to ``bf16_share``'s bound
-    at every block's roundings (the recurrent states restored between)."""
+    at every block's roundings (the recurrent states restored between).
+    The peak memory above ``base`` (what was allocated before the
+    parameters) is held against the sizing's count: at most
+    PEAK_OVER_COUNT times it, and the count at most COUNT_OVER_PEAK
+    times the peak."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import specs as SP
     from repro_torch.launch.roofline import CARD_BYTES
@@ -3196,13 +3233,14 @@ def production_entry(torch, counted, cfg, shape, params, prefilled) -> dict:
     check(logits.dtype == torch.bfloat16 and tuple(logits.shape) == (
         shape.batch, 1, cfg.vocab_size) and bool(torch.isfinite(logits.float()).all()),
         f"{cfg.name} x {shape.name}: logits {logits.dtype} {tuple(logits.shape)}")
-    ms, peak_gb = timed["ms"], timed["peak_gb"]
+    ms, peak_gb = timed["ms"], timed["peak_gb"] - base / 1e9
     tokens = shape.batch * (shape.seq if shape.kind == "prefill" else 1)
     rec = {"shape": shape.name, "batch": shape.batch, "seq": shape.seq,
            "layers": cfg.n_layers, "moe_groups": cfg.moe_groups,
            "attn_kind": cfg.attn_kind, "setup_s": setup_s, "ms": ms,
            "ms_all": timed["ms_all"], "tokens_per_s": tokens / (ms / 1e3),
            "peak_gb": peak_gb, "held_gb": size["held_bytes"] / 1e9,
+           "peak_over_held": peak_gb * 1e9 / size["held_bytes"],
            "bound_ms": size["roofline"]["bound_ms"],
            "bottleneck": size["roofline"]["bottleneck"],
            "launches": {k: v // steps for k, v in launches.items() if v}}
@@ -3244,8 +3282,9 @@ def production_entry(torch, counted, cfg, shape, params, prefilled) -> dict:
     print(f"{cfg.name} x {shape.name} ({shape.batch} x {shape.seq}, "
           f"{cfg.n_layers} layers, {cfg.attn_kind}, moe_groups {cfg.moe_groups}): "
           f"{ms:.3f} ms{' a step' if shape.kind == 'decode' else ''}, "
-          f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.2f} GB (held "
-          f"{rec['held_gb']:.2f}), bound {rec['bound_ms']:.3f} ms "
+          f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak_gb:.2f} GB (the count "
+          f"{rec['held_gb']:.2f}: {rec['peak_over_held']:.3f} of it), bound "
+          f"{rec['bound_ms']:.3f} ms "
           f"({rec['bottleneck']}; {rec['roofline_share']:.3f} of it); launches "
           f"{rec['launches']}" + (f"; each kernel call vs plain (calls, share of its "
                                   f"bound) {rec['kernel_calls_vs_plain']}; logits "
@@ -3255,6 +3294,10 @@ def production_entry(torch, counted, cfg, shape, params, prefilled) -> dict:
              f"{rec['router_picks_differing']}"
              if "router_picks_differing" in rec else "")
           + f"; arguments {setup_s:.1f} s")
+    check(rec["peak_over_held"] <= PEAK_OVER_COUNT
+          and rec["peak_over_held"] * COUNT_OVER_PEAK >= 1.0,
+          f"{cfg.name} x {shape.name}: peak {peak_gb:.2f} GB against the count's "
+          f"{rec['held_gb']:.2f}")
     del args, logits
     return rec
 
@@ -3380,6 +3423,7 @@ def production_phase(torch, counted, kernels, mem_rate) -> dict:
         t0 = time.perf_counter()
         first = SP.one_card_config(name, SP.SHAPES["prefill_32k"])
         torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
         params = bb.init_params(torch.Generator(device="cuda").manual_seed(0),
                                 cut_cfg(first, layers), device="cuda")
         fam = {"entries": {}}
@@ -3393,7 +3437,8 @@ def production_phase(torch, counted, kernels, mem_rate) -> dict:
             shape = SP.one_card_shape(SP.SHAPES[shape_name])
             fam["entries"][shape_name] = production_entry(
                 torch, counted, cut_cfg(cfg, layers), shape, params,
-                prefilled=name in PRODUCTION_PREFILLED and shape_name == "decode_32k")
+                prefilled=name in PRODUCTION_PREFILLED and shape_name == "decode_32k",
+                base=base)
             gc.collect()
             torch.cuda.empty_cache()
         cpu_cfg = first.replace(moe_groups=PRODUCTION_CPU_GROUPS.get(
@@ -3408,6 +3453,474 @@ def production_phase(torch, counted, kernels, mem_rate) -> dict:
         out["runs"][get_config(name).name] = fam
         print(f"-- {name}: {fam['phase_s']:.1f} s")
     print("production serving: " + json.dumps(out))
+    return out
+
+
+# ----------------------------------------- production training (15c-1) --
+
+# Phase 34: the reference's production variant trains (src/repro/launch/
+# specs.py, dryrun_config: bf16 compute, f32 parameters, remat) through
+# ``specs.make_entry`` at train_4k's one-card share: 16 rows of 4096
+# positions in ``default_microbatches`` microbatches (xlstm 1, hymba 2,
+# the rest 8), the in-place AdamW step. Family and depth (None: as
+# published); phi4-mini runs only if the sizing says it fits.
+TRAIN_4K_RUNS = (("hymba_1p5b", None), ("xlstm_350m", None), ("qwen2_vl_2b", 2),
+                 ("stablelm_3b", 2), ("whisper_medium", 2), ("phi4_mini_3p8b", None))
+TRAIN_4K_STEPS = 2  # timed steps after a warm-up step; the median is kept
+# the flash backward at the train_4k attentions (hymba: 8 rows a
+# microbatch, its window; qwen2-vl: 2 rows of 1024 patches + 3072
+# tokens), on bf16 inputs cast up to f32 as ``FlashAttentionFn`` feeds it
+FLASH_BWD_4K_CASES = (
+    ("hymba train_4k", (8, 25, 5, 4096, 4096, 64, True, 1024, 0.0)),
+    ("qwen2-vl train_4k", (2, 12, 2, 4096, 4096, 128, True, 0, 0.0)),
+)
+# the mLSTM backward at train_4k's scans: xlstm's (16 rows) and hymba's
+# Mamba heads (8 rows a microbatch)
+MLSTM_BWD_4K_CASES = (("xlstm train_4k", (16, 4, 4096, 512, 512, True)),
+                      ("hymba train_4k", (8, 25, 4096, 16, 64, False)))
+# the sLSTM BPTT at xlstm-350m's train_4k step: (rows, heads, S, head dim)
+SLSTM_BWD_4K = ("xlstm train_4k", (16, 4, 4096, 256))
+# card against CPU, and remat against none on the card, at 2 layers and
+# phase 32's narrow widths in bf16 with remat, 2 x 128 tokens
+TRAIN_4K_CPU = {"hymba_1p5b": dict(d_model=256, head_dim=32, n_heads=5,
+                                   n_kv_heads=1, window=64),
+                "xlstm_350m": dict(d_model=256)}
+
+
+def grad_roundings(cfg) -> int:
+    """The bf16 roundings upstream of a parameter's gradient: the
+    forward's (``bf16_roundings``), then as many again on the way back
+    (the backward rounds at the same bf16 boundaries)."""
+    return 2 * bf16_roundings(cfg)
+
+
+def flash_bwd_4k(torch, flaunch, fbwd, fref, mem_rate) -> dict:
+    """At each FLASH_BWD_4K_CASES shape, bf16 q, k, v: the forward with its
+    log-sum-exp equal bit for bit to the forward without it, its lse and
+    output against the plain version, and the f32 backward kernels on the
+    inputs cast up against the plain backward, on the first and the last
+    (batch row, K/V group) in full (every row of both), within
+    ``flash_grad_error_bound``; ``FlashAttentionFn``'s bf16 gradients
+    equal to those kernels' cast down. Timed: the kernels alone, the
+    whole bf16 backward (the casts up and down with them), SDPA's bf16
+    backward on K/V repeated to the query heads (a window as a boolean
+    mask; a yardstick, never on the path) and the kernels' bound at the
+    f32 inputs. Returns {label: record}."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    F = torch.nn.functional
+    out = {}
+    for label, case in FLASH_BWD_4K_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, softcap = case
+        form = dict(causal=causal, window=window, softcap=softcap)
+        group = hq // hkv
+        q, k, v = flash_inputs(torch, b, hq, hkv, sq, sk, d, seed=sq + hq,
+                               dtype=torch.bfloat16)
+        o, lse = flaunch.flash_attention_cuda(q, k, v, return_lse=True, **form)
+        check(torch.equal(o, flaunch.flash_attention_cuda(q, k, v, **form)),
+              f"{label}: the bf16 forward with its lse differs from the one without")
+        dout = torch.from_numpy(np.random.default_rng(sq).standard_normal(
+            (b, hq, sq, d), np.float32)).cuda().to(torch.bfloat16)
+        xs = [x.float() for x in (q, k, v, o, dout)]
+        before = fbwd.launches
+        got = fbwd.flash_attention_bwd_cuda(*xs, lse, **form)
+        torch.cuda.synchronize()
+        n = fbwd.kernels_a_call(sq, sk, group)
+        check(fbwd.launches - before == n, f"{label}: flash backward launches")
+        errs, shares = {}, {}
+        for bi, g in ((0, 0), (b - 1, hkv - 1)):  # the first and last slices
+            qs = slice(g * group, (g + 1) * group)
+            sl = [xs[0][bi:bi + 1, qs], xs[1][bi:bi + 1, g:g + 1],
+                  xs[2][bi:bi + 1, g:g + 1], xs[3][bi:bi + 1, qs],
+                  xs[4][bi:bi + 1, qs]]
+            want_o, want_lse = fref.flash_attention_ref(*sl[:3], return_lse=True,
+                                                        **form)
+            tol = fref.TOL[torch.float32]
+            got_lse = lse[bi:bi + 1, qs]
+            fin = torch.isfinite(want_lse)
+            check(torch.equal(fin, torch.isfinite(got_lse)) and bool(
+                ((got_lse - want_lse)[fin].abs() <= tol + tol * want_lse[fin].abs()).all()),
+                f"{label}: the bf16 forward's lse beyond {tol} of plain")
+            check(bool((o[bi:bi + 1, qs].float() - want_o).abs().le(
+                fref.bf16_error_bound(*sl[:3], sl[3], want_o, **form)).all()),
+                f"{label}: the bf16 forward's output beyond its bound")
+            want = fref.flash_attention_bwd_ref(*sl, lse[bi:bi + 1, qs], **form)
+            for name, gt, w in zip(("dq", "dk", "dv"), (
+                    got[0][bi:bi + 1, qs], got[1][bi:bi + 1, g:g + 1],
+                    got[2][bi:bi + 1, g:g + 1]), want):
+                err = (gt - w).abs()
+                bound = fref.flash_grad_error_bound(w)
+                check(bool(torch.isfinite(gt).all()) and bool((err <= bound).all()),
+                      f"{label} flash backward {name} beyond its bound: max err "
+                      f"{float(err.max())}")
+                errs[name] = max(errs.get(name, 0.0), float(err.max()))
+                shares[name] = max(shares.get(name, 0.0), float((err / bound).max()))
+            del want, want_o, want_lse
+        # the wrapper's path: the bf16 forward, then the kernels on the
+        # inputs cast up and the gradients cast down
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        with torch.enable_grad():
+            lo = flash_attention(qg, kg, vg, **form)
+        grads = torch.autograd.grad(lo, (qg, kg, vg), dout, retain_graph=True)
+        check(all(gr.dtype == torch.bfloat16 and torch.equal(gr, g32.to(torch.bfloat16))
+                  for gr, g32 in zip(grads, got)),
+              f"{label}: FlashAttentionFn's bf16 gradients are not the kernels' cast down")
+        del got, grads
+        t = {"shape": list(case[:6]), "causal": causal, "window": window,
+             "kernels_a_call": n, "max_abs_err": errs, "share_of_bound": shares,
+             "ms": cuda_time_ms(lambda: fbwd.flash_attention_bwd_cuda(*xs, lse, **form),
+                                iters=5, warmup=1),
+             "bf16_path_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                 lo, (qg, kg, vg), dout, retain_graph=True), iters=5, warmup=1)}
+        t.update(flash_bwd_lm_bound_ms(case, mem_rate))
+        del lo, xs
+        mask = (torch.from_numpy(visible_mask(sq, sk, causal, window)).cuda()
+                if window > 0 else None)
+        sq_, sk_, sv_ = (x.detach().requires_grad_() for x in (q, k, v))
+        with torch.enable_grad():
+            so = F.scaled_dot_product_attention(
+                sq_, sk_.repeat_interleave(group, 1), sv_.repeat_interleave(group, 1),
+                attn_mask=mask, is_causal=causal and mask is None)
+        t["library_backend"] = so.grad_fn.name()
+        t["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+            so, (sq_, sk_, sv_), dout, retain_graph=True), iters=5, warmup=1)
+        del so, sq_, sk_, sv_, mask
+        print(f"flash backward, {label} {case} (bf16 inputs cast up): kernels "
+              f"{t['ms']:.3f} ms ({n} a call), the bf16 path (casts included) "
+              f"{t['bf16_path_ms']:.3f} ms; SDPA bf16 backward ({t['library_backend']}) "
+              f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['gflop']:.1f} GFLOP; {t['bound_ms_simt']:.4f} "
+              f"on SIMT f32): the kernels at {t['bound_ms'] / t['ms']:.3f} / "
+              f"{t['bound_ms_simt'] / t['ms']:.3f} of them; max abs err {errs}, "
+              f"share of the bound {shares} (first and last slices); forward "
+              f"with lse bit for bit the forward without")
+        out[label] = t
+        del q, k, v, o, lse, dout, qg, kg, vg
+        torch.cuda.empty_cache()
+    return out
+
+
+def end_slices(torch, x, b, h):
+    """The first and the last (batch row, head) of x (B, H, ...), stacked
+    as a (2, 1, ...) batch."""
+    return torch.stack([x[0, 0], x[b - 1, h - 1]])[:, None]
+
+
+def mlstm_bwd_4k(torch, mlaunch, mbwd, mem_rate) -> dict:
+    """The mLSTM backward kernels at MLSTM_BWD_4K_CASES (the forward
+    kernel's h, a random output gradient): the whole call's gradients
+    finite, and on the first and the last (batch row, head) in full
+    (every one of the S = 4096 steps) against the plain backward on the
+    same inputs, each within ``mlstm_grad_error_bound`` (the plain
+    backward of the whole call would take minutes); then timed beside
+    their bound: operations at the 3xTF32 rate, or bytes
+    (``time_mlstm_bwd``'s count)."""
+    from repro_torch.kernels.mlstm_scan import ref as mref
+
+    out = {}
+    for label, case in MLSTM_BWD_4K_CASES:
+        b, h, s, dk, dv, normalize = case
+        xs = mlstm_bwd_inputs(torch, mlaunch, b, h, s, dk, dv, normalize, seed=s)
+        got = mbwd.mlstm_scan_bwd_cuda(*xs, normalize=normalize)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"mlstm backward at {label}: non-finite gradients")
+        q, k, v, lf, h_out, dh = (end_slices(torch, x, b, h) for x in xs)
+        want, dq_scale = mref.mlstm_scan_bwd_ref(q, k, v, lf, dh, h=h_out,
+                                                 normalize=normalize, dq_scale=True)
+        errs, shares = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv", "dlog_f"), got, want):
+            e = (end_slices(torch, g, b, h) - w).abs()
+            bound = mref.mlstm_grad_error_bound(w, dq_scale if name == "dq" else None)
+            errs[name], shares[name] = float(e.max()), float((e / bound).max())
+            check(bool((e <= bound).all()),
+                  f"mlstm backward {name} at {label}, first and last (row, head), "
+                  f"beyond its bound: max err {errs[name]}, {shares[name]:.3f} "
+                  f"of the bound")
+        del got, want, dq_scale, q, k, v, lf, h_out, dh
+        torch.cuda.empty_cache()
+        nbytes = 4 * b * h * (s * (2 * dk + dv + 1 + dv + int(normalize) * dv)
+                              + s * (2 * dk + dv + 1))
+        flops = mlstm_bwd_flops(b, h, s, dk, dv, normalize)
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = 3 * flops / TF32_OPS_PER_S * 1e3
+        t = {"shape": list(case[:5]), "normalize": normalize,
+             "ms": cuda_time_ms(lambda: mbwd.mlstm_scan_bwd_cuda(
+                 *xs, normalize=normalize), iters=5, warmup=1),
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "bound_ms_simt": max(bytes_ms, flops / FP32_OPS_PER_S * 1e3),
+             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+             "max_abs_err": errs, "share_of_bound": shares}
+        print(f"mlstm_scan_bwd at {label} {t['shape']} normalize={normalize}: "
+              f"{t['ms']:.4f} ms a call; bound {t['bound_ms']:.4f} ms at the 3xTF32 "
+              f"rate ({t['bound_by']}, {t['gflop']:.2f} GFLOP, {t['mbytes']:.0f} MB), "
+              f"{t['bound_ms_simt']:.4f} on SIMT f32: the call at "
+              f"{t['bound_ms'] / t['ms']:.3f} / {t['bound_ms_simt'] / t['ms']:.3f}; "
+              f"first and last (row, head) against the plain backward: max abs "
+              f"err {errs}, share of the bound {shares}")
+        out[label] = t
+        del xs
+        torch.cuda.empty_cache()
+    return out
+
+
+def slstm_bwd_4k(torch, mem_rate) -> dict:
+    """The sLSTM BPTT kernel at SLSTM_BWD_4K, xlstm-350m's train_4k step
+    (random pre-activations and r on the card, the saving forward
+    kernel's gate sums and states, a random output gradient): the saving
+    forward's output and saved tensors against the plain forward, within
+    ``slstm_error_bound``, and the backward against the plain backward
+    on those saved tensors, within ``slstm_grad_error_bound``, both on
+    the first and the last batch row in full (every head and every one
+    of the S = 4096 steps; the plain recurrences of the whole batch
+    would take a step loop of 16 rows); then timed beside its bound
+    (``slstm_bwd_bound_ms``)."""
+    from repro_torch.kernels.slstm_cell import ref as sref
+    from repro_torch.kernels.slstm_cell import slstm_cell as slaunch
+    from repro_torch.kernels.slstm_cell import slstm_cell_bwd as sbwd
+
+    label, (rows, h, s, hd) = SLSTM_BWD_4K
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    pre = torch.randn((rows, h, s, 4, hd), generator=gen, device="cuda") * 0.5
+    r = torch.randn((h, hd, 4 * hd), generator=gen, device="cuda") / hd ** 0.5
+    dhs = torch.randn((rows, h, s, hd), generator=gen, device="cuda")
+    out, saved = slaunch.slstm_cell_cuda(pre, r, save=True)
+    got = sbwd.slstm_cell_bwd_cuda(saved, r, dhs)
+    check(bool(torch.isfinite(got).all()), f"slstm_cell_bwd at {label}: non-finite")
+    ends = [0, rows - 1]
+    errs, shares = {}, {}
+    for name, g, w in zip(("output", "saved"), (out[ends], saved[ends]),
+                          sref.slstm_cell_ref(pre[ends], r, save=True)):
+        e = (g - w).abs()
+        bound = sref.slstm_error_bound(w, g)
+        errs[name], shares[name] = float(e.max()), float((e / bound).max())
+        check(bool((e <= bound).all()),
+              f"slstm_cell saving forward's {name} at {label}, first and last "
+              f"rows, beyond its bound: max err {errs[name]}")
+    want = sref.slstm_cell_bwd_ref(saved[ends], r, dhs[ends])
+    e = (got[ends] - want).abs()
+    bound = sref.slstm_grad_error_bound(want)
+    errs["dpre"], shares["dpre"] = float(e.max()), float((e / bound).max())
+    check(bool((e <= bound).all()),
+          f"slstm_cell_bwd at {label}, first and last rows, beyond its bound: "
+          f"max err {errs['dpre']}, {shares['dpre']:.3f} of the bound")
+    del got, want, e, bound, out, pre
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: sbwd.slstm_cell_bwd_cuda(saved, r, dhs), iters=5,
+                      warmup=1)
+    bound_ms, by = slstm_bwd_bound_ms(rows, 1, h, s, hd, mem_rate)
+    t = {"shape": [rows, h, s, hd], "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+         "max_abs_err": errs, "share_of_bound": shares}
+    print(f"slstm_cell_bwd at {label} {t['shape']}: {ms:.4f} ms a call; bound "
+          f"{bound_ms:.4f} ms ({by}): the call at {bound_ms / ms:.3f}; first and "
+          f"last rows against the plain forward and backward: max abs err {errs}, "
+          f"share of the bound {shares}")
+    del saved, r, dhs
+    torch.cuda.empty_cache()
+    return {label: t}
+
+
+def train_4k_run(torch, counted, name, layers) -> dict:
+    """One TRAIN_4K_RUNS family at train_4k's one-card share through
+    ``specs.make_entry``'s train step: the sizing (``dryrun.size_entry``;
+    a family that does not fit prints its record and stops there), the
+    arguments (``dryrun.materialize``, from seed 0), a warm-up step, then
+    TRAIN_4K_STEPS timed steps with every count at 0: finite losses, the
+    launches ``train_launches`` gives a microbatch times the
+    microbatches (two forwards under remat), ms a step (median),
+    tokens/s, the peak memory above what was allocated before the
+    arguments, held against the count; then one step profiled (busy /
+    idle) and the roofline's shares: its bound (``launch/roofline.py``)
+    and the reference's 6 N D (``model_flops``) at the bf16 peak."""
+    import gc
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.roofline import BF16_OPS_PER_S, CARD_BYTES, model_flops
+
+    shape = SP.SHAPES["train_4k"]
+    cfg = cut_cfg(SP.one_card_config(name, shape), layers)
+    oshape = SP.one_card_shape(shape)
+    mb = SP.default_microbatches(name, shape)
+    size = dryrun.size_entry(cfg, oshape, mb)
+    rec = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+           "batch": oshape.batch, "seq": oshape.seq, "microbatches": mb,
+           "held_gb": size["held_bytes"] / 1e9,
+           "held_terms_gb": {k: v / 1e9 for k, v in size["held_terms"].items()}}
+    if size["held_bytes"] > CARD_BYTES:
+        rec["status"] = "does_not_fit"
+        print(f"{cfg.name} x train_4k ({oshape.batch} x {oshape.seq}, {mb} "
+              f"microbatches, {cfg.n_layers} layers): does_not_fit, held "
+              f"{size['held_bytes'] / 1e9:.2f} GB of {CARD_BYTES / 1e9:.0f} "
+              f"({rec['held_terms_gb']}); not run")
+        return rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    fn, _ = SP.make_entry(cfg, oshape, mb)
+    t0 = time.perf_counter()
+    args = dryrun.materialize(cfg, oshape, torch.device("cuda"))
+    setup_s = time.perf_counter() - t0
+    batch = args[2]
+    patches = cfg.vision_tokens if cfg.frontend == "vision_stub" else 0
+    frames = batch["frames"].shape[1] if "frames" in batch else 0
+    text = batch["tokens"].shape[1]
+    per = train_launches(cfg, text, patches=patches, frames=frames)
+    want = dict.fromkeys(counted, 0) | {k: v * mb * TRAIN_4K_STEPS for k, v in per.items()}
+    losses, secs = [], []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        losses.append(float(fn(*args)[2]["loss"]))  # the warm-up step
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in counted.values():
+            m.launches = 0
+        for _ in range(TRAIN_4K_STEPS):
+            ts = time.perf_counter()
+            metrics = fn(*args)[2]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - ts)
+            losses.append(float(metrics["loss"]))
+        launches = {k: m.launches for k, m in counted.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = float(np.median(secs)) * 1e3
+        bd = device_breakdown(lambda: fn(*args), ms / 1e3, top=8,
+                              match=("flash_kernel", "dq_kernel", "dkv_kernel",
+                                     "mlstm_kernel", "mlstm_bwd", "slstm_kernel",
+                                     "slstm_bwd_kernel", "gemm"))
+    check(all(np.isfinite(x) for x in losses), f"{cfg.name} x train_4k losses {losses}")
+    check(launches == want, f"{cfg.name} x train_4k launches {launches}, want {want}")
+    tokens = oshape.batch * (text + patches)
+    mf = model_flops(cfg, "train", oshape.batch, text + patches)
+    rec.update(status="ok", setup_s=setup_s, first_step_ms=first_s * 1e3,
+               ms_a_step=ms, ms_all=[x * 1e3 for x in secs],
+               tokens_per_s=tokens / (ms / 1e3), peak_gb=peak / 1e9,
+               peak_over_held=peak / size["held_bytes"],
+               bound_ms=size["roofline"]["bound_ms"],
+               roofline_share=size["roofline"]["bound_ms"] / ms,
+               model_flops_share=mf / BF16_OPS_PER_S * 1e3 / ms, losses=losses,
+               launches_a_step={k: v // TRAIN_4K_STEPS for k, v in launches.items() if v},
+               breakdown=bd)
+    print(f"{cfg.name} x train_4k ({oshape.batch} x {text + patches} tokens in {mb} "
+          f"microbatches, {cfg.n_layers} layers"
+          f"{f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''}, bf16, "
+          f"remat): {ms:.1f} ms a step (median of {TRAIN_4K_STEPS} after a warm-up "
+          f"step of {first_s * 1e3:.1f}), {rec['tokens_per_s']:.0f} tokens/s; peak "
+          f"{peak / 1e9:.2f} GB against the count's {size['held_bytes'] / 1e9:.2f} "
+          f"({rec['peak_over_held']:.3f} of it; terms {rec['held_terms_gb']}); bound "
+          f"{rec['bound_ms']:.1f} ms ({rec['roofline_share']:.3f} of it), 6ND at the "
+          f"bf16 peak {rec['model_flops_share']:.3f}; busy {bd['busy_ms']:.1f} ms, "
+          f"idle {bd['idle_share']:.3f}; losses {[round(x, 4) for x in losses]}; "
+          f"launches a step {rec['launches_a_step']}; arguments {setup_s:.1f} s")
+    print_breakdown(f"a {cfg.name} train_4k step (profiled)", bd)
+    for m, v in bd["matched"].items():
+        print(f"    {m}: {v['ms']:.3f} ms in {v['calls']} launches")
+    check(peak <= PEAK_OVER_COUNT * size["held_bytes"]
+          and size["held_bytes"] <= COUNT_OVER_PEAK * peak,
+          f"{cfg.name} x train_4k: peak {peak / 1e9:.2f} GB against the count's "
+          f"{size['held_bytes'] / 1e9:.2f}")
+    del args, fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_4k_card_vs_cpu(torch, counted, name) -> dict:
+    """``name`` at TRAIN_4K_CPU's narrow widths, 2 layers, bf16 with
+    remat, from the same weights (seed 0, drawn on the CPU): the loss and
+    every gradient of one batch of CARD_CPU_BATCH x CARD_CPU_SEQ tokens on
+    the card against the CPU, the loss within ``bf16_share``'s bound at
+    the forward's roundings and each gradient leaf (as one row) at
+    ``grad_roundings``; on the card ``train_launches`` (two forwards a
+    layer); then on the card without remat, each leaf within one
+    rounding's bound (2^-7 of its norm: f32 sums in another order) of the
+    step with it, and whether they are equal bit for bit."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import backbone as bb
+
+    cfg = get_config(name).reduced().replace(compute_dtype="bfloat16", remat=True,
+                                             **TRAIN_4K_CPU[name])
+    cpu_params = bb.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card_params = tree_map(lambda x: x.cuda(), cpu_params)
+    batch = build_batch(cfg, CARD_CPU_BATCH, CARD_CPU_SEQ, np.random.default_rng(0))
+
+    def run(params, c, dev):
+        for m in counted.values():
+            m.launches = 0
+        total, _, grads = bb._value_and_grad(
+            params, c, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        return (float(total), [g.cpu() for g in tree_leaves(grads)],
+                {k: m.launches for k, m in counted.items()})
+
+    cpu = run(cpu_params, cfg, "cpu")
+    card = run(card_params, cfg, "cuda")
+    plain = run(card_params, cfg.replace(remat=False), "cuda")
+    want = dict.fromkeys(counted, 0) | train_launches(cfg, CARD_CPU_SEQ)
+    check(card[2] == want, f"{cfg.name} bf16 card launches {card[2]}, want {want}")
+    r = bf16_roundings(cfg)
+    loss_share = bf16_share(np.array([card[0]]), np.array([cpu[0]]), r)
+    grad_share = max(bf16_share(a, b, grad_roundings(cfg), row_axes=b.dim())
+                     for a, b in zip(card[1], cpu[1]))
+    remat_share = max(bf16_share(a, b, 1, row_axes=b.dim())
+                      for a, b in zip(card[1], plain[1]))
+    equal = sum(torch.equal(a, b) for a, b in zip(card[1], plain[1]))
+    rec = {"loss_share": loss_share, "grad_share": grad_share,
+           "remat_vs_none_share": remat_share, "remat_vs_none_loss_equal":
+           card[0] == plain[0], "remat_vs_none_leaves_equal": [equal, len(card[1])],
+           "launches": card[2]}
+    print(f"{cfg.name} bf16 training card vs CPU (2 layers, d {cfg.d_model}, remat, "
+          f"{CARD_CPU_BATCH} x {CARD_CPU_SEQ} tokens): the loss at {loss_share:.3g} "
+          f"of the bf16 bound ({r} roundings), gradients at most {grad_share:.3g} "
+          f"({grad_roundings(cfg)}); launches {card[2]}; without remat on the card: "
+          f"gradients at most {remat_share:.3g} of one rounding's bound, {equal} of "
+          f"{len(card[1])} leaves and the loss "
+          f"{'equal' if card[0] == plain[0] else 'not equal'} bit for bit")
+    check(loss_share <= 1.0 and grad_share <= 1.0,
+          f"{cfg.name} bf16 card vs CPU: loss {loss_share}, gradients {grad_share}")
+    check(remat_share <= 1.0, f"{cfg.name} remat against none on the card: "
+          f"{remat_share} of one rounding's bound")
+    return rec
+
+
+def production_training(torch, counted, kernels, mem_rate) -> dict:
+    """Phase 34: the train_4k sizing of every family (``dryrun --shape
+    train_4k``: 10 records, none failing), the flash backward at the
+    train_4k attentions (``flash_bwd_4k``), the mLSTM backward at its
+    scans (``mlstm_bwd_4k``) and the sLSTM BPTT at xlstm's
+    (``slstm_bwd_4k``), card against CPU and remat against none at
+    2 layers (``train_4k_card_vs_cpu``), then each TRAIN_4K_RUNS family's
+    steps (``train_4k_run``); hymba-1.5b and xlstm-350m whole must run.
+    Returns the records."""
+    from repro_torch.launch import dryrun
+
+    flaunch, fbwd, fref, mlaunch, mbwd = kernels
+    t0 = time.perf_counter()
+    sizing = dryrun.main(["--shape", "train_4k"])
+    check(len(sizing) == 10 and all(r["status"] in ("ok", "does_not_fit")
+                                    for r in sizing), "dryrun --shape train_4k")
+    out = {"sizing": {r["arch"]: {"status": r["status"],
+                                  "held_gb": r["held_bytes"] / 1e9} for r in sizing}}
+    print(f"train_4k sizing: {time.perf_counter() - t0:.1f} s")
+    out["flash_bwd"] = flash_bwd_4k(torch, flaunch, fbwd, fref, mem_rate)
+    out["mlstm_bwd"] = mlstm_bwd_4k(torch, mlaunch, mbwd, mem_rate)
+    out["slstm_bwd"] = slstm_bwd_4k(torch, mem_rate)
+    out["card_vs_cpu"] = {name: train_4k_card_vs_cpu(torch, counted, name)
+                          for name in TRAIN_4K_CPU}
+    out["runs"] = {}
+    for name, layers in TRAIN_4K_RUNS:
+        t0 = time.perf_counter()
+        out["runs"][name] = train_4k_run(torch, counted, name, layers)
+        print(f"-- {name} x train_4k: {time.perf_counter() - t0:.1f} s", flush=True)
+    check(all(out["runs"][n]["status"] == "ok" and out["runs"][n]["layers"] == full
+              for n, full in (("hymba_1p5b", 32), ("xlstm_350m", 24))),
+          "hymba-1.5b and xlstm-350m whole at train_4k")
+    print("production training: " + json.dumps(
+        {k: v for k, v in out.items() if k != "runs"}
+        | {"runs": {n: {k: v for k, v in r.items() if k != "breakdown"}
+                    for n, r in out["runs"].items()}}))
     return out
 
 
@@ -3867,8 +4380,7 @@ def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
     (1024, 1024) hidden-layer matching against ``greedy_match_numpy``;
     the first matched member with every hidden layer's units shuffled,
     through ``_match_encoder`` on the card, against the numpy loop's
-    ``w[:, perm]`` / ``b[perm]``; FedAvg and SplitNN
-    timed again and profiled. Then FedAvg, FedNova, SplitNN and One-Shot VFL at phase 8's width on
+    ``w[:, perm]`` / ``b[perm]``; SplitNN timed again and profiled. Then FedAvg, FedNova, SplitNN and One-Shot VFL at phase 8's width on
     the card and on the CPU from the same weights: final models at
     PARAM_RTOL / PARAM_ATOL, metrics within EVAL_ATOL."""
     import repro_torch.core.baselines as bl
@@ -3996,7 +4508,7 @@ def baselines_phase(torch, spec, ecfg, data, blaunch, bref) -> dict:
     # where the time goes: an HFL baseline and SplitNN again (a first run
     # pays one-time costs, such as the import autograd makes for the
     # first grad_outputs), then under the profiler
-    for name in ("fedavg", "splitnn"):
+    for name in ("splitnn",):
         def again(name=name):
             return bl.BASELINES[name](torch.Generator().manual_seed(0), spec, ecfg,
                                       clients, va, te, cfg, device="cuda")
@@ -4438,25 +4950,28 @@ def train_launches(cfg, seq: int, patches: int = 0, frames: int = 0) -> dict:
     layer's Mamba heads one mLSTM scan and one call of its backward (the
     mLSTM backward's counter counts calls, of ``LAUNCHES`` kernels
     each); an xLSTM pair one mLSTM scan, one sLSTM cell and one call of
-    each backward."""
+    each backward. Under ``cfg.remat`` each layer's forward runs again
+    for its backward: every forward kernel twice, the backwards once."""
     from repro_torch.kernels.flash_attention.flash_attention_bwd import (
         kernels_a_call)
 
     out = dict.fromkeys(TRAIN_LAUNCHES, 0)
     g = cfg.n_heads // cfg.n_kv_heads
+    fwd = 2 if cfg.remat else 1
     if cfg.block_type == "xlstm_pair":
         n = cfg.n_layers // 2
-        return dict(out, mlstm_scan=n, mlstm_scan_bwd=n, slstm_cell=n,
-                    slstm_cell_bwd=n)
+        return dict(out, mlstm_scan=fwd * n, mlstm_scan_bwd=n,
+                    slstm_cell=fwd * n, slstm_cell_bwd=n)
     if cfg.is_encdec:  # encoder self, decoder self, cross
         attns = ([(frames, frames)] * cfg.n_enc_layers
                  + [(seq, seq), (seq, frames)] * cfg.n_layers)
     else:
         attns = [(patches + seq, patches + seq)] * cfg.n_layers
-    out["flash_attention"] = len(attns)
+    out["flash_attention"] = fwd * len(attns)
     out["flash_attention_bwd"] = sum(kernels_a_call(a, b, g) for a, b in attns)
     if cfg.block_type == "hybrid":
-        out["mlstm_scan"] = out["mlstm_scan_bwd"] = cfg.n_layers
+        out["mlstm_scan"] = fwd * cfg.n_layers
+        out["mlstm_scan_bwd"] = cfg.n_layers
     return out
 
 
@@ -5063,7 +5578,9 @@ def lm_train_card_vs_cpu(torch, counted, cfg) -> dict:
             grads = [g.cpu() for g in torch.autograd.grad(total, leaves)]
             opt = optim.adamw(lr)
             step_fn = bb.make_train_step(cfg, opt)
-            p, s, losses = params[dev], opt.init(params[dev]), []
+            # a clone: the step steps what it is given in place
+            p = tree_map(torch.clone, params[dev])
+            s, losses = opt.init(p), []
             for batch in batches:
                 p, s, metrics = step_fn(p, s, {k: torch.from_numpy(v).to(dev)
                                                for k, v in batch.items()})
@@ -5513,6 +6030,10 @@ def main() -> int:
     production = production_phase(torch, counted,
                                   (flaunch, fref, mlaunch, mref, slaunch, sref),
                                   mem_rate)
+
+    phase("34 production variants: bf16 training at train_4k")
+    train_4k = production_training(torch, counted, (flaunch, fbwd, fref, mlaunch,
+                                                    mbwd), mem_rate)
     phase(None)
     print("xlstm-350m serving: " + json.dumps(
         {k: v for k, v in lm.items() if k != "breakdown"}))
@@ -5679,6 +6200,14 @@ def main() -> int:
             for fam, r in production["runs"].items()
             for shape, e in r["entries"].items() if e.get("launches", {}).get(key)}
     mlstm_record["launches_hymba_training"] = hymba_train["launches"]["mlstm_scan"]
+    # the production variant's training (phase 34): each kernel's launches
+    # a train_4k step of each family that ran (forwards twice under remat)
+    runs_4k = {n: r for n, r in train_4k["runs"].items() if r["status"] == "ok"}
+    for rec, key in ((flash_record, "flash_attention"), (mlstm_record, "mlstm_scan"),
+                     (slstm_record, "slstm_cell")):
+        rec["launches_a_train_4k_step"] = {
+            n: r["launches_a_step"][key] for n, r in runs_4k.items()
+            if key in r["launches_a_step"]}
     blend_record["launches_baselines_variants"] = {
         k: v["launches"]["blend_params"] for k, v in baselines["variants"].items()}
     t = mbwd_times["xlstm"]
@@ -5700,7 +6229,18 @@ def main() -> int:
         "autograd_ms": t["autograd_ms"], "device_ms": t["device_ms"],
         "shape": t["shape"], "hymba": mbwd_times["hymba"],
         "max_abs_err_by_shape": mbwd_errs,
-        "launches_hymba_training": hymba_train["launches"]["mlstm_scan_bwd"]}
+        "launches_hymba_training": hymba_train["launches"]["mlstm_scan_bwd"],
+        "train_4k_shapes": train_4k["mlstm_bwd"]}
+    for rec, key in ((bwd_records[0], "slstm_cell_bwd"),
+                     (bwd_records[1], "flash_attention_bwd"),
+                     (mlstm_bwd_record, "mlstm_scan_bwd")):
+        rec["launches_a_train_4k_step"] = {
+            n: r["launches_a_step"][key] for n, r in runs_4k.items()
+            if key in r["launches_a_step"]}
+    bwd_records[1]["train_4k_shapes"] = train_4k["flash_bwd"]
+    bwd_records[1]["max_abs_err"] = max(
+        bwd_records[1]["max_abs_err"],
+        *(e for t in train_4k["flash_bwd"].values() for e in t["max_abs_err"].values()))
     print("xlstm-350m training: " + json.dumps(
         {k: v for k, v in lm_train.items() if k != "breakdown"}))
     print("hymba-1.5b training: " + json.dumps(

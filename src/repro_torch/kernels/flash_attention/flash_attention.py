@@ -60,9 +60,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     0 or less means no window, as in the reference; ``softcap`` > 0 caps
     each scaled score s to softcap * tanh(s / softcap) (0: no cap).
     Returns (B, Hq, Sq, d)
-    in q's dtype, and with ``return_lse`` (f32 only) the (B, Hq, Sq) f32
-    log-sum-exp of each row's scaled scores; the output is the same bit
-    for bit."""
+    in q's dtype, and with ``return_lse`` the (B, Hq, Sq) f32 log-sum-exp
+    of each row's scaled scores (in bf16 too: the kernel keeps its row
+    maxima and sums in f32); the output is the same bit for bit."""
     global launches
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 of "
@@ -95,8 +95,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v on {v.device}")
     if not softcap >= 0.0:
         raise ValueError(f"softcap must be 0 (no cap) or positive, got {softcap}")
-    if return_lse and q.dtype != torch.float32:
-        raise ValueError(f"the log-sum-exp output takes float32, got {q.dtype}")
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
            if return_lse else None)

@@ -11,8 +11,12 @@ call goes through ``FlashAttentionFn``: the forward also keeps each
 row's log-sum-exp, and the backward runs the CUDA backward kernels
 (``flash_attention_bwd.cu``) or, for CPU tensors, the plain backward.
 That path takes every form the forward takes (grouped K/V heads, causal
-and sliding-window masks, the logit cap, Sq != Sk) in f32; other dtypes
-are refused (ROADMAP item 15c: bf16 and stateful gradients).
+and sliding-window masks, the logit cap, Sq != Sk) in f32 and in bf16.
+In bf16 the forward is the bf16 kernel (its f32 log-sum-exp beside its
+output) and the backward the f32 one on q, k, v, the output and its
+gradient cast up to f32, its gradients cast back to bf16: the
+reference's arithmetic, f32 inside and bf16 at the boundary. Other
+dtypes are refused.
 """
 from __future__ import annotations
 
@@ -28,10 +32,15 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 
+GRAD_DTYPES = (torch.float32, torch.bfloat16)  # what FlashAttentionFn takes
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """softmax(cap(q k^T / sqrt(d))) v over the visible keys, with its
-    gradient for q, k and v (f32; K/V heads grouped, the window and the
-    cap as in ``flash_attention``)."""
+    gradient for q, k and v (f32 or bf16, one dtype; K/V heads grouped,
+    the window and the cap as in ``flash_attention``). Saves the inputs,
+    the output and the f32 log-sum-exp; the backward computes in f32 and
+    returns the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
@@ -50,10 +59,14 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd_cuda if q.device.type == "cuda"
-               else flash_attention_bwd_ref)
-        dq, dk, dv = bwd(q, k, v, out, dout, lse, **ctx.form)
-        return dq, dk, dv, None, None, None
+        dtype = q.dtype
+        if q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(
+                *(x.float().contiguous() for x in (q, k, v, out, dout)), lse,
+                **ctx.form)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, dout, lse, **ctx.form)
+        return dq.to(dtype), dk.to(dtype), dv.to(dtype), None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,11 +77,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on CUDA or the CPU, got {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if any(x.dtype != torch.float32 for x in (q, k, v)):
+        if q.dtype not in GRAD_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
             raise NotImplementedError(
-                f"the attention backward takes float32, got {q.dtype}, "
-                f"{k.dtype}, {v.dtype} (ROADMAP.md item 15c: bf16 and stateful "
-                f"gradients)")
+                f"the attention backward takes float32 or bfloat16 of one "
+                f"dtype, got {q.dtype}, {k.dtype}, {v.dtype} (ROADMAP.md item "
+                f"15c-1 trains in the reference's two compute dtypes)")
         return FlashAttentionFn.apply(q, k, v, bool(causal), max(int(window), 0),
                                       float(softcap))
     if q.device.type == "cuda":

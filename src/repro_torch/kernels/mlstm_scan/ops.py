@@ -7,10 +7,12 @@ CPU tensor takes the plain version.
 Where a gradient is wanted (autograd on, an input that requires it) the
 call goes through ``MLSTMScanFn``: the forward kernel, then the backward
 kernel (``mlstm_scan_bwd.cu``) or, for CPU tensors, the plain version
-and the plain backward. That path takes f32 and returns no final state:
-a state's gradient is refused (ROADMAP item 15c: bf16 and stateful
-gradients), so no call returns a
-tensor without a ``grad_fn`` while an input requires grad.
+and the plain backward. That path computes in f32: bf16 inputs are cast
+up before it, so autograd returns their gradients in bf16 (the
+reference's scan computes in f32 from bf16 inputs too). It returns no
+final state: a state's gradient is refused (ROADMAP item 15c-2), so no
+call returns a tensor without a ``grad_fn`` while an input requires
+grad; other input dtypes are refused.
 """
 from __future__ import annotations
 
@@ -57,13 +59,16 @@ def mlstm_scan(q, k, v, log_f, *, chunk: int = 64, normalize: bool = True,
         raise ValueError(f"mlstm_scan runs on CUDA or the CPU, got {q.device}")
     ins = (q, k, v, log_f)
     if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
-        if return_state or any(x.dtype != torch.float32 for x in ins):
+        if return_state:
             raise NotImplementedError(
-                "the mLSTM scan's backward takes float32 and returns no state "
-                "(ROADMAP.md item 15c: bf16 and stateful gradients); got "
-                f"{', '.join(str(x.dtype) for x in ins)}, "
-                f"return_state={return_state}")
-        return MLSTMScanFn.apply(q, k, v, log_f, chunk, normalize)
+                "the mLSTM scan's backward returns no final state: a state's "
+                "gradient is ROADMAP.md item 15c-2")
+        if any(x.dtype not in (torch.float32, torch.bfloat16) for x in ins):
+            raise NotImplementedError(
+                "the mLSTM scan's backward takes float32 or bfloat16 inputs "
+                "(ROADMAP.md item 15c-1 trains in the reference's two compute "
+                f"dtypes), got {', '.join(str(x.dtype) for x in ins)}")
+        return MLSTMScanFn.apply(*(x.float() for x in ins), chunk, normalize)
     if q.device.type == "cuda":
         return mlstm_scan_cuda(*(x.float().contiguous() for x in ins),
                                chunk=chunk, normalize=normalize,

@@ -11,8 +11,9 @@ call goes through ``SLSTMCellFn``: the forward kernel also saves each
 step's gate sums and state, and the backward runs the BPTT kernel
 (``slstm_cell_bwd.cu``) or, for CPU tensors, the plain backward; the
 gradient of r is one batched product after either. That path takes f32
-from the zero state and returns no final state: a state's gradient is
-refused (ROADMAP item 15c: bf16 and stateful gradients).
+(the models cast their pre-activations and r up before the cell, in bf16
+compute too) from the zero state and returns no final state: a state's
+gradient is refused (ROADMAP item 15c-2).
 """
 from __future__ import annotations
 
@@ -61,15 +62,16 @@ def slstm_cell(pre_x: torch.Tensor, r: torch.Tensor, initial_state=None,
     if pre_x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"slstm_cell runs on CUDA or the CPU, got {pre_x.device}")
     if torch.is_grad_enabled() and (pre_x.requires_grad or r.requires_grad):
-        if (initial_state is not None or return_state
-                or pre_x.dtype != torch.float32 or r.dtype != torch.float32):
+        if initial_state is not None or return_state:
             raise NotImplementedError(
-                "the sLSTM backward takes float32 from the zero state and "
-                "returns no state (ROADMAP.md item 15c: bf16 and stateful "
-                "gradients); got "
-                f"{pre_x.dtype}, initial_state "
-                f"{'given' if initial_state is not None else 'None'}, "
-                f"return_state={return_state}")
+                "the sLSTM backward runs from the zero state and returns no "
+                "state: a state's gradient is ROADMAP.md item 15c-2; got "
+                f"initial_state {'given' if initial_state is not None else 'None'}"
+                f", return_state={return_state}")
+        if pre_x.dtype != torch.float32 or r.dtype != torch.float32:
+            raise NotImplementedError(
+                "the sLSTM backward takes float32 (the models cast pre_x and r "
+                f"up, ROADMAP.md item 15c-1), got {pre_x.dtype}, {r.dtype}")
         return SLSTMCellFn.apply(pre_x, r)
     if pre_x.device.type == "cuda":
         state = (None if initial_state is None

@@ -5,7 +5,7 @@ Each (arch, shape) pair resolves, as in the reference, to:
   - a config VARIANT: the production numerics (bf16 compute, f32
     parameters, ``remat`` for training); long_500k swaps full attention
     for the sliding-window variant on quadratic archs;
-  - an entry function (prefill / decode; training is ROADMAP item 15c);
+  - an entry function (a train step, prefill, decode);
   - argument specs: tensors on the ``meta`` device, which hold shapes
     and dtypes and no storage (the counterpart of ``jax.eval_shape``).
 
@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import optim
 from repro_torch.configs import get_config
 from repro_torch.models import backbone as bb
 from repro_torch.models.config import ArchConfig
@@ -152,19 +153,24 @@ def params_specs(cfg: ArchConfig) -> dict:
 
 # ----------------------------------------------------------- entry points --
 
-def make_entry(cfg: ArchConfig, shape: ShapeSpec):
+def make_entry(cfg: ArchConfig, shape: ShapeSpec, microbatches: int = 8):
     """Returns (fn, args specs tuple): ``fn`` runs on the device of the
     tensors it is given; the specs are meta tensors of its arguments.
 
-    prefill: fn(params, batch) -> (logits, cache, next index), with a
-    ``shape.seq``-slot bf16 cache. decode: fn(params, tokens, cache,
-    index) -> (logits, cache), the step writing into ``cache``. A train
-    shape (and its microbatches) is ROADMAP item 15c and refuses."""
-    if shape.kind == "train":
-        raise NotImplementedError(
-            f"{cfg.name} x {shape.name}: bf16 training (remat, a bf16 flash "
-            "backward) is not ported yet (ROADMAP item 15c)")
+    train: fn(params, opt_state, batch) -> (params, opt_state, metrics),
+    the reference's step: ``make_train_step`` with ``adamw(1e-4)`` over
+    ``microbatches`` microbatches (``default_microbatches`` gives the
+    reference's count of an (arch, shape)); it steps the parameters and
+    state it is given in place (the step owns them). prefill: fn(params,
+    batch) -> (logits, cache, next index), with a ``shape.seq``-slot bf16
+    cache.
+    decode: fn(params, tokens, cache, index) -> (logits, cache), the step
+    writing into ``cache``."""
     p_specs = params_specs(cfg)
+    if shape.kind == "train":
+        opt = optim.adamw(1e-4)
+        return bb.make_train_step(cfg, opt, microbatches=microbatches), (
+            p_specs, opt.init(p_specs), train_batch_specs(cfg, shape))
     if shape.kind == "prefill":
         def fn(params, batch):
             return bb.prefill(params, cfg, batch, max_len=shape.seq,

@@ -9,8 +9,15 @@ the ``encdec`` encoder-decoder (whisper).
 
 plus ``make_serve_step``, and training: ``loss_fn`` (cross-entropy over
 the text positions, ``loss_mask``, the router aux term) and
-``make_train_step`` (autograd, microbatch accumulation, an optimizer of
-``repro_torch.optim``). ``batch`` holds ``tokens`` and, by family,
+``make_train_step`` (autograd, microbatch accumulation into one f32
+gradient tree, an optimizer of ``repro_torch.optim`` stepping the
+caller's parameters and state in place). With ``cfg.remat`` (the
+reference's production training variant) each layer runs under a
+non-reentrant activation checkpoint,
+the counterpart of the reference's ``jax.checkpoint(...,
+policy=nothing_saveable)``: only the layer's input is kept, and its
+backward runs the layer's forward again (each forward kernel launches
+twice a step). ``batch`` holds ``tokens`` and, by family,
 ``patches`` (the VLM's vision prefix) or ``frames`` (the audio
 encoder's input). Layers are stacked on a leading axis (each leaf of
 ``params["layers"]`` is (n_layers, ...), as the reference's ``vmap``
@@ -37,6 +44,7 @@ entries with them).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import (
@@ -59,7 +67,7 @@ from repro_torch.models.common import (
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.frontends import frontend_apply, frontend_init
 from repro_torch.models.rope import mrope_positions, text_positions
-from repro_torch.optim import apply_updates
+from repro_torch.optim import apply_updates_
 
 MAX_LEARNED_POS = 32768  # whisper-style learned positions
 
@@ -151,12 +159,36 @@ def _lm_logits(params, cfg: ArchConfig, x):
     return dense(params["lm_head"], x)
 
 
+STACKS = ("layers", "enc_layers", "dec_layers")  # the stacked layer trees
+
+
 def _layers(stacked):
     """The per-layer trees of a stacked tree, as views (``unbind``: one
-    stacking node for the gradient of every layer)."""
+    stacking node for the gradient of every layer); a list (the train
+    step's per-layer gradient leaves, ``_grad_tree``) is already per
+    layer."""
+    if isinstance(stacked, list):
+        return stacked
     leaves = [x.unbind(0) for x in tree_leaves(stacked)]
     return [tree_unflatten(stacked, [x[i] for x in leaves])
             for i in range(len(leaves[0]))]
+
+
+def _remat(cfg: ArchConfig, layer_fn):
+    """``layer_fn(lp, x)`` under a non-reentrant activation checkpoint
+    where ``cfg.remat`` is set and a gradient is recorded: the layer's
+    saved tensors are dropped after its forward and recomputed, by
+    running it again, when its backward needs them (the reference's
+    ``jax.checkpoint(..., policy=nothing_saveable)``). No layer draws
+    random numbers, so no RNG state is stashed."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer_fn
+
+    def run(lp, x):
+        return torch.utils.checkpoint.checkpoint(layer_fn, lp, x, use_reentrant=False,
+                                                 preserve_rng_state=False)
+
+    return run
 
 
 # --------------------------------------------------------------- forward ----
@@ -167,9 +199,10 @@ def forward(params, cfg: ArchConfig, batch):
         return _encdec_forward(params, cfg, batch)
     x, positions = _embed_inputs(params, cfg, batch)
     apply_fn = _BLOCK[cfg.block_type][1]
+    layer = _remat(cfg, lambda lp, h: apply_fn(lp, cfg, h, positions))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(params["layers"]):
-        x, a = apply_fn(lp, cfg, x, positions)
+        x, a = layer(lp, x)
         aux = aux + a
     return _lm_logits(params, cfg, x), aux
 
@@ -178,8 +211,9 @@ def _encode(params, cfg: ArchConfig, frames):
     cdt = cfg.cdtype
     x = frontend_apply(params["frontend"], cfg, frames, cdt)
     x = x + params["enc_pos_emb"][:x.shape[1]].to(cdt)[None]
+    layer = _remat(cfg, lambda lp, h: B.enc_block(lp, cfg, h, None))
     for lp in _layers(params["enc_layers"]):
-        x, _ = B.enc_block(lp, cfg, x, None)
+        x, _ = layer(lp, x)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -191,8 +225,9 @@ def _embed_decoder(params, cfg: ArchConfig, tokens):
 def _encdec_forward(params, cfg: ArchConfig, batch):
     enc_out = _encode(params, cfg, batch["frames"])
     x = _embed_decoder(params, cfg, batch["tokens"])
+    layer = _remat(cfg, lambda lp, h: B.dec_block(lp, cfg, h, enc_out, None))
     for lp in _layers(params["dec_layers"]):
-        x, _ = B.dec_block(lp, cfg, x, enc_out, None)
+        x, _ = layer(lp, x)
     return _lm_logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                    device=x.device)
 
@@ -226,34 +261,89 @@ def _value_and_grad(params, cfg: ArchConfig, batch):
             tree_unflatten(params, list(grads)))
 
 
+def _grad_leaf(p, g):
+    """``p`` detached, as a leaf that records its gradient into ``g``:
+    autograd's accumulation adds each gradient it reaches into a leaf's
+    ``.grad`` in place."""
+    leaf = p.detach().requires_grad_(True)
+    leaf.grad = g
+    return leaf
+
+
+def _grad_tree(params, grads):
+    """``params`` for ``loss_fn``, each leaf one of ``_grad_leaf`` over
+    the matching leaf of ``grads``; a stacked layer tree is given as the
+    list of its layers' trees (views of each stacked leaf, ``_layers``),
+    so that each layer's gradient lands in its slice of the stacked
+    gradient as the backward reaches it (``unbind``'s backward would
+    hold every layer's gradient until the last, and then stack them
+    into a copy). Returns (the tree, its leaves)."""
+    tree, leaves = {}, []
+    for key, sub in params.items():
+        if key in STACKS:
+            gl = tree_leaves(grads[key])
+            tree[key] = [tree_unflatten(sub, [_grad_leaf(p[i], g[i]) for p, g in
+                                               zip(tree_leaves(sub), gl)])
+                         for i in range(gl[0].shape[0])]
+            leaves += [x for lp in tree[key] for x in tree_leaves(lp)]
+        else:
+            tree[key] = tree_map(_grad_leaf, sub, grads[key])
+            leaves += tree_leaves(tree[key])
+    return tree, leaves
+
+
 def make_train_step(cfg: ArchConfig, optimizer, microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics), out of place. With ``microbatches`` > 1 the batch's leading
-    axis is cut into that many microbatches, run one after another; the
-    gradients are summed in f32 and divided by ``microbatches``, and the
-    metrics are loss = the mean total and aux = 0, as the reference
-    reports them."""
+    metrics). With ``microbatches`` > 1 the batch's leading axis is cut
+    into that many microbatches, run one after another; the gradients
+    are summed in f32 and divided by ``microbatches``, and the metrics
+    are loss = the mean total and aux = 0, as the reference reports
+    them.
+
+    The step owns what it is given (f32 parameters; an optimizer with an
+    in-place ``update_``): it returns the same parameter and state
+    tensors, stepped in place, so a caller that keeps its parameters
+    passes a clone. The gradients go into one f32 tree as autograd
+    computes them, and the update overwrites them leaf by leaf, so a
+    step holds no tree beyond the parameters, the moments and that one;
+    the results are those of the out-of-place composition
+    (``_value_and_grad``, f32 sums, ``optimizer.update``,
+    ``apply_updates``) bit for bit."""
 
     def train_step(params, opt_state, batch):
+        if optimizer.update_ is None:
+            raise ValueError("the train step updates in place: the optimizer "
+                             "has no update_")
+        if any(x.dtype != torch.float32 for x in tree_leaves(params)):
+            raise ValueError("the train step accumulates into f32 parameters' "
+                             "gradients")
+        # the f32 gradient tree, also the microbatches' accumulator: each
+        # gradient is added into it as autograd reaches its leaf (per-leaf
+        # temporaries only), as the reference adds each microbatch's
+        # gradient to its zeros
+        grads = tree_map(torch.zeros_like, params)
+        tree, leaves = _grad_tree(params, grads)
+        parts = ([batch] if microbatches == 1 else [
+            {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                          + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+            for i in range(microbatches)])
+        total = None
+        for mb in parts:
+            with torch.enable_grad():
+                t, metrics = loss_fn(tree, cfg, mb)
+                torch.autograd.backward(t, inputs=leaves)
+            t = t.detach()
+            total = t if total is None else total + t
+        del tree, leaves
         if microbatches > 1:
-            parts = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                  + tuple(v.shape[1:])) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            total = torch.zeros((), dtype=torch.float32,
-                                device=tree_leaves(params)[0].device)
-            for i in range(microbatches):
-                t, _, g = _value_and_grad(params, cfg,
-                                          {k: v[i] for k, v in parts.items()})
-                grads = tree_map(lambda a, b: a + b.float(), grads, g)
-                total = total + t
-            grads = tree_map(lambda g: g / microbatches, grads)
+            for g in tree_leaves(grads):
+                g.div_(microbatches)
             total = total / microbatches
             metrics = {"loss": total, "aux": torch.zeros_like(total)}
         else:
-            total, metrics, grads = _value_and_grad(params, cfg, batch)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+            metrics = tree_map(torch.Tensor.detach, metrics)
+        updates, opt_state = optimizer.update_(grads, opt_state, params)
+        apply_updates_(params, updates)
         return params, opt_state, dict(metrics, total=total)
 
     return train_step

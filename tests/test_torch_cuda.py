@@ -1348,7 +1348,9 @@ def test_mlstm_scan_with_grad_on_card_has_grad_fn():
     """Fault (m): a CUDA scan that wants a gradient goes through
     MLSTMScanFn (the forward and backward kernels, one launch each) and
     its gradients match the plain backward's; what the backward does not
-    take refuses, naming ROADMAP item 15c."""
+    take refuses: a final state with a gradient, naming ROADMAP item
+    15c-2, and a half input (bf16 trains since item 15c-1:
+    ``test_mlstm_scan_bf16_gradients_on_card``)."""
     _skip_without_card()
     from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as bwd
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
@@ -1370,7 +1372,113 @@ def test_mlstm_scan_with_grad_on_card_has_grad_fn():
         err = (x.grad - g).abs()
         bound = mlstm_grad_error_bound(g, dq_scale if i == 0 else None)
         assert bool((err <= bound).all()), float(err.max())
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    with pytest.raises(NotImplementedError, match="item 15c-2"):
         mlstm_scan(*xs, return_state=True)
     with pytest.raises(NotImplementedError, match="item 15c"):
         mlstm_scan(*[x.detach().half().requires_grad_() for x in xs])
+
+
+# ------------------------------------- bf16 training (ROADMAP item 15c-1) --
+
+BF16_TRAIN_FORMS = [  # (b, hq, hkv, sq, sk, d, causal, window, softcap)
+    (2, 10, 2, 160, 160, 64, True, 48, 0.0),  # GQA with a window
+    (2, 4, 4, 96, 75, 64, False, 0, 0.0),  # cross attention, Sq != Sk
+    (1, 6, 2, 130, 130, 128, True, 0, 30.0),  # GQA, a logit cap
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap", BF16_TRAIN_FORMS)
+def test_flash_bf16_with_lse_on_card(b, hq, hkv, sq, sk, d, causal, window, softcap):
+    """The bf16 forward with its log-sum-exp: the output equals the bf16
+    instance's without it bit for bit (the serving path), and the lse the
+    plain version's (f32 from the same bf16 inputs) within the f32
+    tolerance; the output within ``bf16_error_bound``."""
+    _skip_without_card()
+    form = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=sq + hq, dtype=torch.bfloat16)
+    out, lse = flash_launcher.flash_attention_cuda(q, k, v, return_lse=True, **form)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(out, flash_launcher.flash_attention_cuda(q, k, v, **form))
+    want, want_lse = flash_attention_ref(q, k, v, return_lse=True, **form)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    np.testing.assert_allclose(lse[fin].cpu().numpy(), want_lse[fin].cpu().numpy(),
+                               rtol=FLASH_TOL[torch.float32],
+                               atol=FLASH_TOL[torch.float32])
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= flash_bf16_error_bound(q, k, v, out, want, **form)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,softcap", BF16_TRAIN_FORMS)
+def test_flash_autograd_bf16_on_card(b, hq, hkv, sq, sk, d, causal, window, softcap):
+    """``FlashAttentionFn`` on bf16 q, k, v: one bf16 forward launch, the
+    backward kernels on the inputs cast up (kernels_a_call launches), and
+    bf16 gradients: the plain backward's on the same upcast inputs and
+    the forward's lse, within ``flash_grad_error_bound`` before the
+    bf16 rounding (plus one bf16 ulp of the gradient after it)."""
+    _skip_without_card()
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fbwd
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels import bf16_ulp
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_grad_error_bound)
+
+    form = dict(causal=causal, window=window, softcap=softcap)
+    xs = [x.requires_grad_() for x in _qkv(b, hq, hkv, sq, sk, d, seed=5,
+                                           dtype=torch.bfloat16)]
+    f0, b0 = flash_launcher.launches, fbwd.launches
+    out = flash_attention(*xs, **form)
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    dout = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    n = fbwd.kernels_a_call(sq, sk, hq // hkv)
+    assert (flash_launcher.launches, fbwd.launches) == (f0 + 1, b0 + n)
+    q, k, v = (x.detach() for x in xs)
+    _, lse = flash_launcher.flash_attention_cuda(q, k, v, return_lse=True, **form)
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                   out.detach().float(), dout.float(), lse, **form)
+    for x, w in zip(xs, want):
+        assert x.grad.dtype == torch.bfloat16
+        got = x.grad.float()
+        bound = flash_grad_error_bound(w) + bf16_ulp(torch.maximum(got.abs(), w.abs()))
+        assert bool(((got - w).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+def test_mlstm_scan_bf16_gradients_on_card(normalize):
+    """bf16 q, k, v through ``mlstm_scan`` under autograd: cast up to f32
+    before ``MLSTMScanFn`` (one forward launch, one backward call), the
+    gradients returned in bf16: the plain backward's on the upcast inputs
+    (fed the kernel's h) within ``mlstm_grad_error_bound``, plus one bf16
+    ulp; log_f's, f32, within the bound."""
+    _skip_without_card()
+    from repro_torch.kernels import bf16_ulp
+    from repro_torch.kernels.mlstm_scan import mlstm_scan_bwd as bwd
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.kernels.mlstm_scan.ref import (mlstm_grad_error_bound,
+                                                    mlstm_scan_bwd_ref)
+
+    q, k, v, lf = _mlstm_inputs(2, 3, 150, 32, 48, seed=13)
+    xs = [x.to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    lf = lf.clone().requires_grad_()
+    f0, b0 = mlstm_launcher.launches, bwd.launches
+    out = mlstm_scan(*xs, lf, normalize=normalize)
+    assert out.dtype == torch.float32
+    w = torch.randn(out.shape, device="cuda")
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (mlstm_launcher.launches, bwd.launches) == (f0 + 1, b0 + 1)
+    up = [x.detach().float() for x in xs]
+    want, dq_scale = mlstm_scan_bwd_ref(*up, lf.detach(), w, h=out.detach(),
+                                        normalize=normalize, dq_scale=True)
+    for i, (x, g) in enumerate(zip(xs + [lf], want)):
+        got = x.grad.float()
+        bound = mlstm_grad_error_bound(g, dq_scale if i == 0 else None)
+        if i < 3:
+            assert x.grad.dtype == torch.bfloat16
+            bound = bound + bf16_ulp(torch.maximum(got.abs(), g.abs()))
+        assert bool(((got - g).abs() <= bound).all()), i

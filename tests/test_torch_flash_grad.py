@@ -109,20 +109,38 @@ def test_transformer_encoder_grads_match_jax(d, heads):
 
 def test_refusals_under_autograd():
     """Grouped K/V heads, a window and a logit cap train (ROADMAP item
-    15b); only a non-f32 gradient refuses, naming item 15c. Without a
-    gradient bf16 runs."""
-    q = torch.zeros((1, 4, 5, 8), requires_grad=True)
-    kv = torch.zeros((1, 2, 5, 8), requires_grad=True)
+    15b), in f32 and, since item 15c-1, in bf16: the gradients come back
+    in bf16, the plain backward's f32 gradients cast down. A half or a
+    double input with a gradient refuses, naming item 15c; a K/V dtype
+    other than q's too. Without a gradient bf16 runs."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 5, 8)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 5, 8)).astype(np.float32))
+            for _ in range(2))
     k4 = torch.zeros((1, 4, 5, 8))
-    for form in (dict(), dict(window=2), dict(softcap=5.0),
-                 dict(window=2, softcap=5.0)):
-        out = flash_attention(q, kv, kv, causal=True, **form)  # GQA
-        assert "FlashAttentionFn" in type(out.grad_fn).__name__
-        dq, dk = torch.autograd.grad(out.sum(), (q, kv))
-        assert dq.shape == q.shape and dk.shape == kv.shape
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [x.to(dtype).requires_grad_(True) for x in (q, k, v)]
+        for form in (dict(), dict(window=2), dict(softcap=5.0),
+                     dict(window=2, softcap=5.0)):
+            out = flash_attention(*xs, causal=True, **form)  # GQA
+            assert "FlashAttentionFn" in type(out.grad_fn).__name__
+            assert out.dtype == dtype
+            grads = torch.autograd.grad(out.sum(), xs)
+            assert [g.shape for g in grads] == [x.shape for x in xs]
+            assert all(g.dtype == dtype for g in grads)
+            if dtype == torch.bfloat16:  # the f32 backward, cast down
+                o, lse = flash_attention_ref(*(x.detach() for x in xs),
+                                             return_lse=True, causal=True, **form)
+                want = flash_attention_bwd_ref(*(x.detach() for x in xs), o,
+                                               torch.ones_like(o), lse, causal=True,
+                                               **form)
+                assert all(torch.equal(g, w.bfloat16()) for g, w in zip(grads, want))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError, match="item 15c"):
+            flash_attention(q.to(dtype).requires_grad_(True), k4.to(dtype),
+                            k4.to(dtype), causal=True)
     with pytest.raises(NotImplementedError, match="item 15c"):
-        flash_attention(q.detach().bfloat16().requires_grad_(True),
-                        k4.bfloat16(), k4.bfloat16(), causal=True)
+        flash_attention(q.bfloat16().requires_grad_(True), k4, k4, causal=True)
     with torch.no_grad():
         assert flash_attention(q.bfloat16(), k4.bfloat16(), k4.bfloat16(),
                                causal=True, window=2).shape == q.shape

@@ -7,10 +7,12 @@ has a group a data shard, no ``act_shard``), the microbatch overrides,
 and for all ten architectures the meta-device parameter and decode-cache
 specs leaf by leaf, shape and dtype, against the reference's
 ``jax.eval_shape`` specs, so their bytes are equal; the model FLOPs;
-``make_entry``'s refusal of a train shape (ROADMAP item 15c) and its
-prefill / decode functions on a reduced model; the 40 records of
-``dryrun --all`` on the meta device and the ``--blendfl`` record; the
-hardware constants ``chip_smoke.py`` holds its bounds to.
+``make_entry``'s train entry (ROADMAP item 15c-1: the reference's
+specs, adamw and microbatches) and its prefill / decode functions on a
+reduced model; the 40 records of ``dryrun --all`` on the meta device
+and the ``--blendfl`` record; the hardware constants ``chip_smoke.py``
+holds its bounds to. The train entry's step and its sizing:
+``tests/test_torch_lm_train_bf16_step.py``.
 """
 import dataclasses
 import sys
@@ -116,9 +118,23 @@ def test_meta_specs_equal_the_reference_eval_shape(arch):
 
 
 def test_make_entry_refuses_training_naming_item_15c():
-    cfg = SP.one_card_config("phi4_mini_3p8b", SP.SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
-        SP.make_entry(cfg, SP.SHAPES["train_4k"])
+    """Item 15c-1 ported the train entry: at train_4k it builds the
+    reference's (``make_entry``'s ``fn(params, opt_state, batch)``), its
+    specs the reference's ``jax.eval_shape`` specs leaf by leaf:
+    parameters, AdamW's state (f32 moments, an int32 step) and the
+    batch; a bf16, remat config at its one-card share."""
+    shape = SP.SHAPES["train_4k"]
+    for arch in ("phi4_mini_3p8b", "qwen2_vl_2b"):
+        cfg = SP.one_card_config(arch, shape)
+        assert cfg.remat and cfg.compute_dtype == "bfloat16"
+        fn, (p_specs, o_specs, b_specs) = SP.make_entry(
+            cfg, SP.one_card_shape(shape), SP.default_microbatches(arch, shape))
+        assert callable(fn)
+        jfn, (jp, jo, jb), _ = JSP.make_entry(JSP.dryrun_config(arch, shape), shape)
+        assert _by_path(p_specs) == _by_path(jp)
+        assert _by_path(o_specs) == _by_path(jo)
+        assert _by_path(b_specs) == {
+            k: ((16,) + v[0][1:], v[1]) for k, v in _by_path(jb).items()}
 
 
 @pytest.mark.parametrize("arch", ["hymba_1p5b", "deepseek_moe_16b", "whisper_medium"])

@@ -145,14 +145,27 @@ def test_plain_backward_follows_torch_at_the_kink():
 
 def test_refusals_name_item_15b():
     """What the backward does not take refuses at the call, on every
-    device: a final state with a gradient, and any non-f32 input. Without
-    a gradient both run as before."""
+    device: a final state with a gradient (ROADMAP item 15c-2), and an
+    input neither f32 nor bf16 (a double). bf16 inputs train since item
+    15c-1: cast up to f32 before ``MLSTMScanFn``, their gradients come
+    back in bf16, the f32 gradients of the inputs cast up, cast down.
+    Without a gradient the refused calls run as before."""
     q, k, v, lf, _ = _inputs(1, 1, 8, 4, 4, seed=1)
     xs = [torch.from_numpy(x) for x in (q, k, v, lf)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 15c-2"):
         mlstm_scan(xs[0].requires_grad_(), *xs[1:], return_state=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 15c"):
         gated_linear_scan(*[x.double().requires_grad_() for x in xs])
+    bf = [x.detach().bfloat16().requires_grad_() for x in xs[:3]] + [xs[3].detach()]
+    out = gated_linear_scan(*bf)
+    assert "MLSTMScanFn" in type(out.grad_fn).__name__ and out.dtype == torch.float32
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    got = torch.autograd.grad(out, bf[:3], w)
+    up = [x.detach().float().requires_grad_() for x in bf[:3]]
+    want = torch.autograd.grad(gated_linear_scan(*up, xs[3].detach()), up, w)
+    assert all(g.dtype == torch.bfloat16 and torch.equal(g, h.bfloat16())
+               for g, h in zip(got, want))
     with torch.no_grad():
         out, (c, n) = mlstm_scan(*xs, return_state=True)
     assert out.grad_fn is None and tuple(c.shape) == (1, 1, 4, 4)

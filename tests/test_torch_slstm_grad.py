@@ -147,14 +147,16 @@ def test_plain_backward_matches_autograd_of_tie_corrected_forward(c, b, s, hd,
 
 
 def test_refusals_under_autograd():
-    """A state's gradient and bf16 wait for the language model's training
-    (ROADMAP item 15); without a gradient the same calls run."""
+    """A state's gradient waits for ROADMAP item 15c-2; the cell's
+    backward takes f32, which the models give it in bf16 compute too
+    (item 15c-1), so a bf16 input with a gradient still refuses. Without
+    a gradient the same calls run."""
     pre = torch.zeros((2, 1, 3, 4, 8), requires_grad=True)
     r = torch.zeros((1, 8, 32))
     state = tuple(torch.zeros((2, 1, 8)) for _ in range(4))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 15c-2"):
         slstm_cell(pre, r, initial_state=state)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 15c-2"):
         slstm_cell(pre, r, return_state=True)
     with pytest.raises(NotImplementedError, match="item 15"):
         slstm_cell(pre.detach().bfloat16().requires_grad_(True), r.bfloat16())
